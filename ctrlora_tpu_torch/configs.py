@@ -1,0 +1,153 @@
+"""Configuration dataclasses of the PyTorch port.
+
+The fields of ``ctrlora_tpu/configs.py`` that the ported path reads, with the
+same names and defaults, without JAX and without the YAML loaders.
+A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
+``torch.dtype``. Only the presets the controlled-sampling path needs are
+here: ``ctrlora_inference_config`` and ``tiny_test_config``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    n_loras: int = 0
+    rank: int = 128
+    network_alpha: Optional[float] = None
+    switchable_banks: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_heads: int = 8
+    transformer_depth: int = 1
+    context_dim: Optional[int] = 768
+    dtype: str = "bfloat16"
+    use_flash_attention: bool = True
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    hint_mode: str = "latent"  # the port implements only 'latent'
+    lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    embed_dim: int = 4
+    z_channels: int = 4
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    in_channels: int = 3
+    out_channels: int = 3
+    double_z: bool = True
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    layer: str = "last"  # the port implements only 'last'
+    hidden_act: str = "quick_gelu"
+    dtype: str = "float32"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    timesteps: int = 1000
+    linear_start: float = 0.00085
+    linear_end: float = 0.012
+    scale_factor: float = 0.18215
+    parameterization: str = "eps"  # the port implements only 'eps'
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "ctrlora_sd15"
+    diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    control: Optional[ControlNetConfig] = dataclasses.field(default_factory=ControlNetConfig)
+    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+
+
+def ctrlora_inference_config(lora_num: int = 1, lora_rank: int = 128) -> ModelConfig:
+    """Switchable N-LoRA inference model at SD1.5 width, bf16 UNet and VAE,
+    fp32 CLIP (the JAX package's preset of the same name)."""
+    unet = UNetConfig()
+    return ModelConfig(
+        name="ctrlora_inference",
+        unet=unet,
+        control=ControlNetConfig(
+            unet=unet,
+            hint_mode="latent",
+            lora=LoRAConfig(n_loras=lora_num, rank=lora_rank, switchable_banks=True),
+        ),
+    )
+
+
+def tiny_test_config(
+    n_loras: int = 0, switchable_banks: bool = False, hint_mode: str = "latent"
+) -> ModelConfig:
+    """Miniature model for unit tests: same topology, tiny widths, fp32."""
+    unet = UNetConfig(
+        model_channels=32,
+        channel_mult=(1, 2),
+        num_res_blocks=1,
+        attention_resolutions=(2,),
+        num_heads=2,
+        context_dim=64,
+        dtype="float32",
+        use_flash_attention=False,
+    )
+    return ModelConfig(
+        name="tiny",
+        unet=unet,
+        control=ControlNetConfig(
+            unet=unet,
+            hint_mode=hint_mode,
+            lora=LoRAConfig(n_loras=n_loras, rank=4, switchable_banks=switchable_banks),
+        ),
+        vae=VAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1, dtype="float32"),
+        clip=CLIPTextConfig(
+            vocab_size=128, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=2, max_length=16,
+        ),
+    )

@@ -1,0 +1,207 @@
+"""SD1.5 UNet with control-residual injection, and the latent-hint
+ControlNet (counterpart of ``ctrlora_tpu/models/unet.py``).
+
+Public tensors keep the JAX layout: latents, hints and control taps are
+NHWC, contexts [B, S, D]. Inside, activations are NCHW channels-last, so
+the layout changes at the boundary are free views.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ctrlora_tpu_torch.configs import ControlNetConfig, UNetConfig
+from ctrlora_tpu_torch.models.attention import SpatialTransformer
+from ctrlora_tpu_torch.models.layers import (
+    CL, Conv, Downsample, GroupNorm32, ResBlock, TimestepEmbed, Upsample,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderStep:
+    kind: str  # 'conv' | 'res' | 'down'
+    out_ch: int
+    attn: bool = False
+    ds: int = 1
+
+
+def encoder_plan(cfg: UNetConfig) -> Tuple[List[EncoderStep], List[int], int]:
+    """Static topology of the input blocks; returns (steps, skip_chans, ch)."""
+    steps = [EncoderStep("conv", cfg.model_channels)]
+    chans = [cfg.model_channels]
+    ch, ds = cfg.model_channels, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            ch = mult * cfg.model_channels
+            steps.append(EncoderStep("res", ch, attn=ds in cfg.attention_resolutions, ds=ds))
+            chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            steps.append(EncoderStep("down", ch, ds=ds))
+            chans.append(ch)
+            ds *= 2
+    return steps, chans, ch
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderStep:
+    skip_ch: int
+    out_ch: int
+    attn: bool
+    upsample: bool
+    ds: int
+
+
+def decoder_plan(cfg: UNetConfig) -> List[DecoderStep]:
+    _, chans, _ = encoder_plan(cfg)
+    chans = list(chans)
+    ds = 2 ** (len(cfg.channel_mult) - 1)
+    steps = []
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            skip = chans.pop()
+            up = level > 0 and i == cfg.num_res_blocks
+            steps.append(DecoderStep(skip, cfg.model_channels * mult,
+                                     attn=ds in cfg.attention_resolutions,
+                                     upsample=up, ds=ds))
+            if up:
+                ds //= 2
+    return steps
+
+
+def _attn(cfg: UNetConfig, ch: int) -> SpatialTransformer:
+    return SpatialTransformer(ch, cfg.num_heads, ch // cfg.num_heads,
+                              depth=cfg.transformer_depth, context_dim=cfg.context_dim,
+                              use_flash=cfg.use_flash_attention)
+
+
+def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int) -> int:
+    """Adds in_conv and the in_{i}_* blocks; returns the output width."""
+    emb_dim = 4 * cfg.model_channels
+    ch = cfg.model_channels
+    module.in_conv = Conv(in_channels, ch)
+    for i, step in enumerate(encoder_plan(cfg)[0][1:], start=1):
+        if step.kind == "res":
+            module.add_module(f"in_{i}_res", ResBlock(ch, step.out_ch, emb_dim))
+            ch = step.out_ch
+            if step.attn:
+                module.add_module(f"in_{i}_attn", _attn(cfg, ch))
+        else:
+            module.add_module(f"in_{i}_down", Downsample(ch, step.out_ch))
+    module.mid_res0 = ResBlock(ch, ch, emb_dim)
+    module.mid_attn = _attn(cfg, ch)
+    module.mid_res1 = ResBlock(ch, ch, emb_dim)
+    return ch
+
+
+def _nchw(x: torch.Tensor, dtype) -> torch.Tensor:
+    """NHWC -> NCHW-logical channels-last in `dtype`."""
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous(memory_format=CL)
+
+
+class UNet(nn.Module):
+    """Controlled SD UNet: `control` holds 13 NHWC residuals; 0..11 add onto
+    the encoder skips (consumed in reverse), 12 onto the middle output."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.time_embed = TimestepEmbed(cfg.model_channels)
+        ch = _build_encoder(self, cfg, cfg.in_channels)
+        emb_dim = 4 * cfg.model_channels
+        for i, step in enumerate(decoder_plan(cfg)):
+            self.add_module(f"out_{i}_res", ResBlock(ch + step.skip_ch, step.out_ch, emb_dim))
+            ch = step.out_ch
+            if step.attn:
+                self.add_module(f"out_{i}_attn", _attn(cfg, ch))
+            if step.upsample:
+                self.add_module(f"out_{i}_up", Upsample(ch, ch))
+        self.norm_out = GroupNorm32(ch, silu=True)
+        self.conv_out = Conv(ch, cfg.out_channels)
+
+    def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
+                emb_rows: Optional[dict] = None):
+        """x [B, H, W, C] noisy latent -> [B, H, W, C] fp32 model output.
+        emb_rows: {res_block_name: [1, C]} precomputed emb_proj rows."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        emb = self.time_embed(timesteps, dt) if emb_rows is None else None
+        row = lambda name: None if emb_rows is None else emb_rows[name]
+        context = context.to(dt)
+        hs = []
+        h = self.in_conv(_nchw(x, dt))
+        hs.append(h)
+        for i, step in enumerate(encoder_plan(cfg)[0][1:], start=1):
+            if step.kind == "res":
+                h = getattr(self, f"in_{i}_res")(h, emb, row(f"in_{i}_res"))
+                if step.attn:
+                    h = getattr(self, f"in_{i}_attn")(h, context)
+            else:
+                h = getattr(self, f"in_{i}_down")(h)
+            hs.append(h)
+        h = self.mid_res0(h, emb, row("mid_res0"))
+        h = self.mid_attn(h, context)
+        h = self.mid_res1(h, emb, row("mid_res1"))
+        n_enc = len(hs)
+        if control is not None:
+            if len(control) != n_enc + 1:
+                raise ValueError(f"expected {n_enc + 1} control residuals, got {len(control)}")
+            h = h + _nchw(control[n_enc], dt)
+        for i, step in enumerate(decoder_plan(cfg)):
+            skip = hs.pop()
+            if control is not None:
+                skip = skip + _nchw(control[n_enc - 1 - i], dt)
+            h = torch.cat([h, skip], dim=1)
+            h = getattr(self, f"out_{i}_res")(h, emb, row(f"out_{i}_res"))
+            if step.attn:
+                h = getattr(self, f"out_{i}_attn")(h, context)
+            if step.upsample:
+                h = getattr(self, f"out_{i}_up")(h)
+        h = self.conv_out(self.norm_out(h))
+        return h.permute(0, 2, 3, 1).float()
+
+
+class ControlNet(nn.Module):
+    """Latent-hint control branch (CtrLoRA): the VAE-encoded hint is the
+    input stream; zero-conv taps after every input block and the middle.
+    Built for the fused tree (no LoRA parameters, no banks)."""
+
+    def __init__(self, cfg: ControlNetConfig):
+        super().__init__()
+        if cfg.hint_mode != "latent" or cfg.lora.n_loras:
+            raise ValueError("the port's ControlNet is the fused latent-hint branch")
+        ucfg = cfg.unet
+        self.cfg = cfg
+        self.time_embed = TimestepEmbed(ucfg.model_channels)
+        ch = _build_encoder(self, ucfg, ucfg.in_channels)
+        for i, step in enumerate(encoder_plan(ucfg)[0]):
+            self.add_module(f"zero_{i}", Conv(step.out_ch, step.out_ch, kernel_size=1))
+        self.zero_mid = Conv(ch, ch, kernel_size=1)
+
+    def forward(self, hint, timesteps, context, emb_rows: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """hint [B, h, w, 4] latent -> 13 NHWC taps in the compute dtype."""
+        ucfg = self.cfg.unet
+        dt = ucfg.compute_dtype
+        emb = self.time_embed(timesteps, dt) if emb_rows is None else None
+        row = lambda name: None if emb_rows is None else emb_rows[name]
+        context = context.to(dt)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        h = self.in_conv(_nchw(hint, dt))
+        outs = [nhwc(self.zero_0(h))]
+        for i, step in enumerate(encoder_plan(ucfg)[0][1:], start=1):
+            if step.kind == "res":
+                h = getattr(self, f"in_{i}_res")(h, emb, row(f"in_{i}_res"))
+                if step.attn:
+                    h = getattr(self, f"in_{i}_attn")(h, context)
+            else:
+                h = getattr(self, f"in_{i}_down")(h)
+            outs.append(nhwc(getattr(self, f"zero_{i}")(h)))
+        h = self.mid_res0(h, emb, row("mid_res0"))
+        h = self.mid_attn(h, context)
+        h = self.mid_res1(h, emb, row("mid_res1"))
+        outs.append(nhwc(self.zero_mid(h)))
+        return tuple(outs)

@@ -1,0 +1,100 @@
+"""Build and load the package's CUDA kernels.
+
+All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+is keyed on a hash of the sources and the flags, goes to
+``ctrlora_tpu_torch/_build/`` (listed in ``.gitignore``) and happens at the
+first CUDA use, never at import. Each C entry point launches on the stream
+it is given and returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points and their argument types (pointers and the stream are
+# c_void_p: a bare Python int would be passed as a 32-bit int)
+_ENTRIES = {
+    # q, k, v, out, lse, B, H, Sq, Sk, D, strides (b, s, h) of q, k, v, out,
+    # scale, stream
+    "ctrlora_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [ctypes.c_longlong] * 12 + [_F, _P],
+    # x, w1 [2F, C], b1, w2 [C, F], b2, out, rows, C, F, stream
+    "ctrlora_geglu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def cuda_lib() -> ctypes.CDLL:
+    """The kernel library, built on first call from the sources in csrc/."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"libctrlora_kernels_{source_hash()}.so"
+        if not so.exists():
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,36 @@
+"""Sampler plumbing shared by the port's samplers: the hoisted
+time-embedding tables (counterpart of ``ctrlora_tpu/sampling/common.py``)."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
+from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+
+
+def make_emb_row_tables(pipe: CtrLoraPipeline, n_conds: int, timesteps: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Optional[dict]]]:
+    """Packs every branch's emb_proj table into one [S, n, Cmax] tensor and
+    returns (packed, rows_of): rows_of(packed[i]) rebuilds step i's
+    per-branch rows dict for ``pipe.apply_model`` with ONE kernel-D launch."""
+    tables = pipe.emb_proj_tables(timesteps, n_conds)
+    flat = {f"u.{k}": v for k, v in tables["unet"].items()}
+    for j, d in enumerate(tables["control"]):
+        flat.update({f"c{j}.{k}": v for k, v in d.items()})
+    packed, names, sizes = unpack_ops.pack_row_tables(flat)
+
+    def rows_of(block: torch.Tensor) -> dict:
+        rows = unpack_ops.unpack_rows(block, sizes)
+        out = {"unet": {}, "control": tuple({} for _ in range(n_conds))}
+        for name, row in zip(names, rows):
+            scope, key = name.split(".", 1)
+            if scope == "u":
+                out["unet"][key] = row
+            else:
+                out["control"][int(scope[1:])][key] = row
+        return out
+
+    return packed, rows_of

@@ -1,0 +1,84 @@
+"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding (torch).
+
+The tables are computed in float64 and stored as float32, exactly as
+``ctrlora_tpu/schedules.py`` does, so both packages sample with the same
+numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSchedule:
+    """The per-timestep tables sampling needs, float32."""
+
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+
+    @property
+    def num_timesteps(self) -> int:
+        return int(self.betas.shape[0])
+
+
+def make_schedule(timesteps: int = 1000, linear_start: float = 0.00085,
+                  linear_end: float = 0.012) -> DiffusionSchedule:
+    """SD's "linear" schedule: betas linear in sqrt(beta)."""
+    betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
+    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    return DiffusionSchedule(betas=betas.astype(np.float32),
+                             alphas_cumprod=alphas_cumprod.astype(np.float32))
+
+
+def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
+    """Uniform DDIM sub-sequence of DDPM timesteps, shifted by one."""
+    c = num_ddpm_timesteps // num_ddim_timesteps
+    return np.arange(num_ddim_timesteps) * c + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMSchedule:
+    """Per-DDIM-step tables, ordered from small t to large t."""
+
+    timesteps: np.ndarray  # int32 [S]
+    alphas: np.ndarray  # float32 [S]
+    alphas_prev: np.ndarray  # float32 [S]
+    sqrt_one_minus_alphas: np.ndarray  # float32 [S]
+
+    @property
+    def num_steps(self) -> int:
+        return int(self.timesteps.shape[0])
+
+
+def make_ddim_schedule(schedule: DiffusionSchedule, num_ddim_steps: int) -> DDIMSchedule:
+    """Deterministic (eta 0) DDIM tables."""
+    ts = make_ddim_timesteps(num_ddim_steps, schedule.num_timesteps)
+    alphacums = schedule.alphas_cumprod.astype(np.float64)
+    alphas = alphacums[ts]
+    alphas_prev = np.asarray([alphacums[0]] + alphacums[ts[:-1]].tolist())
+    return DDIMSchedule(
+        timesteps=ts.astype(np.int32),
+        alphas=alphas.astype(np.float32),
+        alphas_prev=alphas_prev.astype(np.float32),
+        sqrt_one_minus_alphas=np.sqrt(1.0 - alphas).astype(np.float32),
+    )
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal embeddings [N] -> [N, dim] float32, layout [cos | sin]."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps.to(torch.float32)[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb

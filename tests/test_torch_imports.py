@@ -1,0 +1,66 @@
+"""Import hygiene of the PyTorch port: the package and chip_smoke.py import
+no JAX, no flax and nothing of ctrlora_tpu (the GPU host has none of them),
+and the kernel build directory is ignored by git."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import ctrlora_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    names = ["ctrlora_tpu_torch"]
+    for info in pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_cover_the_slice():
+    names = set(_modules())
+    for mod in ("configs", "schedules", "convert", "lora_fuse", "pipeline",
+                "ops.group_norm", "ops.flash_attention", "ops.geglu_ffn", "ops.unpack_rows",
+                "ops._build", "models.layers", "models.attention", "models.unet",
+                "models.vae", "models.clip", "sampling.common", "sampling.ddim"):
+        assert f"ctrlora_tpu_torch.{mod}" in names
+
+
+def test_no_jax_in_port_or_chip_smoke():
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ctrlora_tpu'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_build_dir_is_gitignored():
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        lines = {ln.strip() for ln in f}
+    assert "ctrlora_tpu_torch/_build/" in lines
+    from ctrlora_tpu_torch.ops import _build
+
+    assert os.path.relpath(_build.BUILD_DIR, ROOT) == "ctrlora_tpu_torch/_build"
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card chip_smoke.py exits non-zero and prints no result."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run the full slice")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
