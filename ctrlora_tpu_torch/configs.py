@@ -4,7 +4,8 @@ The fields of ``ctrlora_tpu/configs.py`` that the ported path reads, with the
 same names and defaults, without JAX and without the YAML loaders.
 A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
 ``torch.dtype``. Only the presets the controlled-sampling path needs are
-here: ``ctrlora_inference_config`` and ``tiny_test_config``.
+here: ``ctrlora_inference_config``, ``ctrlora_finetune_config`` and
+``tiny_test_config``, plus ``TrainConfig`` for the finetune step.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: Optional[int] = 768
+    use_checkpoint: bool = True  # rematerialise ResBlocks and transformers in training
     dtype: str = "bfloat16"
     use_flash_attention: bool = True
 
@@ -96,6 +98,10 @@ class DiffusionConfig:
     linear_end: float = 0.012
     scale_factor: float = 0.18215
     parameterization: str = "eps"  # the port implements only 'eps'
+    l_simple_weight: float = 1.0
+    original_elbo_weight: float = 0.0
+    logvar_init: float = 0.0
+    sd_locked: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +114,54 @@ class ModelConfig:
     clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Finetune settings, the JAX ``TrainConfig``'s fields and defaults
+    (AdamW as torch's: lr 1e-5, weight decay 1e-2, betas 0.9/0.999, eps
+    1e-8). ``trainable``: 'all', 'lora' or 'full' (``training.train_state``);
+    ``use_ema`` and ``shard_opt_state`` are not ported (they must stay
+    False)."""
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 1e-2
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    batch_size: int = 4
+    grad_accum: int = 1
+    max_steps: int = 700_000
+    trainable: str = "all"
+    norm_trainable: bool = True
+    zero_trainable: bool = True
+    sd_locked: bool = True
+    prompt_dropout: float = 0.3
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    shard_opt_state: bool = False
+    seed: int = 42
+    log_every: int = 100
+    ckpt_every: int = 10_000
+    image_log_every: int = 1000
+
+
+def ctrlora_finetune_config(lora_rank: int = 128, ft_with_lora: bool = True) -> ModelConfig:
+    """Novel-condition finetune at SD1.5 width: one rank-r LoRA in the
+    latent-hint ControlNet, no banks, rematerialised blocks (the JAX
+    package's preset of the same name)."""
+    return ModelConfig(
+        name="ctrlora_finetune",
+        control=ControlNetConfig(
+            hint_mode="latent",
+            lora=LoRAConfig(n_loras=1 if ft_with_lora else 0, rank=lora_rank),
+        ),
+    )
+
+
 def ctrlora_inference_config(lora_num: int = 1, lora_rank: int = 128) -> ModelConfig:
     """Switchable N-LoRA inference model at SD1.5 width, bf16 UNet and VAE,
-    fp32 CLIP (the JAX package's preset of the same name)."""
-    unet = UNetConfig()
+    fp32 CLIP (the JAX package's preset of the same name); no
+    rematerialisation, as there is no backward pass."""
+    unet = UNetConfig(use_checkpoint=False)
     return ModelConfig(
         name="ctrlora_inference",
         unet=unet,
@@ -134,6 +184,7 @@ def tiny_test_config(
         attention_resolutions=(2,),
         num_heads=2,
         context_dim=64,
+        use_checkpoint=False,
         dtype="float32",
         use_flash_attention=False,
     )

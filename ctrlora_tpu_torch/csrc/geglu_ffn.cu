@@ -47,15 +47,6 @@ constexpr int kStages = 3;     // cp.async ring depth
 // barrier, so wide tiles matter: 64-wide ones ran the C = 1280 site 3x slower
 constexpr int TK = 320;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
@@ -67,22 +58,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16x16, row-major) at `p` = element (row 0, col 0) of the
-// fragment, row stride `ld`; g/tig are the lane's group and thread-in-group
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld, int g,
-                                       int tig) {
-  const bf16* r0 = p + g * ld + tig * 2;
-  const bf16* r1 = r0 + 8 * ld;
-  a[0] = ld32(r0);
-  a[1] = ld32(r1);
-  a[2] = ld32(r0 + 8);
-  a[3] = ld32(r1 + 8);
 }
 
 template <int C, int BR>

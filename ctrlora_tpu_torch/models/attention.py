@@ -1,13 +1,17 @@
-"""Spatial transformer stack of the port: fused-qkv self-attention, plain
-cross-attention, GEGLU feed-forward (counterpart of
-``ctrlora_tpu/models/attention.py`` on its fused, LoRA-free path).
+"""Spatial transformer stack of the port: self- and cross-attention, GEGLU
+feed-forward (counterpart of ``ctrlora_tpu/models/attention.py``).
 
-Self-attention is ONE projection dot with the concatenated [to_q | to_k |
-to_v] weight, whose [B, S, 3*H*D] output the flash kernel reads directly
-(kernel B). The concatenation is made once by ``fuse_projections`` (called
-from ``lora_fuse.cast_params_for_inference``); until then it is made per
-call. The feed-forward hands its ``proj``/``out`` weights to the fused GEGLU
-kernel (kernel C).
+Without LoRA, self-attention is ONE projection dot with the concatenated
+[to_q | to_k | to_v] weight, whose [B, S, 3*H*D] output the flash kernel
+reads directly (kernel B, fused-qkv entry). The concatenation is made once
+by ``fuse_projections`` (called from ``lora_fuse.cast_params_for_inference``);
+until then it is made per call. The feed-forward hands its ``proj``/``out``
+weights to the fused GEGLU kernel (kernel C).
+
+With LoRA (the unfused control tree of training), q, k and v are separate
+LoRA ``Dense`` projections and self-attention reads them through the
+kernel's BSHD entry; the feed-forward is LoRA ``Dense`` -> split -> exact
+GELU gate -> LoRA ``Dense`` with no kernel, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,34 +22,46 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctrlora_tpu_torch.models.layers import CL, Conv, Dense, GroupNorm32, LayerNorm32
+from ctrlora_tpu_torch.configs import LoRAConfig
+from ctrlora_tpu_torch.models.layers import (
+    CL, Conv, Dense, GroupNorm32, LayerNorm32, LoraIdx, has_lora,
+)
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 
 
 class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None, use_flash: bool = True):
+                 context_dim: Optional[int] = None, use_flash: bool = True,
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.use_flash = heads, dim_head, use_flash
         self.is_self = context_dim is None
+        self.lora = has_lora(lora)
         cdim = query_dim if context_dim is None else context_dim
-        self.to_q = Dense(query_dim, inner, bias=False)
-        self.to_k = Dense(cdim, inner, bias=False)
-        self.to_v = Dense(cdim, inner, bias=False)
-        self.to_out = Dense(inner, query_dim)
+        self.to_q = Dense(query_dim, inner, bias=False, lora=lora)
+        self.to_k = Dense(cdim, inner, bias=False, lora=lora)
+        self.to_v = Dense(cdim, inner, bias=False, lora=lora)
+        self.to_out = Dense(inner, query_dim, lora=lora)
         self.wqkv: Optional[torch.Tensor] = None  # not a parameter: derived
 
     def fuse_projections(self) -> None:
         """Concatenate the self-attention q|k|v weights once (after the
         weights are final)."""
-        if self.is_self:
+        if self.is_self and not self.lora:
             self.wqkv = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, lora_idx: LoraIdx = None):
         b, s, _ = x.shape
         h, d = self.heads, self.dim_head
+        if self.lora:
+            ctx = x if context is None else context
+            heads4 = lambda t: t.unflatten(-1, (h, d))  # [B, S, H, D] view
+            out = fa_ops.dot_product_attention_bshd(
+                heads4(self.to_q(x, lora_idx)), heads4(self.to_k(ctx, lora_idx)),
+                heads4(self.to_v(ctx, lora_idx)), use_flash=self.use_flash)
+            return self.to_out(out, lora_idx)
         if context is None:
             w = self.wqkv
             if w is None:
@@ -65,13 +81,17 @@ class CrossAttention(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU feed-forward: proj (C -> 2F), a * gelu(g), out (F -> C)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, lora: Optional[LoRAConfig] = None):
         super().__init__()
         inner = dim * mult
-        self.proj = Dense(dim, 2 * inner)
-        self.out = Dense(inner, dim)
+        self.lora = has_lora(lora)
+        self.proj = Dense(dim, 2 * inner, lora=lora)
+        self.out = Dense(inner, dim, lora=lora)
 
-    def forward(self, x):
+    def forward(self, x, lora_idx: LoraIdx = None):
+        if self.lora:
+            a, gate = self.proj(x, lora_idx).chunk(2, dim=-1)
+            return self.out(a * F.gelu(gate), lora_idx)
         args = (x.contiguous(), self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype),
                 self.out.weight.to(x.dtype), self.out.bias.to(x.dtype))
         if geglu_ops.geglu_shapes_ok(*args):
@@ -83,20 +103,20 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN self-attention -> cross-attention -> feed-forward."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int],
-                 use_flash: bool = True):
+                 use_flash: bool = True, lora: Optional[LoRAConfig] = None):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = CrossAttention(dim, heads, dim_head, use_flash=use_flash)
+        self.attn1 = CrossAttention(dim, heads, dim_head, use_flash=use_flash, lora=lora)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
-                                    use_flash=use_flash)
+                                    use_flash=use_flash, lora=lora)
         self.norm3 = LayerNorm32(dim)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, lora=lora)
 
-    def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+    def forward(self, x, context, lora_idx: LoraIdx = None):
+        x = x + self.attn1(self.norm1(x), lora_idx=lora_idx)
+        x = x + self.attn2(self.norm2(x), context, lora_idx)
+        return x + self.ff(self.norm3(x), lora_idx)
 
 
 class SpatialTransformer(nn.Module):
@@ -104,7 +124,8 @@ class SpatialTransformer(nn.Module):
     the input (use_linear=False)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None, use_flash: bool = True):
+                 context_dim: Optional[int] = None, use_flash: bool = True,
+                 lora: Optional[LoRAConfig] = None):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -112,16 +133,16 @@ class SpatialTransformer(nn.Module):
         self.proj_in = Conv(channels, inner, kernel_size=1)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
-                inner, heads, dim_head, context_dim, use_flash=use_flash))
+                inner, heads, dim_head, context_dim, use_flash=use_flash, lora=lora))
         self.proj_out = Conv(inner, channels, kernel_size=1)
 
-    def forward(self, x, context):
+    def forward(self, x, context, lora_idx: LoraIdx = None):
         b, c, hh, ww = x.shape
         x_in = x
         x = self.proj_in(self.norm(x)).contiguous(memory_format=CL)
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, context)
+            x = getattr(self, f"block_{i}")(x, context, lora_idx)
         x = x.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

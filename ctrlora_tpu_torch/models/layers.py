@@ -1,9 +1,12 @@
 """Core layers of the port: dense and conv layers that compute in their
 input's dtype, fp32 norms, the timestep MLP, ResBlock and resampling.
 
-Counterpart of ``ctrlora_tpu/models/layers.py`` for the fused inference tree:
-no LoRA banks (``lora_fuse`` folds them before the weights load), submodules
-named after the flax scopes so ``convert.params_from_jax`` is a path walk.
+Counterpart of ``ctrlora_tpu/models/layers.py``. ``Dense`` optionally holds
+stacked LoRA adapters (``lora_down`` [n, in, r], ``lora_up`` [n, r, out],
+the JAX names and layouts), selected per call by ``lora_idx``: the unfused
+tree that training updates. The serving path loads the fused tree instead
+(``lora_fuse``), with no LoRA parameters. Submodules are named after the
+flax scopes so ``convert.params_from_jax`` is a path walk.
 Spatial tensors are NCHW-logical in ``torch.channels_last`` memory, so
 ``x.permute(0, 2, 3, 1)`` is the free, contiguous [B, H, W, C] view the
 GroupNorm kernel reads.
@@ -12,25 +15,60 @@ GroupNorm kernel reads.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ctrlora_tpu_torch.configs import LoRAConfig
 from ctrlora_tpu_torch.ops import group_norm as gn_ops
 from ctrlora_tpu_torch.schedules import timestep_embedding
 
 CL = torch.channels_last
+LoraIdx = Optional[Union[int, torch.Tensor]]
+
+
+def _take(bank: torch.Tensor, idx: LoraIdx) -> torch.Tensor:
+    """One slice of a [n, ...] bank; an out-of-range index selects the
+    nearest end (the JAX ``_take``'s mode='clip')."""
+    if idx is None:
+        return bank[0]
+    if isinstance(idx, torch.Tensor):
+        return bank[idx.reshape(()).clamp(0, bank.shape[0] - 1)]
+    return bank[min(max(int(idx), 0), bank.shape[0] - 1)]
+
+
+def has_lora(lora: Optional[LoRAConfig]) -> bool:
+    return lora is not None and lora.n_loras > 0
 
 
 class Dense(nn.Linear):
     """Linear layer computing in its input's dtype (weights cast on use, a
-    no-op once ``lora_fuse.cast_params_for_inference`` has cast them)."""
+    no-op once ``lora_fuse.cast_params_for_inference`` has cast them), with
+    optional stacked LoRA adapters: y = x W^T + b + (x down[i]) up[i],
+    the LoRA term scaled by network_alpha / rank when alpha is set.
+    ``lora_down`` starts N(0, 1/rank), ``lora_up`` at zero, as in JAX."""
 
-    def forward(self, x):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 lora: Optional[LoRAConfig] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.lora = lora if has_lora(lora) else None
+        if self.lora is not None:
+            n, r = lora.n_loras, lora.rank
+            self.lora_down = nn.Parameter(torch.randn(n, in_features, r) / r)
+            self.lora_up = nn.Parameter(torch.zeros(n, r, out_features))
+
+    def forward(self, x, lora_idx: LoraIdx = None):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), b)
+        y = F.linear(x, self.weight.to(x.dtype), b)
+        if self.lora is None:
+            return y
+        z = (x @ _take(self.lora_down, lora_idx).to(x.dtype)) @ _take(
+            self.lora_up, lora_idx).to(x.dtype)
+        if self.lora.network_alpha is not None:
+            z = z * (self.lora.network_alpha / self.lora.rank)
+        return y + z
 
 
 class Conv(nn.Conv2d):
@@ -88,37 +126,39 @@ class LayerNorm32(nn.Module):
 
 
 class TimestepEmbed(nn.Module):
-    """Sinusoidal embedding -> Dense -> SiLU -> Dense."""
+    """Sinusoidal embedding -> Dense -> SiLU -> Dense (LoRA sites in the
+    control branch)."""
 
-    def __init__(self, model_channels: int):
+    def __init__(self, model_channels: int, lora: Optional[LoRAConfig] = None):
         super().__init__()
         self.model_channels = model_channels
-        self.dense0 = Dense(model_channels, 4 * model_channels)
-        self.dense1 = Dense(4 * model_channels, 4 * model_channels)
+        self.dense0 = Dense(model_channels, 4 * model_channels, lora=lora)
+        self.dense1 = Dense(4 * model_channels, 4 * model_channels, lora=lora)
 
-    def forward(self, timesteps, dtype):
+    def forward(self, timesteps, dtype, lora_idx: LoraIdx = None):
         emb = timestep_embedding(timesteps, self.model_channels).to(dtype)
-        return self.dense1(F.silu(self.dense0(emb)))
+        return self.dense1(F.silu(self.dense0(emb, lora_idx)), lora_idx)
 
 
 class ResBlock(nn.Module):
-    """UNet residual block. With ``emb_row`` (the precomputed emb_proj output
-    of this block, one row for the whole batch) the row folds into
-    out_norm's statistics instead of being added to h."""
+    """UNet residual block. The emb_proj row ([B, C] from ``emb``, or the
+    precomputed [1, C] ``emb_row`` of the samplers) folds into out_norm's
+    statistics instead of being added to h; its gradient flows back through
+    the GroupNorm's add_row. emb_proj is a LoRA site in the control branch."""
 
-    def __init__(self, cin: int, cout: int, emb_dim: int):
+    def __init__(self, cin: int, cout: int, emb_dim: int, lora: Optional[LoRAConfig] = None):
         super().__init__()
         self.in_norm = GroupNorm32(cin, silu=True)
         self.in_conv = Conv(cin, cout)
-        self.emb_proj = Dense(emb_dim, cout)
+        self.emb_proj = Dense(emb_dim, cout, lora=lora)
         self.out_norm = GroupNorm32(cout, silu=True)
         self.out_conv = Conv(cout, cout)
         self.skip = Conv(cin, cout, kernel_size=1) if cin != cout else None
 
-    def forward(self, x, emb=None, emb_row=None):
+    def forward(self, x, emb=None, emb_row=None, lora_idx: LoraIdx = None):
         h = self.in_conv(self.in_norm(x))
         if emb_row is None:
-            emb_row = self.emb_proj(F.silu(emb))
+            emb_row = self.emb_proj(F.silu(emb), lora_idx)
         h = self.out_conv(self.out_norm(h, add_row=emb_row))
         if self.skip is not None:
             x = self.skip(x)

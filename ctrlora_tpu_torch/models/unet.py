@@ -4,6 +4,10 @@ ControlNet (counterpart of ``ctrlora_tpu/models/unet.py``).
 Public tensors keep the JAX layout: latents, hints and control taps are
 NHWC, contexts [B, S, D]. Inside, activations are NCHW channels-last, so
 the layout changes at the boundary are free views.
+
+With ``cfg.use_checkpoint`` and grad enabled, every ResBlock and
+SpatialTransformer is rematerialised in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``).
 """
 
 from __future__ import annotations
@@ -13,11 +17,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ctrlora_tpu_torch.configs import ControlNetConfig, UNetConfig
+from ctrlora_tpu_torch.configs import ControlNetConfig, LoRAConfig, UNetConfig
 from ctrlora_tpu_torch.models.attention import SpatialTransformer
 from ctrlora_tpu_torch.models.layers import (
-    CL, Conv, Downsample, GroupNorm32, ResBlock, TimestepEmbed, Upsample,
+    CL, Conv, Downsample, GroupNorm32, LoraIdx, ResBlock, TimestepEmbed, Upsample,
 )
 
 
@@ -72,29 +77,38 @@ def decoder_plan(cfg: UNetConfig) -> List[DecoderStep]:
     return steps
 
 
-def _attn(cfg: UNetConfig, ch: int) -> SpatialTransformer:
+def _attn(cfg: UNetConfig, ch: int, lora: Optional[LoRAConfig] = None) -> SpatialTransformer:
     return SpatialTransformer(ch, cfg.num_heads, ch // cfg.num_heads,
                               depth=cfg.transformer_depth, context_dim=cfg.context_dim,
-                              use_flash=cfg.use_flash_attention)
+                              use_flash=cfg.use_flash_attention, lora=lora)
 
 
-def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int) -> int:
+def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
+                   lora: Optional[LoRAConfig] = None) -> int:
     """Adds in_conv and the in_{i}_* blocks; returns the output width."""
     emb_dim = 4 * cfg.model_channels
     ch = cfg.model_channels
     module.in_conv = Conv(in_channels, ch)
     for i, step in enumerate(encoder_plan(cfg)[0][1:], start=1):
         if step.kind == "res":
-            module.add_module(f"in_{i}_res", ResBlock(ch, step.out_ch, emb_dim))
+            module.add_module(f"in_{i}_res", ResBlock(ch, step.out_ch, emb_dim, lora))
             ch = step.out_ch
             if step.attn:
-                module.add_module(f"in_{i}_attn", _attn(cfg, ch))
+                module.add_module(f"in_{i}_attn", _attn(cfg, ch, lora))
         else:
             module.add_module(f"in_{i}_down", Downsample(ch, step.out_ch))
-    module.mid_res0 = ResBlock(ch, ch, emb_dim)
-    module.mid_attn = _attn(cfg, ch)
-    module.mid_res1 = ResBlock(ch, ch, emb_dim)
+    module.mid_res0 = ResBlock(ch, ch, emb_dim, lora)
+    module.mid_attn = _attn(cfg, ch, lora)
+    module.mid_res1 = ResBlock(ch, ch, emb_dim, lora)
     return ch
+
+
+def _block(cfg: UNetConfig, block: nn.Module, *args):
+    """Run a ResBlock or SpatialTransformer, rematerialised in the backward
+    when cfg.use_checkpoint is set and grad is enabled."""
+    if cfg.use_checkpoint and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def _nchw(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -136,15 +150,15 @@ class UNet(nn.Module):
         hs.append(h)
         for i, step in enumerate(encoder_plan(cfg)[0][1:], start=1):
             if step.kind == "res":
-                h = getattr(self, f"in_{i}_res")(h, emb, row(f"in_{i}_res"))
+                h = _block(cfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"))
                 if step.attn:
-                    h = getattr(self, f"in_{i}_attn")(h, context)
+                    h = _block(cfg, getattr(self, f"in_{i}_attn"), h, context)
             else:
                 h = getattr(self, f"in_{i}_down")(h)
             hs.append(h)
-        h = self.mid_res0(h, emb, row("mid_res0"))
-        h = self.mid_attn(h, context)
-        h = self.mid_res1(h, emb, row("mid_res1"))
+        h = _block(cfg, self.mid_res0, h, emb, row("mid_res0"))
+        h = _block(cfg, self.mid_attn, h, context)
+        h = _block(cfg, self.mid_res1, h, emb, row("mid_res1"))
         n_enc = len(hs)
         if control is not None:
             if len(control) != n_enc + 1:
@@ -155,9 +169,9 @@ class UNet(nn.Module):
             if control is not None:
                 skip = skip + _nchw(control[n_enc - 1 - i], dt)
             h = torch.cat([h, skip], dim=1)
-            h = getattr(self, f"out_{i}_res")(h, emb, row(f"out_{i}_res"))
+            h = _block(cfg, getattr(self, f"out_{i}_res"), h, emb, row(f"out_{i}_res"))
             if step.attn:
-                h = getattr(self, f"out_{i}_attn")(h, context)
+                h = _block(cfg, getattr(self, f"out_{i}_attn"), h, context)
             if step.upsample:
                 h = getattr(self, f"out_{i}_up")(h)
         h = self.conv_out(self.norm_out(h))
@@ -167,26 +181,28 @@ class UNet(nn.Module):
 class ControlNet(nn.Module):
     """Latent-hint control branch (CtrLoRA): the VAE-encoded hint is the
     input stream; zero-conv taps after every input block and the middle.
-    Built for the fused tree (no LoRA parameters, no banks)."""
+    Either the fused tree (no LoRA parameters: serving) or the unfused tree
+    with ``cfg.lora.n_loras`` stacked adapters on every Dense (training);
+    switchable zero-conv and norm banks are not ported."""
 
     def __init__(self, cfg: ControlNetConfig):
         super().__init__()
-        if cfg.hint_mode != "latent" or cfg.lora.n_loras:
-            raise ValueError("the port's ControlNet is the fused latent-hint branch")
+        if cfg.hint_mode != "latent" or cfg.lora.switchable_banks:
+            raise ValueError("the port's ControlNet is the latent-hint branch without banks")
         ucfg = cfg.unet
         self.cfg = cfg
-        self.time_embed = TimestepEmbed(ucfg.model_channels)
-        ch = _build_encoder(self, ucfg, ucfg.in_channels)
+        self.time_embed = TimestepEmbed(ucfg.model_channels, cfg.lora)
+        ch = _build_encoder(self, ucfg, ucfg.in_channels, cfg.lora)
         for i, step in enumerate(encoder_plan(ucfg)[0]):
             self.add_module(f"zero_{i}", Conv(step.out_ch, step.out_ch, kernel_size=1))
         self.zero_mid = Conv(ch, ch, kernel_size=1)
 
-    def forward(self, hint, timesteps, context, emb_rows: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, ...]:
+    def forward(self, hint, timesteps, context, emb_rows: Optional[dict] = None,
+                lora_idx: LoraIdx = None) -> Tuple[torch.Tensor, ...]:
         """hint [B, h, w, 4] latent -> 13 NHWC taps in the compute dtype."""
         ucfg = self.cfg.unet
         dt = ucfg.compute_dtype
-        emb = self.time_embed(timesteps, dt) if emb_rows is None else None
+        emb = self.time_embed(timesteps, dt, lora_idx) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
         context = context.to(dt)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
@@ -194,14 +210,15 @@ class ControlNet(nn.Module):
         outs = [nhwc(self.zero_0(h))]
         for i, step in enumerate(encoder_plan(ucfg)[0][1:], start=1):
             if step.kind == "res":
-                h = getattr(self, f"in_{i}_res")(h, emb, row(f"in_{i}_res"))
+                h = _block(ucfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"),
+                           lora_idx)
                 if step.attn:
-                    h = getattr(self, f"in_{i}_attn")(h, context)
+                    h = _block(ucfg, getattr(self, f"in_{i}_attn"), h, context, lora_idx)
             else:
                 h = getattr(self, f"in_{i}_down")(h)
             outs.append(nhwc(getattr(self, f"zero_{i}")(h)))
-        h = self.mid_res0(h, emb, row("mid_res0"))
-        h = self.mid_attn(h, context)
-        h = self.mid_res1(h, emb, row("mid_res1"))
+        h = _block(ucfg, self.mid_res0, h, emb, row("mid_res0"), lora_idx)
+        h = _block(ucfg, self.mid_attn, h, context, lora_idx)
+        h = _block(ucfg, self.mid_res1, h, emb, row("mid_res1"), lora_idx)
         outs.append(nhwc(self.zero_mid(h)))
         return tuple(outs)

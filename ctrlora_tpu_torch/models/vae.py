@@ -144,3 +144,9 @@ class AutoencoderKL(nn.Module):
     def decode(self, z) -> torch.Tensor:
         """z [B, h, w, embed] -> image [B, H, W, 3] fp32."""
         return self.decoder(self.post_quant_conv(self._in(z))).permute(0, 2, 3, 1).float()
+
+
+def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """A draw of the diagonal Gaussian posterior: mean + exp(logvar / 2) eps
+    (logvar already clipped to [-30, 20] by ``encode``)."""
+    return mean + torch.exp(0.5 * logvar) * eps

@@ -1,12 +1,14 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` for ``sm_90a`` into one
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` to an object
+file, all at once in parallel processes, and the objects link into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 is keyed on a hash of the sources and the flags, goes to
 ``ctrlora_tpu_torch/_build/`` (listed in ``.gitignore``) and happens at the
-first CUDA use, never at import. Each C entry point launches on the stream
-it is given and returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.
+first CUDA use, never at import. ptxas's register and spill report of every
+kernel is kept beside the library (:func:`ptxas_report`). Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()``;
+:func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -23,16 +25,22 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL, _STRIDES = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 _ENTRIES = {
     # q, k, v, out, lse, B, H, Sq, Sk, D, strides (b, s, h) of q, k, v, out,
     # scale, stream
-    "ctrlora_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
-    + [ctypes.c_longlong] * 12 + [_F, _P],
+    "ctrlora_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides (b, s, h) of
+    # q, k, v, dout, dq as one int64[15], scale, stream
+    "ctrlora_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_STRIDES, _F, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides of q, k, v,
+    # dout, dk, dv as one int64[18], scale, stream
+    "ctrlora_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_STRIDES, _F, _P],
     # x, w1 [2F, C], b1, w2 [C, F], b2, out, rows, C, F, stream
     "ctrlora_geglu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -63,6 +71,39 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = so.with_name(f"{cu.stem}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(p.returncode, log) for p, log in zip(procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"({c}) {log}" for c, log in failed))
+    tmp = so.with_suffix(f".{tag}")
+    res = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink()
+    so.with_suffix(".ptxas.txt").write_text("".join(logs))
+    os.replace(tmp, so)
+
+
+def ptxas_report() -> str:
+    """ptxas's per-kernel registers, shared memory and spills of the built
+    library ('' before the first build)."""
+    log = BUILD_DIR / f"libctrlora_kernels_{source_hash()}.ptxas.txt"
+    return log.read_text() if log.exists() else ""
+
+
 def cuda_lib() -> ctypes.CDLL:
     """The kernel library, built on first call from the sources in csrc/."""
     global _lib
@@ -72,14 +113,7 @@ def cuda_lib() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"libctrlora_kernels_{source_hash()}.so"
         if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-            os.replace(tmp, so)
+            _compile(so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _ENTRIES.items():
             fn = getattr(lib, name)

@@ -1,27 +1,40 @@
-"""Unmasked softmax attention: CUDA flash-attention forward and plain version.
+"""Unmasked softmax attention: CUDA flash-attention forward and backward,
+their plain versions, and the autograd Functions that join them.
 
-Kernel B of the port (``csrc/flash_attention.cu``, CUDA C++ for sm_90a). It
-replaces the TPU kernels ``ctrlora_tpu/ops/flash_attention.py``
+Kernel B of the port (``csrc/flash_attention.cu``, CUDA C++ for sm_90a)
+replaces the TPU forward kernels ``ctrlora_tpu/ops/flash_attention.py``
 ``_fwd_kernel_packed_qkv`` (UNet/ControlNet self-attention read straight
-from the fused [B, S, 3*H*D] projection) and ``_fwd_kernel`` (the VAE's
-[B, H, S, D] single-head attention). The source note in the .cu file says
-what bounds it and how it is built. Two wrappers, one per call site, launch
-the same kernel with different strides; each counts its own launches.
+from the fused [B, S, 3*H*D] projection), ``_fwd_kernel_packed`` (separate
+q, k, v in the projections' [B, S, H, D] layout: the LoRA control branch)
+and ``_fwd_kernel`` (the VAE's [B, H, S, D] single-head attention). The
+backward kernels (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel``
+and ``_bwd_dkv_kernel``. The source notes in the .cu files say what bounds
+them and how they are built. Every entry launches the same forward kernel
+with its own strides, and the one pair of backward kernels with the entry's
+strides; each wrapper counts its own launches.
 
-Dispatch follows the JAX package (``dot_product_attention`` and
-``dot_product_attention_bshd_qkv``): the kernel only where Sk >= 256 and the
-sequences tile by 128; cross-attention over 77 text tokens and the 8x8
-mid-block self-attention stay plain.
+Each forward entry is a ``torch.autograd.Function`` saving (q, k, v, out,
+lse); its backward computes Delta = rowsum(dO * O) in fp32 and launches the
+dQ and dK/dV kernels (on CPU tensors: their plain versions), so a kernel
+output carries its gradient like any torch op.
+
+Dispatch follows the JAX package (``dot_product_attention``,
+``dot_product_attention_bshd``, ``dot_product_attention_bshd_qkv``): the
+kernel only where Sk >= 256 and the sequences tile by 128; cross-attention
+over 77 text tokens and the 8x8 mid-block self-attention stay plain.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ctrlora_tpu_torch.ops import _build
+
+MAX_BWD_HEAD_DIM = 160  # the backward kernels' widest instantiation
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,25 +51,151 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, torch.logsumexp(logits, dim=-1)
 
 
+def _bhsd(t: torch.Tensor) -> torch.Tensor:
+    return t.transpose(1, 2)
+
+
+def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`flash_attention_bshd`: transpose, then
+    :func:`attention_plain`."""
+    b, s, h, d = q.shape
+    out, lse = attention_plain(_bhsd(q), _bhsd(k), _bhsd(v), scale)
+    return _bhsd(out).reshape(b, s, h * d), lse
+
+
 def flash_attention_qkv_plain(qkv: torch.Tensor, heads: int, dim_head: int,
                               scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`flash_attention_qkv`: split, then
     :func:`attention_plain`."""
-    b, s, _ = qkv.shape
-    q, k, v = (t.reshape(b, s, heads, dim_head).transpose(1, 2)
-               for t in qkv.split(heads * dim_head, dim=-1))
-    out, lse = attention_plain(q, k, v, scale)
-    return out.transpose(1, 2).reshape(b, s, heads * dim_head), lse
+    return flash_attention_bshd_plain(*_split_qkv(qkv, heads, dim_head), scale)
 
 
-def _launch(q, k, v, out, lse, b, h, sq, sk, d, qst, kst, vst, ost, scale, what):
-    lib = _build.cuda_lib()
-    code = lib.ctrlora_flash_fwd(q, k, v, out.data_ptr(), lse.data_ptr(),
-                                 b, h, sq, sk, d, *qst, *kst, *vst, *ost,
-                                 float(scale), _build.stream_ptr(out.device))
-    _build.check(code, what)
+# ---------------------------------------------------------------------------
+# backward: plain versions and kernel wrappers over [B, H, S, D] views
+# ---------------------------------------------------------------------------
 
+def _probs(q, k, lse, scale):
+    """P [B, H, Sq, Sk] recomputed in fp32 from the saved logsumexp."""
+    return torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+                     - lse[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, lse, dout, delta, scale: float) -> torch.Tensor:
+    """dQ = scale * dS K with dS = P (dO V^T - Delta), in fp32 torch ops
+    (the math of the JAX ``_bwd_dq_kernel``); returned in q's dtype."""
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = _probs(q, k, lse, scale) * (dp - delta[..., None])
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, dout, delta, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dK = scale * dS^T Q and dV = P^T dO, in fp32 torch ops (the math of
+    the JAX ``_bwd_dkv_kernel``); returned in k's and v's dtypes."""
+    p = _probs(q, k, lse, scale)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * O) in fp32, [B, H, Sq] (a plain op, as in JAX)."""
+    return (out.float() * dout.float()).sum(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale: float):
+    """The plain version of :func:`flash_attention_bwd` -> (dq, dk, dv)."""
+    delta = _delta(out, dout)
+    return (flash_attention_bwd_dq_plain(q, k, v, lse, dout, delta, scale),
+            *flash_attention_bwd_dkv_plain(q, k, v, lse, dout, delta, scale))
+
+
+def _strides(ts: Sequence[torch.Tensor]):
+    """(batch, sequence, head) strides of [B, H, S, D] views, as int64[]."""
+    vals = [t.stride(i) for t in ts for i in (0, 2, 1)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _check_bwd(what: str, tensors, lse, delta) -> None:
+    d = tensors[0].shape[-1]
+    if any(t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.stride(-1) != 1
+           for t in tensors):
+        raise ValueError(f"{what}: needs bf16 CUDA [B, H, S, D] views with unit last stride")
+    if d > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} > {MAX_BWD_HEAD_DIM}")
+    _check_aligned(what, [t.data_ptr() for t in tensors],
+                   [t.stride(i) for t in tensors for i in (0, 1, 2)], d)
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: lse and delta must be contiguous fp32 [B, H, Sq]")
+
+
+def flash_attention_bwd_dq(q, k, v, lse, dout, delta, scale: float,
+                           dq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ over [B, H, S, D] views (any strides with a unit last stride);
+    written into `dq` (a view of the same shape) when given."""
+    if q.device.type == "cpu":
+        res = flash_attention_bwd_dq_plain(q, k, v, lse, dout, delta, scale)
+        return res if dq is None else dq.copy_(res)
+    if dq is None:
+        dq = torch.empty_like(q)
+    _check_bwd("flash_attention_bwd_dq", (q, k, v, dout, dq), lse, delta)
+    b, h, sq, d = q.shape
+    code = _build.cuda_lib().ctrlora_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, h, sq, k.shape[2], d,
+        _strides((q, k, v, dout, dq)), float(scale), _build.stream_ptr(q.device))
+    _build.check(code, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, scale: float,
+                            dk: Optional[torch.Tensor] = None,
+                            dv: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) over [B, H, S, D] views; written into `dk`/`dv` when given."""
+    if q.device.type == "cpu":
+        rk, rv = flash_attention_bwd_dkv_plain(q, k, v, lse, dout, delta, scale)
+        return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
+    dk = torch.empty_like(k) if dk is None else dk
+    dv = torch.empty_like(v) if dv is None else dv
+    _check_bwd("flash_attention_bwd_dkv", (q, k, v, dout, dk, dv), lse, delta)
+    b, h, sq, d = q.shape
+    code = _build.cuda_lib().ctrlora_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
+        _strides((q, k, v, dout, dk, dv)), float(scale), _build.stream_ptr(q.device))
+    _build.check(code, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, scale: float, grads=None):
+    """FlashAttention-2 backward over [B, H, S, D] views: Delta as a plain
+    fp32 op, then the dQ and dK/dV kernels. `grads` = (dq, dk, dv) views
+    to write into (e.g. slices of a fused [B, S, 3*H*D] gradient)."""
+    dq, dk, dv = grads if grads is not None else (None, None, None)
+    delta = _delta(out, dout).contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, lse, dout, delta, scale, dq)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, dout, delta, scale, dk, dv)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# forward kernel entries
+# ---------------------------------------------------------------------------
 
 def _check_aligned(what: str, ptrs, strides, d: int) -> None:
     if d % 8 or d > 512:
@@ -66,35 +205,110 @@ def _check_aligned(what: str, ptrs, strides, d: int) -> None:
                          f"{[p % 16 for p in ptrs]}, strides {list(strides)})")
 
 
-def flash_attention_qkv(qkv: torch.Tensor, heads: int, dim_head: int,
-                        scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Self-attention off the fused projection qkv [B, S, 3*H*D] (q | k | v
-    on the last axis). Returns (out [B, S, H*D], lse [B, H, S] fp32)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(dim_head)
-    b, s, hd3 = qkv.shape
-    hd = heads * dim_head
-    if hd3 != 3 * hd:
-        raise ValueError(f"flash_attention_qkv: width {hd3} != 3*{heads}*{dim_head}")
-    if qkv.device.type == "cpu":
-        return flash_attention_qkv_plain(qkv, heads, dim_head, scale)
-    if qkv.device.type != "cuda" or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError("flash_attention_qkv: needs a contiguous bf16 CUDA tensor")
-    base, esz = qkv.data_ptr(), qkv.element_size()
-    _check_aligned("flash_attention_qkv", (base, base + hd * esz, base + 2 * hd * esz),
-                   (hd3, dim_head), dim_head)
-    out = torch.empty((b, s, hd), device=qkv.device, dtype=qkv.dtype)
-    lse = torch.empty((b, heads, s), device=qkv.device, dtype=torch.float32)
-    qst = (s * hd3, hd3, dim_head)  # (batch, sequence, head) strides
-    ost = (s * hd, hd, dim_head)
-    _launch(base, base + hd * esz, base + 2 * hd * esz, out, lse, b, heads, s, s,
-            dim_head, qst, qst, qst, ost, scale, "flash_attention_qkv")
-    flash_attention_qkv.launches += 1
+def _forward(q, k, v, out, scale, what) -> torch.Tensor:
+    """The forward kernel over [B, H, S, D] views (any strides with a unit
+    last stride), writing `out` (a view of the same shape as q); returns
+    lse [B, H, Sq]. A BSHD or fused-qkv caller passes transposed views, so
+    no operand is copied."""
+    b, h, sq, d = q.shape
+    if (q.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in (q, k, v))
+            or any(t.stride(-1) != 1 for t in (q, k, v))):
+        raise ValueError(f"{what}: needs bf16 CUDA tensors with unit last stride")
+    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
+    _check_aligned(what, [t.data_ptr() for t in (q, k, v)], strides[:9], d)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    code = _build.cuda_lib().ctrlora_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, h, sq, k.shape[2], d, *strides, float(scale), _build.stream_ptr(q.device))
+    _build.check(code, what)
+    return lse
+
+
+def _forward_bshd(q, k, v, scale, what):
+    """The forward kernel over [B, S, H, D] views -> (out [B, S, H*D], lse)."""
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h * d), device=q.device, dtype=q.dtype)
+    lse = _forward(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out.view(b, s, h, d)), scale, what)
     return out, lse
 
 
-flash_attention_qkv.launches = 0
+def _backward_bshd(q, k, v, out, lse, dout, scale, grads) -> None:
+    """The backward over q, k, v [B, S, H, D] views and out, dout
+    [B, S, H*D], written into the [B, S, H, D] views `grads`."""
+    heads4 = lambda t: _bhsd(t.view(q.shape))
+    flash_attention_bwd(_bhsd(q), _bhsd(k), _bhsd(v), heads4(out), lse,
+                        heads4(dout.contiguous()), scale, grads=tuple(map(_bhsd, grads)))
+
+
+class _FlashBHSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out, lse = attention_plain(q, k, v, scale)
+        else:
+            out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+            lse = _forward(q, k, v, out, scale, "flash_attention")
+            flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale), None)
+
+
+class _FlashBSHD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_bshd_plain(q, k, v, scale)
+        else:
+            out, lse = _forward_bshd(q, k, v, scale, "flash_attention_bshd")
+            flash_attention_bshd.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        _backward_bshd(q, k, v, out, lse, dout, ctx.scale, grads)
+        return (*grads, None)
+
+
+class _FlashQKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head, scale):
+        if qkv.device.type == "cpu":
+            out, lse = flash_attention_qkv_plain(qkv, heads, dim_head, scale)
+        else:
+            out, lse = _forward_bshd(*_split_qkv(qkv, heads, dim_head), scale,
+                                     "flash_attention_qkv")
+            flash_attention_qkv.launches += 1
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.args = (heads, dim_head, scale)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        qkv, out, lse = ctx.saved_tensors
+        heads, dim_head, scale = ctx.args
+        dqkv = torch.empty_like(qkv)  # dq | dk | dv written in place, no concat
+        _backward_bshd(*_split_qkv(qkv, heads, dim_head), out, lse, dout, scale,
+                       _split_qkv(dqkv, heads, dim_head))
+        return dqkv, None, None, None
+
+
+def _split_qkv(qkv, heads, dim_head):
+    """[B, S, 3*H*D] -> three [B, S, H, D] views (lane offsets 0/HD/2HD)."""
+    return tuple(t.unflatten(-1, (heads, dim_head))
+                 for t in qkv.split(heads * dim_head, dim=-1))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -104,25 +318,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (out [B, H, Sq, D], lse [B, H, Sq] fp32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    if (q.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in (q, k, v))
-            or any(t.stride(-1) != 1 for t in (q, k, v))):
-        raise ValueError("flash_attention: needs bf16 CUDA tensors with unit last stride")
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 2, 1)]
-    _check_aligned("flash_attention", [t.data_ptr() for t in (q, k, v)], strides, d)
-    out = torch.empty((b, h, sq, d), device=q.device, dtype=q.dtype)
-    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, lse, b, h, sq, sk, d,
-            strides[0:3], strides[3:6], strides[6:9],
-            (out.stride(0), out.stride(2), out.stride(1)), scale, "flash_attention")
-    flash_attention.launches += 1
-    return out, lse
+    return _FlashBHSD.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention over q, k, v [B, S, H, D] (the projections' layout; any
+    strides with a unit last stride). Returns (out [B, S, H*D], lse [B, H, S]
+    fp32)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashBSHD.apply(q, k, v, scale)
+
+
+flash_attention_bshd.launches = 0
+
+
+def flash_attention_qkv(qkv: torch.Tensor, heads: int, dim_head: int,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Self-attention off the fused projection qkv [B, S, 3*H*D] (q | k | v
+    on the last axis). Returns (out [B, S, H*D], lse [B, H, S] fp32)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(dim_head)
+    hd3 = qkv.shape[-1]
+    if hd3 != 3 * heads * dim_head:
+        raise ValueError(f"flash_attention_qkv: width {hd3} != 3*{heads}*{dim_head}")
+    if qkv.device.type == "cuda" and not qkv.is_contiguous():
+        raise ValueError("flash_attention_qkv: needs a contiguous bf16 CUDA tensor")
+    return _FlashQKV.apply(qkv, heads, dim_head, scale)
+
+
+flash_attention_qkv.launches = 0
 
 
 def _tiles(s: int) -> bool:
@@ -139,6 +370,17 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     if use_flash and sk >= 256 and _tiles(sq) and _tiles(sk):
         return flash_attention(q, k, v, scale)[0]
     return attention_plain(q, k, v, scale)[0]
+
+
+def dot_product_attention_bshd(q, k, v, scale: Optional[float] = None,
+                               use_flash: bool = True) -> torch.Tensor:
+    """Attention over q, k, v [B, S, H, D] -> [B, Sq, H*D]; same dispatch."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    sq, sk = q.shape[1], k.shape[1]
+    if use_flash and sk >= 256 and _tiles(sq) and _tiles(sk):
+        return flash_attention_bshd(q, k, v, scale)[0]
+    return flash_attention_bshd_plain(q, k, v, scale)[0]
 
 
 def dot_product_attention_bshd_qkv(qkv, heads: int, dim_head: int,

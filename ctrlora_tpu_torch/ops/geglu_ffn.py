@@ -8,6 +8,9 @@ reaching device memory. The source note in the .cu file says what bounds it
 and how it is built.
 
 Weights use ``nn.Linear``'s layout: ``w1`` [2F, C], ``w2`` [C, F].
+:func:`geglu_ffn` is a ``torch.autograd.Function``: kernel forward, and a
+backward that recomputes :func:`geglu_ffn_plain` under autograd (the JAX
+``custom_vjp``).
 """
 
 from __future__ import annotations
@@ -36,9 +39,8 @@ def geglu_shapes_ok(x, w1, b1, w2, b2) -> bool:
             and b1.shape == (f2,) and w2.shape == (c, f2 // 2) and b2.shape == (c,))
 
 
-def geglu_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Fused GEGLU FFN over x [..., C]; returns [..., C] in x's dtype."""
+def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return geglu_ffn_plain(x, w1, b1, w2, b2)
     args = (x, w1, b1, w2, b2)
@@ -61,6 +63,29 @@ def geglu_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check(code, "geglu_ffn")
     geglu_ffn.launches += 1
     return out
+
+
+class _GegluFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _forward(*args)
+
+    @staticmethod
+    def backward(ctx, gy):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            y = geglu_ffn_plain(*ins)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, gy) if wrt else ())
+        return tuple(next(got) if n else None for n in need)
+
+
+def geglu_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Fused GEGLU FFN over x [..., C]; returns [..., C] in x's dtype."""
+    return _GegluFFN.apply(x, w1, b1, w2, b2)
 
 
 geglu_ffn.launches = 0

@@ -25,6 +25,10 @@ write to apply them. Design:
 Channel blocks are masked, so 10 or 20 channels per group (UNet widths)
 and 4 (VAE) need no special case, and HW is chunked, so the VAE decoder's
 [4, 262144, 128] tensor runs like any other.
+
+:func:`group_norm` is a ``torch.autograd.Function``: kernel forward, and a
+backward that recomputes the plain math under autograd (the JAX
+``custom_vjp``), with gradients for x, scale, bias and add_row.
 """
 
 import functools
@@ -146,11 +150,8 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
-               add_row: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """GroupNorm(x + add_row) with optional fused SiLU; x [B, ..., C]
-    contiguous (channels last), scale/bias [C]. Returns x's shape and dtype."""
+def _forward(x, scale, bias, num_groups, eps, silu, add_row):
+    """The kernels on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
     if x.device.type != "cuda":
@@ -190,6 +191,39 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                             SILU=silu, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C)
     group_norm.launches += 1
     return y
+
+
+class _GroupNorm(torch.autograd.Function):
+    """Kernel forward; the backward is the plain math by recompute (autograd
+    through :func:`group_norm_plain`), as the JAX ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, add_row, num_groups, eps, silu):
+        ctx.save_for_backward(x, scale, bias, add_row)
+        ctx.args = (num_groups, eps, silu)
+        return _forward(x, scale, bias, num_groups, eps, silu, add_row)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(saved, need)]
+            y = group_norm_plain(ins[0], ins[1], ins[2], *ctx.args, add_row=ins[3])
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, gy) if wrt else ())
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
+               add_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GroupNorm(x + add_row) with optional fused SiLU; x [B, ..., C]
+    contiguous (channels last), scale/bias [C], add_row [C]/[1, C]/[B, C].
+    Returns x's shape and dtype; differentiable in x, scale, bias and
+    add_row."""
+    return _GroupNorm.apply(x, scale, bias, add_row, num_groups, eps, silu)
 
 
 group_norm.launches = 0

@@ -1,15 +1,18 @@
 """CtrLoRA pipeline of the port: the four towers and the denoiser call
-(counterpart of ``ctrlora_tpu/pipeline.py`` on its fused-LoRA inference
-path).
+(counterpart of ``ctrlora_tpu/pipeline.py``).
 
-The control branch is the fused ControlNet (``lora_fuse``); text comes in as
-token ids (the tokenizer is not ported yet). Images and latents are NHWC.
+The control branch is the fused ControlNet for serving (``lora_fuse``), or,
+with ``fuse_lora=False``, the unfused tree with its stacked LoRA adapters,
+which training updates. Text comes in as token ids (the tokenizer is not
+ported yet). Images and latents are NHWC. The frozen towers run without
+autograd; ``apply_control``/``apply_model`` record it when grad is enabled
+(the training step), and the samplers call them under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,29 +23,33 @@ from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
 from ctrlora_tpu_torch.models.layers import CL, ResBlock
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
-from ctrlora_tpu_torch.models.vae import AutoencoderKL
+from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
 from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
 
 
 @dataclasses.dataclass(frozen=True)
 class Conditioning:
-    """One control condition: a VAE-encoded latent hint [B, h, w, 4] and its
-    blend weight. The control weights are the pipeline's fused ControlNet."""
+    """One control condition: a VAE-encoded latent hint [B, h, w, 4], the
+    adapter index of an unfused control tree, and its blend weight."""
 
     hint: torch.Tensor
+    lora_idx: Optional[Union[int, torch.Tensor]] = None
     weight: float = 1.0
 
 
 class CtrLoraPipeline:
     """Module bundle + schedule. The modules are built on `device`, in eval
-    mode, without gradients, in channels-last memory."""
+    mode, without gradients, in channels-last memory. ``fuse_lora=False``
+    holds the unfused LoRA control tree (training) instead of the fused one
+    (serving)."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu"):
+    def __init__(self, cfg: ModelConfig, device="cpu", fuse_lora: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
         with self.device:
             self.unet = UNet(cfg.unet)
-            self.control = ControlNet(fused_control_config(cfg.control))
+            self.control = ControlNet(fused_control_config(cfg.control) if fuse_lora
+                                      else cfg.control)
             self.vae = AutoencoderKL(cfg.vae)
             self.clip = CLIPTextModel(cfg.clip)
         for m in self.modules():
@@ -56,7 +63,8 @@ class CtrLoraPipeline:
 
     def load_state_dicts(self, unet, control, vae, clip) -> None:
         """Load the four state dicts (``convert.params_from_jax`` layout; the
-        control dict fused) with strict=True."""
+        control dict fused, or unfused for ``fuse_lora=False``) with
+        strict=True."""
         for module, sd in zip(self.modules(), (unet, control, vae, clip)):
             module.load_state_dict(sd, strict=True)
 
@@ -71,10 +79,26 @@ class CtrLoraPipeline:
     # frozen towers
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def encode_first_stage(self, img: torch.Tensor) -> torch.Tensor:
-        """img [B, H, W, 3] in [-1, 1] -> scaled latent mean [B, h, w, 4]."""
-        mean, _ = self.vae.encode(img)
-        return self.cfg.diffusion.scale_factor * mean
+    def encode_first_stage(self, img: torch.Tensor, generator: Optional[torch.Generator] = None,
+                           eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """img [B, H, W, 3] -> scaled latent [B, h, w, 4]: the posterior mean,
+        or a posterior draw with noise `eps` (or drawn from `generator`)."""
+        mean, logvar = self.vae.encode(img)
+        return self._scaled_latent(mean, logvar, generator, eps)
+
+    def first_stage_from_moments(self, moments: torch.Tensor,
+                                 generator: Optional[torch.Generator] = None,
+                                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``encode_first_stage`` from precomputed posterior moments (mean |
+        logvar on the channel axis), with the same sampling and scaling."""
+        mean, logvar = moments.float().chunk(2, dim=-1)
+        return self._scaled_latent(mean, logvar, generator, eps)
+
+    def _scaled_latent(self, mean, logvar, generator, eps) -> torch.Tensor:
+        if eps is None and generator is not None:
+            eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+        z = mean if eps is None else sample_posterior(mean, logvar, eps)
+        return self.cfg.diffusion.scale_factor * z
 
     @torch.no_grad()
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
@@ -110,20 +134,18 @@ class CtrLoraPipeline:
         return {"unet": branch(self.unet, self.cfg.unet.compute_dtype),
                 "control": tuple(ctab for _ in range(n_conds))}
 
-    @torch.no_grad()
     def apply_control(self, x_noisy, t, context, conds: Sequence[Conditioning],
                       emb_rows: Optional[Sequence[dict]] = None):
         """The control branch for each condition, blended."""
         total = None
         for j, cond in enumerate(conds):
             rows = emb_rows[j] if emb_rows is not None else None
-            taps = self.control(cond.hint, t, context, emb_rows=rows)
+            taps = self.control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx)
             if len(conds) > 1 or cond.weight != 1.0:
                 taps = [c.float() * cond.weight for c in taps]  # fp32 blend, as JAX
             total = list(taps) if total is None else [a + b for a, b in zip(total, taps)]
         return tuple(total)
 
-    @torch.no_grad()
     def apply_model(self, x_noisy, t, context, conds: Optional[Sequence[Conditioning]] = None,
                     emb_rows: Optional[Dict] = None) -> torch.Tensor:
         """Predicted eps [B, h, w, 4] fp32 for noisy latents. emb_rows: one

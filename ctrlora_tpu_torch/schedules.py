@@ -1,8 +1,9 @@
-"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding (torch).
+"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding and
+forward diffusion ``q_sample`` (torch).
 
 The tables are computed in float64 and stored as float32, exactly as
-``ctrlora_tpu/schedules.py`` does, so both packages sample with the same
-numbers.
+``ctrlora_tpu/schedules.py`` does, so both packages sample and train with
+the same numbers.
 """
 
 from __future__ import annotations
@@ -16,10 +17,14 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The per-timestep tables sampling needs, float32."""
+    """The per-timestep tables sampling and the eps training loss need,
+    float32."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
+    lvlb_weights: np.ndarray  # eps parameterization
 
     @property
     def num_timesteps(self) -> int:
@@ -30,9 +35,21 @@ def make_schedule(timesteps: int = 1000, linear_start: float = 0.00085,
                   linear_end: float = 0.012) -> DiffusionSchedule:
     """SD's "linear" schedule: betas linear in sqrt(beta)."""
     betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
-    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
-    return DiffusionSchedule(betas=betas.astype(np.float32),
-                             alphas_cumprod=alphas_cumprod.astype(np.float32))
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas, axis=0)
+    alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+    with np.errstate(divide="ignore"):  # posterior_variance[0] == 0
+        lvlb_weights = betas**2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+    lvlb_weights[0] = lvlb_weights[1]
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    return DiffusionSchedule(
+        betas=f32(betas),
+        alphas_cumprod=f32(alphas_cumprod),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+        lvlb_weights=f32(lvlb_weights),
+    )
 
 
 def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
@@ -82,3 +99,18 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def extract(table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """table[t] as a [B, 1, ...] float32 tensor on t's device that
+    broadcasts over an ndim tensor."""
+    out = torch.as_tensor(table, device=t.device)[t.long()]
+    return out.reshape(out.shape[0], *([1] * (ndim - 1)))
+
+
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion q(x_t | x_0) = sqrt(ac_t) x_0 + sqrt(1 - ac_t) noise."""
+    n = x_start.ndim
+    return (extract(schedule.sqrt_alphas_cumprod, t, n) * x_start
+            + extract(schedule.sqrt_one_minus_alphas_cumprod, t, n) * noise)

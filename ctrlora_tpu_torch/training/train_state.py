@@ -1,0 +1,99 @@
+"""Trainable-parameter masks, the optimizer and the train state
+(counterpart of ``ctrlora_tpu/training/train_state.py``).
+
+The reference's trainable-set rules (cldm/cldm_ctrlora_finetune.py:84-108,
+cldm_ctrlora_pretrain.py:174-182, cldm/cldm.py:419-426), as predicates over
+the dotted parameter names, which carry the flax scope names:
+
+  * trainable='all'  - every control-branch parameter (pretrain)
+  * trainable='lora' - LoRA matrices + zero convs (if zero_trainable) +
+                       transformer norms (if norm_trainable)
+  * trainable='full' - every control parameter except LoRA
+
+With sd_locked=False the UNet decoder (out_* blocks, norm_out, conv_out)
+trains too. Frozen parameters get ``requires_grad_(False)`` and AdamW never
+sees them, as in the reference; so no gradient is computed for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from ctrlora_tpu_torch.configs import TrainConfig
+from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+
+# transformer norms are the modules literally named norm/norm1/norm2/norm3
+# (ResBlock norms are in_norm/out_norm and never match)
+_NORM_NAMES = {"norm", "norm1", "norm2", "norm3"}
+
+Mask = Dict[str, Dict[str, bool]]  # {branch: {parameter name: trains}}
+
+
+def control_trainable(name: str, cfg: TrainConfig) -> bool:
+    names = name.split(".")
+    is_lora = any(n in ("lora_down", "lora_up") for n in names)
+    if cfg.trainable == "all":
+        return True
+    if cfg.trainable == "full":
+        return not is_lora
+    if cfg.trainable == "lora":
+        return (is_lora or (cfg.zero_trainable and any(n.startswith("zero_") for n in names))
+                or (cfg.norm_trainable and any(n in _NORM_NAMES for n in names)))
+    raise ValueError(f"unknown trainable mode {cfg.trainable!r}")
+
+
+def unet_trainable(name: str, cfg: TrainConfig) -> bool:
+    if cfg.sd_locked:
+        return False
+    top = name.split(".")[0]
+    return top.startswith("out_") or top in ("norm_out", "conv_out")
+
+
+def branches(pipe: CtrLoraPipeline) -> Dict[str, nn.Module]:
+    return {"unet": pipe.unet, "control": pipe.control, "vae": pipe.vae, "clip": pipe.clip}
+
+
+def trainable_mask(pipe: CtrLoraPipeline, cfg: TrainConfig) -> Mask:
+    """{branch: {parameter name: True where it trains}}; VAE and CLIP are
+    always frozen."""
+    rules = {"unet": unet_trainable, "control": control_trainable}
+    return {branch: {name: branch in rules and rules[branch](name, cfg)
+                     for name, _ in module.named_parameters()}
+            for branch, module in branches(pipe).items()}
+
+
+def trainable_parameters(pipe: CtrLoraPipeline, mask: Mask) -> Dict[str, nn.Parameter]:
+    """{'branch.name': parameter} of the trainable set, in module order."""
+    return {f"{branch}.{name}": p
+            for branch, module in branches(pipe).items()
+            for name, p in module.named_parameters() if mask[branch][name]}
+
+
+def count_trainable(pipe: CtrLoraPipeline, mask: Mask) -> int:
+    return sum(p.numel() for p in trainable_parameters(pipe, mask).values())
+
+
+def make_optimizer(pipe: CtrLoraPipeline, cfg: TrainConfig, mask: Mask) -> torch.optim.AdamW:
+    """Freeze everything outside the mask (``requires_grad_(False)``) and
+    return AdamW over the trainable parameters only (torch's defaults:
+    betas 0.9/0.999, eps 1e-8, weight decay 1e-2; decoupled decay)."""
+    for branch, module in branches(pipe).items():
+        for name, p in module.named_parameters():
+            p.requires_grad_(mask[branch][name])
+    params: List[nn.Parameter] = list(trainable_parameters(pipe, mask).values())
+    return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2),
+                             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The step count, the modules (their parameters are the train state)
+    and the optimizer holding the AdamW moments."""
+
+    step: int
+    modules: Dict[str, nn.Module]
+    optimizer: torch.optim.Optimizer

@@ -25,7 +25,9 @@ def test_port_modules_cover_the_slice():
     for mod in ("configs", "schedules", "convert", "lora_fuse", "pipeline",
                 "ops.group_norm", "ops.flash_attention", "ops.geglu_ffn", "ops.unpack_rows",
                 "ops._build", "models.layers", "models.attention", "models.unet",
-                "models.vae", "models.clip", "sampling.common", "sampling.ddim"):
+                "models.vae", "models.clip", "sampling.common", "sampling.ddim",
+                "training.losses", "training.train_state", "training.step",
+                "training.trainer"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
