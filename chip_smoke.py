@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: controlled
-sampling and the rank-128 LoRA finetune step.
+"""Drive the PyTorch port's three paths once on one NVIDIA GPU: controlled
+sampling, the rank-128 LoRA finetune step, and the switchable two-LoRA
+CtrLoRA API from reference-format checkpoints.
 
     python3 chip_smoke.py
 
@@ -9,16 +10,18 @@ the script exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ctrlora_tpu_torch/csrc (nvcc, sm_90a);
-3. each hand-written kernel against its plain PyTorch version at the two
+3. each hand-written kernel against its plain PyTorch version at the
    paths' shapes, in bf16: max error (relative L2 for gradients) and
-   median time of both;
+   median time of both (for A2 and B6 also of the kernel each stands
+   beside: A, and B's BSHD and fused-qkv entries);
 4. the sampling slice at SD1.5 width: ctrlora_inference_config(1, 128) with
    seeded random weights, one rank-128 LoRA fused, bf16; 4 prompts of 77
    token ids, a 512x512 hint, DDIM at CFG 7.5 and eta 0, decode; counts the
    kernel launches of that run and compares one UNet+ControlNet evaluation
    with the kernels against the same evaluation with the plain versions;
 5. the tiny test configuration sampled on the GPU against the same run on
-   the CPU;
+   the CPU; then the tiny two-LoRA API path from tiny reference-format
+   files, GPU against CPU;
 6. the training slice at SD1.5 width: ctrlora_finetune_config(128) with
    seeded random weights (bf16 compute over fp32 parameters, rematerialised
    blocks), Trainer(trainable='lora') on seeded synthetic 512x512 batches of
@@ -26,13 +29,25 @@ the script exits non-zero:
    steps, frozen weights bit-identical, trainable ones changed; then one
    step's loss and trainable gradients with the kernels against the plain
    versions, with the same t, noise and posterior draws;
-7. one tiny training step (fp32) on the GPU against the CPU.
+7. one tiny training step (fp32) on the GPU against the CPU;
+8. the two-LoRA API path at SD1.5 width: seeded random weights written as
+   reference-format .ckpt files (SD1.5 and Base ControlNet in fp16, two
+   rank-128 LoRAs) through the port's exporters;
+   CtrLoRA(num_loras=2).create_model on them, every loaded tensor checked
+   against the file; two 512^2 hints (one 576x512, centre-cropped), a prompt
+   pair through the tokenizer, batch 4, 50 DDIM steps at CFG 7.5, lora
+   weights (1.0, 0.8): a warm-up and a timed run under the default kernels,
+   then under CTRLORA_KERNELS-equivalent gn1=1,hpack=2,qkvpack=0 (kernels A2
+   and B6); one UNet + two-ControlNet evaluation with the flagged kernels
+   against the plain versions; lora weights (1, 0) against (0, 1) must
+   differ. The files are deleted at the end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -42,9 +57,11 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 from torch import nn
 
+from ctrlora_tpu_torch import api as api_mod
 from ctrlora_tpu_torch import configs, lora_fuse
 from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32
 from ctrlora_tpu_torch.models.unet import decoder_plan, encoder_plan
@@ -52,6 +69,7 @@ from ctrlora_tpu_torch.ops import _build
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import group_norm as gn_ops
+from ctrlora_tpu_torch.ops import kernel_flags
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling.common import make_emb_row_tables
@@ -59,6 +77,8 @@ from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
 from ctrlora_tpu_torch.training import train_state
 from ctrlora_tpu_torch.training.step import loss_for_batch
 from ctrlora_tpu_torch.training.trainer import Trainer
+from ctrlora_tpu_torch.utils import ckpt_torch
+from ctrlora_tpu_torch.utils.loading import check_key
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -85,12 +105,16 @@ ZERO_INIT = ("conv_out", "out_conv", "proj_out")
 KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
     "group_norm": ("triton", "ctrlora_tpu_torch/ops/group_norm.py",
                    "ctrlora_tpu/ops/group_norm.py:30 _stats_kernel + :47 _apply_kernel"),
-    "flash_attention_qkv": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention.cu",
-                            "ctrlora_tpu/ops/flash_attention.py:304 _fwd_kernel_packed_qkv"),
+    "group_norm_onepass": ("cuda", "ctrlora_tpu_torch/csrc/group_norm_onepass.cu",
+                           "ctrlora_tpu/ops/group_norm.py:55 _onepass_kernel"),
     "flash_attention": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention.cu",
                         "ctrlora_tpu/ops/flash_attention.py:58 _fwd_kernel"),
     "flash_attention_bshd": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention.cu",
                              "ctrlora_tpu/ops/flash_attention.py:138 _fwd_kernel_packed"),
+    "flash_attention_hpack2": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention_hpack2.cu",
+                               "ctrlora_tpu/ops/flash_attention.py:224 _fwd_kernel_hpack2"),
+    "flash_attention_qkv": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention.cu",
+                            "ctrlora_tpu/ops/flash_attention.py:304 _fwd_kernel_packed_qkv"),
     "flash_attention_bwd_dq": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention_bwd.cu",
                                "ctrlora_tpu/ops/flash_attention.py:622 _bwd_dq_kernel"),
     "flash_attention_bwd_dkv": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -103,9 +127,11 @@ KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
 
 
 def wrappers():
-    return {"group_norm": gn_ops.group_norm, "flash_attention_qkv": fa_ops.flash_attention_qkv,
+    return {"group_norm": gn_ops.group_norm, "group_norm_onepass": gn_ops.group_norm_onepass,
+            "flash_attention_qkv": fa_ops.flash_attention_qkv,
             "flash_attention": fa_ops.flash_attention,
             "flash_attention_bshd": fa_ops.flash_attention_bshd,
+            "flash_attention_hpack2": fa_ops.flash_attention_hpack2,
             "flash_attention_bwd_dq": fa_ops.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa_ops.flash_attention_bwd_dkv,
             "geglu_ffn": geglu_ops.geglu_ffn, "unpack_rows": unpack_ops.unpack_rows}
@@ -117,6 +143,14 @@ SAMPLING_KERNELS = ("group_norm", "flash_attention_qkv", "flash_attention", "geg
 TRAINING_KERNELS = ("group_norm", "flash_attention_qkv", "flash_attention",
                     "flash_attention_bshd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                     "geglu_ffn")
+# the two-LoRA API path under the default kernels, and under the flags that
+# switch on kernels A2 and B6 (CTRLORA_KERNELS=gn1=1,hpack=2,qkvpack=0)
+API_KERNELS = ("group_norm", "flash_attention_qkv", "flash_attention", "geglu_ffn",
+               "unpack_rows")
+FLAGS = {"gn_onepass": True, "head_pack": 2, "attn_qkv_packed": False}
+API_FLAGGED_KERNELS = ("group_norm", "group_norm_onepass", "flash_attention",
+                       "flash_attention_bshd", "flash_attention_hpack2", "geglu_ffn",
+                       "unpack_rows")
 
 
 @contextlib.contextmanager
@@ -140,9 +174,11 @@ def plain_versions():
     with contextlib.ExitStack() as stack:
         for mod, name, plain in (
                 (gn_ops, "group_norm", gn_ops.group_norm_plain),
+                (gn_ops, "group_norm_onepass", gn_ops.group_norm_plain),
                 (fa_ops, "flash_attention_qkv", fa_ops.flash_attention_qkv_plain),
                 (fa_ops, "flash_attention", fa_ops.attention_plain),
                 (fa_ops, "flash_attention_bshd", fa_ops.flash_attention_bshd_plain),
+                (fa_ops, "flash_attention_hpack2", fa_ops.flash_attention_hpack2_plain),
                 (geglu_ops, "geglu_ffn", geglu_ops.geglu_ffn_plain),
                 (unpack_ops, "unpack_rows", unpack_ops.unpack_rows_plain)):
             stack.enter_context(mock.patch.object(mod, name, plain))
@@ -199,16 +235,19 @@ def kernel_checks(dev, cfg):
     rn = lambda *s, dt=torch.bfloat16, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dt)
     results = {}
 
-    def record(name, label, got, want, fn_k, fn_p, extra=None):
+    def record(name, label, got, want, fn_k, fn_p, extra=None, **beside):
+        """`beside`: ms of the kernels this one stands beside, same inputs."""
         err = compare(got, want)
         if extra is not None:
             err = max(err, compare(*extra))
         ms, pms = time_ms(fn_k), time_ms(fn_p)
-        log("kernels", kernel=name, shape=label, max_abs_err=err, ms=ms, plain_ms=pms)
+        log("kernels", kernel=name, shape=label, max_abs_err=err, ms=ms, plain_ms=pms, **beside)
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r.setdefault("ms", ms)  # the first shape listed is the dominant one
         r.setdefault("plain_ms", pms)
+        for key, val in beside.items():
+            r.setdefault(key, val)
 
     def record_grad(name, label, got, want, fn_k, fn_p):
         """Gradients: relative L2 per output <= GRAD_REL_TOL, finite."""
@@ -243,6 +282,41 @@ def kernel_checks(dev, cfg):
         record("group_norm", f"{list(shape)} eps={eps} silu={silu} add_row={row}",
                gn_ops.group_norm(*args), gn_ops.group_norm_plain(*args),
                lambda: gn_ops.group_norm(*args), lambda: gn_ops.group_norm_plain(*args))
+
+    # A2: the one-pass GroupNorm at the five shapes gn1=1 admits on the
+    # sampling path (the last: the UNet decoder's 16x16 in_norms over the
+    # concatenated skip), with and without row and SiLU, beside kernel A
+    for shape in ((8, 64, 64, 320), (8, 32, 32, 640), (8, 32, 32, 960), (8, 32, 32, 1280),
+                  (8, 16, 16, 2560)):
+        c = shape[-1]
+        x = rn(*shape, std=2.0) + 0.5
+        sc, bi = rn(c, dt=torch.float32, std=0.1) + 1, rn(c, dt=torch.float32, std=0.1)
+        for silu, row in ((True, rn(1, c, std=0.5)), (False, None),
+                          (True, rn(shape[0], c, std=0.5))):
+            args = (x, sc, bi, 32, 1e-5, silu, row)
+            record("group_norm_onepass", f"{list(shape)} silu={silu} add_row="
+                   f"{None if row is None else list(row.shape)}",
+                   gn_ops.group_norm_onepass(*args), gn_ops.group_norm_plain(*args),
+                   lambda: gn_ops.group_norm_onepass(*args),
+                   lambda: gn_ops.group_norm_plain(*args),
+                   kernel_a_ms=time_ms(lambda: gn_ops.group_norm(*args)))
+
+    # B6: the head-pair forward at the 64x64 sites, contiguous and as split
+    # views of the fused projection, beside B's BSHD and fused-qkv entries
+    qkv = rn(8, 4096, 3 * 320)
+    views = [t.unflatten(-1, (8, 40)) for t in qkv.split(320, dim=-1)]
+    for label, ops, beside in (
+            ("[8, 4096, 8, 40]", [t.contiguous() for t in views],
+             lambda q, k, v: {"bshd_ms": time_ms(lambda: fa_ops.flash_attention_bshd(q, k, v))}),
+            ("views of [8, 4096, 3*8*40]", views,
+             lambda *_: {"qkv_ms": time_ms(lambda: fa_ops.flash_attention_qkv(qkv, 8, 40))})):
+        out, lse = fa_ops.flash_attention_hpack2(*ops)
+        pout, plse = fa_ops.flash_attention_hpack2_plain(*ops)
+        record("flash_attention_hpack2", label, out, pout,
+               lambda: fa_ops.flash_attention_hpack2(*ops),
+               lambda: fa_ops.flash_attention_hpack2_plain(*ops), extra=(lse, plse),
+               **beside(*ops))
+        del out, lse, pout, plse
 
     for s, h, d in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
         qkv = rn(8, s, 3 * h * d)
@@ -435,7 +509,7 @@ def slice_run(dev, cfg):
     x2 = torch.cat([x_T, x_T])
 
     def evaluate():
-        packed, rows_of = make_emb_row_tables(pipe, 1, ts)
+        packed, rows_of = make_emb_row_tables(pipe, conds, ts)
         return pipe.apply_model(x2, tvec, full_ctx, conds, emb_rows=rows_of(packed[0]))
 
     out_k = evaluate()
@@ -599,6 +673,222 @@ def tiny_train_gpu_vs_cpu(dev):
         loss_cpu=out[0][0].item(), tol="rtol=2e-3 atol=2e-4")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 (tiny) and 8: the two-LoRA API path from reference-format files
+# ---------------------------------------------------------------------------
+
+PROMPT = "a photo of a modern house by a lake at sunset, highly detailed, 8k"
+N_PROMPT = "lowres, blurry, bad anatomy, worst quality"
+LORA_WEIGHTS = (1.0, 0.8)
+
+
+def two_lora_state(control: nn.Module, lora: configs.LoRAConfig, gen: torch.Generator) -> dict:
+    """An unfused control state of `lora.n_loras` trained LoRAs: the
+    adapters of ``unfused_control_state``, and zero convs and transformer
+    norms that differ per slot (each slot's copy plus its own noise)."""
+    state = unfused_control_state(control, lora, gen)
+    target = control.state_dict()
+    for key, value in state.items():
+        if key in target and value.ndim == target[key].ndim + 1:
+            noise = torch.randn(value.shape, generator=gen, device=value.device)
+            state[key] = value + (0.05 if key.startswith("zero_") else 0.1) * noise
+    return state
+
+
+def write_reference_files(src: CtrLoraPipeline, control_state: dict, cfg, outdir: str,
+                          dtype: torch.dtype):
+    """The SD checkpoint (UNet, VAE, CLIP under the reference prefixes), the
+    Base ControlNet and one file per LoRA slot, in `dtype`, through the
+    port's exporters. Returns (paths, the written state dicts)."""
+    os.makedirs(outdir, exist_ok=True)
+    as_file = lambda d: {k: torch.from_numpy(v).to(dtype) for k, v in d.items()}
+    sd = {}
+    for prefix, module, entries in (
+            ("model.diffusion_model.", src.unet, ckpt_torch.unet_entries(cfg.unet)),
+            ("first_stage_model.", src.vae, ckpt_torch.vae_entries(cfg.vae)),
+            ("cond_stage_model.transformer.text_model.", src.clip,
+             ckpt_torch.clip_entries(cfg.clip))):
+        sd.update(as_file(ckpt_torch.export_tree(module.state_dict(), entries, prefix)))
+    written = {"sd": sd, "basecn": as_file(ckpt_torch.export_control_base(control_state,
+                                                                         cfg.control)),
+               "loras": [as_file(ckpt_torch.export_lora_slot(control_state, cfg.control, i))
+                         for i in range(cfg.control.lora.n_loras)]}
+    paths = {"sd": os.path.join(outdir, "sd15.ckpt"), "basecn": os.path.join(outdir, "basecn.ckpt"),
+             "loras": [os.path.join(outdir, f"lora{i}.ckpt") for i in range(len(written["loras"]))]}
+    torch.save({"state_dict": sd}, paths["sd"])
+    torch.save(written["basecn"], paths["basecn"])
+    for path, lsd in zip(paths["loras"], written["loras"]):
+        torch.save(lsd, path)
+    return paths, written
+
+
+def loaded_matches_written(states, written, cfg) -> int:
+    """Every tensor the loader produced equals the file's (fp16 widened to
+    fp32 exactly), read back through the exporters; returns the count."""
+    pairs = []
+    for prefix, sd, entries in (
+            ("model.diffusion_model.", states.unet, ckpt_torch.unet_entries(cfg.unet)),
+            ("first_stage_model.", states.vae, ckpt_torch.vae_entries(cfg.vae)),
+            ("cond_stage_model.transformer.text_model.", states.clip,
+             ckpt_torch.clip_entries(cfg.clip))):
+        pairs += [(k, v, written["sd"][k]) for k, v in
+                  ckpt_torch.export_tree(sd, entries, prefix).items()]
+    pfx = "control_model."
+    pairs += [(k, v, written["basecn"][k]) for k, v in
+              ckpt_torch.export_control_base(states.control, cfg.control).items()
+              if not check_key(k[len(pfx):])]
+    for i, lsd in enumerate(written["loras"]):
+        pairs += [(k, v, lsd[k]) for k, v in
+                  ckpt_torch.export_lora_slot(states.control, cfg.control, i).items()]
+    bad = [k for k, got, want in pairs if not np.array_equal(got, want.float().numpy())]
+    if bad or len(pairs) != len(written["sd"]) + sum(map(len, written["loras"])) + sum(
+            not check_key(k[len(pfx):]) for k in written["basecn"]):
+        raise AssertionError(f"loaded tensors differ from the files: {bad[:5]} "
+                             f"({len(pairs)} compared)")
+    return len(pairs)
+
+
+def create_checked(api: api_mod.CtrLoRA, paths, written, cfg):
+    """``api.create_model`` on the files, with the loader's output caught
+    on its way and held against what was written. Returns (seconds, n)."""
+    caught, load = {}, api_mod.load_ctrlora
+
+    def spy(*args, **kw):
+        caught["states"] = load(*args, **kw)
+        return caught["states"]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(api_mod, "load_ctrlora", spy):
+        api.create_model(paths["sd"], paths["basecn"], paths["loras"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return seconds, loaded_matches_written(caught.pop("states"), written, cfg)
+
+
+def tiny_api_gpu_vs_cpu(dev):
+    """The tiny two-LoRA API path (the tiny configuration with the real CLIP
+    vocabulary, so the tokenizer's ids embed) from tiny reference-format
+    files, fp32, on the GPU against the CPU: same files, same seed."""
+    cfg = configs.tiny_test_config(n_loras=2, switchable_banks=True)
+    cfg = dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vocab_size=49408))
+    gen = torch.Generator().manual_seed(SEED)
+    src = CtrLoraPipeline(cfg, "cpu")
+    for m in src.modules():
+        random_init_(m, gen)
+    outdir = os.path.join(ROOT, "runs", "chip_smoke_tiny_api")
+    shutil.rmtree(outdir, ignore_errors=True)
+    paths, _ = write_reference_files(src, two_lora_state(src.control, cfg.control.lora, gen),
+                                     cfg, outdir, torch.float32)
+    rng = np.random.default_rng(SEED)
+    hints = (rng.integers(0, 256, (16, 16, 3), dtype=np.uint8),
+             rng.integers(0, 256, (16, 24), dtype=np.uint8))
+    outs = []
+    for d in ("cpu", dev):
+        api = api_mod.CtrLoRA(num_loras=2, cfg=cfg, device=d)
+        api.create_model(paths["sd"], paths["basecn"], paths["loras"])
+        outs.append(api._sample_float(api.prepare_images(hints), PROMPT, N_PROMPT, 2, 3, 7.5,
+                                      LORA_WEIGHTS, SEED).cpu())
+    shutil.rmtree(outdir, ignore_errors=True)
+    err = compare(outs[1], outs[0], rtol=2e-3, atol=2e-4)
+    log("tiny_api", gpu_vs_cpu_max_abs_err=err, shape=list(outs[0].shape),
+        tol="rtol=2e-3 atol=2e-4")
+
+
+def api_slice(dev):
+    """Phase 8: the two-LoRA API path at SD1.5 width under both kernel
+    settings. Returns the launches of each timed run."""
+    cfg = configs.ctrlora_inference_config(lora_num=2, lora_rank=128)
+    outdir = os.path.join(ROOT, "runs", "chip_smoke_ckpts")
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    log("api_2lora", disk_free_gb=shutil.disk_usage(outdir).free / 2 ** 30)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    src = CtrLoraPipeline(cfg, dev)
+    for m in src.modules():
+        random_init_(m, gen)
+    paths, written = write_reference_files(
+        src, two_lora_state(src.control, cfg.control.lora, gen), cfg, outdir, torch.float16)
+    del src
+    log("api_2lora", write_s=time.perf_counter() - t0,
+        file_gb={k: os.path.getsize(p) / 2 ** 30 for k, p in
+                 (("sd", paths["sd"]), ("basecn", paths["basecn"]), ("lora0", paths["loras"][0]))})
+
+    api = api_mod.CtrLoRA(num_loras=2, lora_rank=128, device=dev)
+    load_s, n_checked = create_checked(api, paths, written, cfg)
+    del written
+    shutil.rmtree(outdir, ignore_errors=True)
+    log("api_2lora", create_model_s=load_s, loaded_tensors_equal_written=n_checked)
+
+    rng = np.random.default_rng(SEED)
+    images = api.prepare_images((rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8),
+                                 rng.integers(0, 256, (SIZE + 64, SIZE, 3), dtype=np.uint8)))
+    if any(img.shape != (SIZE, SIZE, 3) for img in images):
+        raise AssertionError(f"centre crop gave {[img.shape for img in images]}")
+    run = lambda steps, timings=None: api._sample_images(
+        images, PROMPT, N_PROMPT, BATCH, steps, 7.5, LORA_WEIGHTS, SEED, timings=timings)
+    launches, outs = {}, {}
+    for setting, flags, required in (("default", {}, API_KERNELS),
+                                     ("flagged", FLAGS, API_FLAGGED_KERNELS)):
+        with kernel_flags.override(**flags):
+            t0 = time.perf_counter()
+            run(2)  # warm-up
+            warm = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats(dev)
+            with counted(f"api_2lora {setting}", required) as launches[setting]:
+                timings = {}
+                t0 = time.perf_counter()
+                outs[setting] = run(STEPS, timings)
+                total = time.perf_counter() - t0
+        out = outs[setting]
+        log("api_2lora", setting=setting, flags=flags, steps=STEPS, batch=BATCH, size=SIZE,
+            warmup_s=warm, s_per_batch=total, s_per_step=timings["ddim_s"] / STEPS, **timings,
+            launches=launches[setting], peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            image_mean=float(out.mean()), image_std=float(out.std()))
+        if out.shape != (BATCH, SIZE, SIZE, 3) or out.dtype != np.uint8:
+            raise AssertionError(f"bad images: {out.shape} {out.dtype}")
+    stray = {n: launches["default"][n] for n in ("group_norm_onepass", "flash_attention_hpack2")
+             if launches["default"][n]}
+    if stray:
+        raise AssertionError(f"kernels A2/B6 launched under the default flags: {stray}")
+    log("api_2lora", mean_abs_uint8_diff_default_vs_flagged=float(
+        np.abs(outs["default"].astype(np.int16) - outs["flagged"].astype(np.int16)).mean()))
+
+    # one UNet + two-ControlNet evaluation: flagged kernels vs plain versions
+    pipe = api.pipe
+    ctx, unc = pipe.encode_text_cond_uncond(api.token_ids(PROMPT, BATCH),
+                                            api.token_ids(N_PROMPT, BATCH))
+    conds = [dataclasses.replace(c, hint=torch.cat([c.hint, c.hint]))
+             for c in api.conditions(images, BATCH, LORA_WEIGHTS)]
+    full_ctx = torch.cat([ctx, unc])
+    lat = SIZE // 2 ** (len(cfg.vae.ch_mult) - 1)
+    x = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    x2 = torch.cat([x, x])
+    ts = torch.tensor([981], dtype=torch.int32, device=dev)
+    tvec = torch.full((2 * BATCH,), 981, dtype=torch.int32, device=dev)
+
+    def evaluate(cs):
+        packed, rows_of = make_emb_row_tables(pipe, cs, ts)
+        return pipe.apply_model(x2, tvec, full_ctx, cs, emb_rows=rows_of(packed[0]))
+
+    with kernel_flags.override(**FLAGS):
+        out_k = evaluate(conds)
+    with plain_versions():
+        out_p = evaluate(conds)
+    rel = ((out_k - out_p).norm() / out_p.norm()).item()
+    log("api_2lora", unet_2controlnet_rel_l2_flagged_vs_plain=rel, bound=MODEL_REL_TOL)
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL:
+        raise AssertionError(f"flagged kernel path departs from the plain path: rel {rel}")
+    # the switching is real: all of LoRA 0 against all of LoRA 1
+    one, two = (evaluate([dataclasses.replace(c, weight=w) for c, w in zip(conds, ws)])
+                for ws in ((1.0, 0.0), (0.0, 1.0)))
+    swap = ((one - two).norm() / one.norm()).item()
+    log("api_2lora", rel_l2_lora_weights_10_vs_01=swap)
+    if not swap > 1e-3:
+        raise AssertionError(f"lora_weights (1, 0) and (0, 1) give the same output: {swap}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -625,15 +915,17 @@ def main() -> int:
     results = kernel_checks(dev, cfg)
     sampling, _, _ = slice_run(dev, cfg)
     tiny_gpu_vs_cpu(dev)
+    tiny_api_gpu_vs_cpu(dev)
     training, _ = train_slice(dev)
     tiny_train_gpu_vs_cpu(dev)
+    api_runs = api_slice(dev)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
+        by_path = {"sampling": sampling[name], "training": training[name],
+                   "api_2lora": sum(r[name] for r in api_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": sampling[name] + training[name],
-                        "launches_by_path": {"sampling": sampling[name],
-                                             "training": training[name]},
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,10 +17,18 @@ an unfused control tree goes through ``lora_fuse.fuse_control_tree`` first.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight"}
+
+
+def port_key(path: Sequence[str]) -> str:
+    """The port's state-dict key of a flax parameter path, e.g.
+    ('in_1_res', 'emb_proj', 'kernel') -> 'in_1_res.emb_proj.weight'."""
+    return ".".join((*path[:-1], _LEAF_NAMES.get(path[-1], path[-1])))
 
 
 def _leaf(name: str, value: np.ndarray):
@@ -32,9 +40,7 @@ def _leaf(name: str, value: np.ndarray):
         if value.ndim == 5:
             return "weight", value.transpose(0, 4, 3, 1, 2)
         raise ValueError(f"kernel of rank {value.ndim}")
-    if name == "scale":
-        return "weight", value
-    return name, value
+    return _LEAF_NAMES.get(name, name), value
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,13 @@ weights to the fused GEGLU kernel (kernel C).
 With LoRA (the unfused control tree of training), q, k and v are separate
 LoRA ``Dense`` projections and self-attention reads them through the
 kernel's BSHD entry; the feed-forward is LoRA ``Dense`` -> split -> exact
-GELU gate -> LoRA ``Dense`` with no kernel, as in JAX.
+GELU gate -> LoRA ``Dense`` with no kernel, as in JAX. With switchable banks
+the transformer's norms are [n, C] banks selected by ``lora_idx``.
+
+Two ``CTRLORA_KERNELS`` tokens change the self-attention path without LoRA,
+as in the JAX ``CrossAttention``: ``qkvpack=0`` splits the fused projection
+into strided [B, S, H, D] views for the BSHD dispatcher (which takes kernel
+B6 under ``hpack=2``), and ``fuse_qkv=0`` issues three projections.
 """
 
 from __future__ import annotations
@@ -24,10 +30,11 @@ from torch import nn
 
 from ctrlora_tpu_torch.configs import LoRAConfig
 from ctrlora_tpu_torch.models.layers import (
-    CL, Conv, Dense, GroupNorm32, LayerNorm32, LoraIdx, has_lora,
+    CL, Conv, Dense, GroupNorm32, LayerNorm32, LoraIdx, has_lora, n_banks,
 )
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
+from ctrlora_tpu_torch.ops import kernel_flags
 
 
 class CrossAttention(nn.Module):
@@ -63,11 +70,20 @@ class CrossAttention(nn.Module):
                 heads4(self.to_v(ctx, lora_idx)), use_flash=self.use_flash)
             return self.to_out(out, lora_idx)
         if context is None:
-            w = self.wqkv
-            if w is None:
-                w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
-            qkv = F.linear(x, w.to(x.dtype))
-            out = fa_ops.dot_product_attention_bshd_qkv(qkv, h, d, use_flash=self.use_flash)
+            fl = kernel_flags.flags()
+            if fl.fuse_qkv is not False:
+                w = self.wqkv
+                if w is None:
+                    w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
+                qkv = F.linear(x, w.to(x.dtype))
+                if fl.attn_qkv_packed is not False:
+                    out = fa_ops.dot_product_attention_bshd_qkv(qkv, h, d,
+                                                                use_flash=self.use_flash)
+                    return self.to_out(out)
+                q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+            else:
+                q, k, v = (p(x).unflatten(-1, (h, d)) for p in (self.to_q, self.to_k, self.to_v))
+            out = fa_ops.dot_product_attention_bshd(q, k, v, use_flash=self.use_flash)
         else:
             heads4 = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
             q = heads4(self.to_q(x))
@@ -105,18 +121,19 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int],
                  use_flash: bool = True, lora: Optional[LoRAConfig] = None):
         super().__init__()
-        self.norm1 = LayerNorm32(dim)
+        banks = n_banks(lora)
+        self.norm1 = LayerNorm32(dim, n_banks=banks)
         self.attn1 = CrossAttention(dim, heads, dim_head, use_flash=use_flash, lora=lora)
-        self.norm2 = LayerNorm32(dim)
+        self.norm2 = LayerNorm32(dim, n_banks=banks)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
                                     use_flash=use_flash, lora=lora)
-        self.norm3 = LayerNorm32(dim)
+        self.norm3 = LayerNorm32(dim, n_banks=banks)
         self.ff = FeedForward(dim, lora=lora)
 
     def forward(self, x, context, lora_idx: LoraIdx = None):
-        x = x + self.attn1(self.norm1(x), lora_idx=lora_idx)
-        x = x + self.attn2(self.norm2(x), context, lora_idx)
-        return x + self.ff(self.norm3(x), lora_idx)
+        x = x + self.attn1(self.norm1(x, lora_idx), lora_idx=lora_idx)
+        x = x + self.attn2(self.norm2(x, lora_idx), context, lora_idx)
+        return x + self.ff(self.norm3(x, lora_idx), lora_idx)
 
 
 class SpatialTransformer(nn.Module):
@@ -129,7 +146,7 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
-        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.norm = GroupNorm32(channels, eps=1e-6, n_banks=n_banks(lora))
         self.proj_in = Conv(channels, inner, kernel_size=1)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
@@ -139,7 +156,7 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context, lora_idx: LoraIdx = None):
         b, c, hh, ww = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x)).contiguous(memory_format=CL)
+        x = self.proj_in(self.norm(x, bank_idx=lora_idx)).contiguous(memory_format=CL)
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
         for i in range(self.depth):

@@ -29,6 +29,15 @@ CL = torch.channels_last
 LoraIdx = Optional[Union[int, torch.Tensor]]
 
 
+def to_channels_last(module: nn.Module) -> nn.Module:
+    """``module.to(memory_format=channels_last)`` for its 4-d weights only
+    (a banked zero conv's [n, co, ci, 1, 1] weight has no such format)."""
+    for p in module.parameters():
+        if p.dim() == 4:
+            p.data = p.data.contiguous(memory_format=CL)
+    return module
+
+
 def _take(bank: torch.Tensor, idx: LoraIdx) -> torch.Tensor:
     """One slice of a [n, ...] bank; an out-of-range index selects the
     nearest end (the JAX ``_take``'s mode='clip')."""
@@ -41,6 +50,11 @@ def _take(bank: torch.Tensor, idx: LoraIdx) -> torch.Tensor:
 
 def has_lora(lora: Optional[LoRAConfig]) -> bool:
     return lora is not None and lora.n_loras > 0
+
+
+def n_banks(lora: Optional[LoRAConfig]) -> int:
+    """Bank size of the switchable zero convs and transformer norms."""
+    return lora.n_loras if has_lora(lora) and lora.switchable_banks else 0
 
 
 class Dense(nn.Linear):
@@ -86,17 +100,43 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+def _affine(channels: int, n_banks: int):
+    """Norm affine parameters: [C], or an [n_banks, C] switchable bank."""
+    shape = (n_banks, channels) if n_banks > 0 else (channels,)
+    return nn.Parameter(torch.ones(shape)), nn.Parameter(torch.zeros(shape))
+
+
+class ZeroConv(Conv):
+    """A control tap's 1x1 conv; with ``n_banks`` its weight [n, co, ci, 1, 1]
+    and bias [n, co] are a switchable bank selected per call by
+    ``bank_idx`` (the JAX ``ZeroConv``)."""
+
+    def __init__(self, channels: int, n_banks: int = 0):
+        super().__init__(channels, channels, kernel_size=1)
+        self.n_banks = n_banks
+        if n_banks:
+            self.weight = nn.Parameter(self.weight.detach()[None].repeat(n_banks, 1, 1, 1, 1))
+            self.bias = nn.Parameter(self.bias.detach()[None].repeat(n_banks, 1))
+
+    def forward(self, x, bank_idx: LoraIdx = None):
+        if not self.n_banks:
+            return super().forward(x)
+        b = _take(self.bias, bank_idx).to(x.dtype)
+        return self._conv_forward(x, _take(self.weight, bank_idx).to(x.dtype), b)
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm in fp32 over NCHW channels-last x, with the SiLU that
     follows most norms fused and an optional row folded in: computes
     GN(x + add_row) for add_row [C]/[1, C]/[B, C] without building the sum
-    (kernel A, ``ops/group_norm.py``)."""
+    (kernel A or A2, ``ops/group_norm.py``). With ``n_banks`` the affine is
+    a switchable [n, C] bank, selected per call by ``bank_idx``."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
-                 silu: bool = False):
+                 silu: bool = False, n_banks: int = 0):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight, self.bias = _affine(channels, n_banks)
+        self.n_banks = n_banks
         # real models have C % 32 == 0; tiny test widths take the largest
         # group count that divides C, as the JAX layer does
         self.num_groups = (num_groups if channels % num_groups == 0
@@ -104,24 +144,31 @@ class GroupNorm32(nn.Module):
         self.eps = eps
         self.silu = silu
 
-    def forward(self, x, add_row: Optional[torch.Tensor] = None):
+    def forward(self, x, add_row: Optional[torch.Tensor] = None, bank_idx: LoraIdx = None):
         x = x.contiguous(memory_format=CL)
-        y = gn_ops.group_norm(x.permute(0, 2, 3, 1), self.weight, self.bias,
-                              self.num_groups, self.eps, self.silu, add_row)
+        w, b = self.weight, self.bias
+        if self.n_banks:
+            w, b = _take(w, bank_idx), _take(b, bank_idx)
+        y = gn_ops.group_norm(x.permute(0, 2, 3, 1), w, b, self.num_groups, self.eps,
+                              self.silu, add_row)
         return y.permute(0, 3, 1, 2)
 
 
 class LayerNorm32(nn.Module):
-    """LayerNorm in fp32 over the last axis (eps 1e-5), plain."""
+    """LayerNorm in fp32 over the last axis (eps 1e-5), plain; optionally a
+    switchable [n, C] bank as :class:`GroupNorm32`."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, n_banks: int = 0):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight, self.bias = _affine(channels, n_banks)
+        self.n_banks = n_banks
         self.eps = eps
 
-    def forward(self, x):
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+    def forward(self, x, bank_idx: LoraIdx = None):
+        w, b = self.weight, self.bias
+        if self.n_banks:
+            w, b = _take(w, bank_idx), _take(b, bank_idx)
+        y = F.layer_norm(x.float(), (x.shape[-1],), w, b, self.eps)
         return y.to(x.dtype)
 
 

@@ -22,7 +22,8 @@ from torch.utils.checkpoint import checkpoint
 from ctrlora_tpu_torch.configs import ControlNetConfig, LoRAConfig, UNetConfig
 from ctrlora_tpu_torch.models.attention import SpatialTransformer
 from ctrlora_tpu_torch.models.layers import (
-    CL, Conv, Downsample, GroupNorm32, LoraIdx, ResBlock, TimestepEmbed, Upsample,
+    CL, Conv, Downsample, GroupNorm32, LoraIdx, ResBlock, TimestepEmbed, Upsample, ZeroConv,
+    n_banks,
 )
 
 
@@ -182,20 +183,22 @@ class ControlNet(nn.Module):
     """Latent-hint control branch (CtrLoRA): the VAE-encoded hint is the
     input stream; zero-conv taps after every input block and the middle.
     Either the fused tree (no LoRA parameters: serving) or the unfused tree
-    with ``cfg.lora.n_loras`` stacked adapters on every Dense (training);
-    switchable zero-conv and norm banks are not ported."""
+    with ``cfg.lora.n_loras`` stacked adapters on every Dense (training, and
+    the loader's output); with ``switchable_banks`` its zero convs and
+    transformer norms are [n]-banks too, all selected by ``lora_idx``."""
 
     def __init__(self, cfg: ControlNetConfig):
         super().__init__()
-        if cfg.hint_mode != "latent" or cfg.lora.switchable_banks:
-            raise ValueError("the port's ControlNet is the latent-hint branch without banks")
+        if cfg.hint_mode != "latent":
+            raise ValueError("the port's ControlNet is the latent-hint branch")
         ucfg = cfg.unet
         self.cfg = cfg
         self.time_embed = TimestepEmbed(ucfg.model_channels, cfg.lora)
         ch = _build_encoder(self, ucfg, ucfg.in_channels, cfg.lora)
+        banks = n_banks(cfg.lora)
         for i, step in enumerate(encoder_plan(ucfg)[0]):
-            self.add_module(f"zero_{i}", Conv(step.out_ch, step.out_ch, kernel_size=1))
-        self.zero_mid = Conv(ch, ch, kernel_size=1)
+            self.add_module(f"zero_{i}", ZeroConv(step.out_ch, banks))
+        self.zero_mid = ZeroConv(ch, banks)
 
     def forward(self, hint, timesteps, context, emb_rows: Optional[dict] = None,
                 lora_idx: LoraIdx = None) -> Tuple[torch.Tensor, ...]:
@@ -207,7 +210,7 @@ class ControlNet(nn.Module):
         context = context.to(dt)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         h = self.in_conv(_nchw(hint, dt))
-        outs = [nhwc(self.zero_0(h))]
+        outs = [nhwc(self.zero_0(h, lora_idx))]
         for i, step in enumerate(encoder_plan(ucfg)[0][1:], start=1):
             if step.kind == "res":
                 h = _block(ucfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"),
@@ -216,9 +219,9 @@ class ControlNet(nn.Module):
                     h = _block(ucfg, getattr(self, f"in_{i}_attn"), h, context, lora_idx)
             else:
                 h = getattr(self, f"in_{i}_down")(h)
-            outs.append(nhwc(getattr(self, f"zero_{i}")(h)))
+            outs.append(nhwc(getattr(self, f"zero_{i}")(h, lora_idx)))
         h = _block(ucfg, self.mid_res0, h, emb, row("mid_res0"), lora_idx)
         h = _block(ucfg, self.mid_attn, h, context, lora_idx)
         h = _block(ucfg, self.mid_res1, h, emb, row("mid_res1"), lora_idx)
-        outs.append(nhwc(self.zero_mid(h)))
+        outs.append(nhwc(self.zero_mid(h, lora_idx)))
         return tuple(outs)

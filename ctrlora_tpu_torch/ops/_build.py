@@ -35,6 +35,11 @@ _ENTRIES = {
     # q, k, v, out, lse, B, H, Sq, Sk, D, strides (b, s, h) of q, k, v, out,
     # scale, stream
     "ctrlora_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
+    # the head-pair forward (kernel B6): the same arguments
+    "ctrlora_flash_hpack2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
+    # x, scale, bias, row (or null), y, B, HW, C, G, row stride, eps, silu,
+    # dtype (0 bf16, 1 fp32), dynamic shared memory bytes, stream
+    "ctrlora_group_norm_onepass": [_P] * 5 + [_I] * 4 + [_LL, _F, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides (b, s, h) of
     # q, k, v, dout, dq as one int64[15], scale, stream
     "ctrlora_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_STRIDES, _F, _P],

@@ -8,10 +8,14 @@ from the fused [B, S, 3*H*D] projection), ``_fwd_kernel_packed`` (separate
 q, k, v in the projections' [B, S, H, D] layout: the LoRA control branch)
 and ``_fwd_kernel`` (the VAE's [B, H, S, D] single-head attention). The
 backward kernels (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``. The source notes in the .cu files say what bounds
-them and how they are built. Every entry launches the same forward kernel
-with its own strides, and the one pair of backward kernels with the entry's
-strides; each wrapper counts its own launches.
+and ``_bwd_dkv_kernel``. Kernel B6 (``csrc/flash_attention_hpack2.cu``,
+:func:`flash_attention_hpack2`) replaces ``_fwd_kernel_hpack2``, the
+head-pair forward with the skip-max softmax, which the BSHD dispatcher takes
+under ``CTRLORA_KERNELS=hpack=2`` where the heads pair and 2*D <= 128. The
+source notes in the .cu files say what bounds them and how they are built.
+Every other entry launches the same forward kernel with its own strides, and
+all share the one pair of backward kernels; each wrapper counts its own
+launches.
 
 Each forward entry is a ``torch.autograd.Function`` saving (q, k, v, out,
 lse); its backward computes Delta = rowsum(dO * O) in fp32 and launches the
@@ -32,8 +36,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ctrlora_tpu_torch.ops import _build
+from ctrlora_tpu_torch.ops import _build, kernel_flags
 
+LOG2E = 1.4426950408889634
 MAX_BWD_HEAD_DIM = 160  # the backward kernels' widest instantiation
 
 
@@ -63,6 +68,26 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     b, s, h, d = q.shape
     out, lse = attention_plain(_bhsd(q), _bhsd(k), _bhsd(v), scale)
     return _bhsd(out).reshape(b, s, h * d), lse
+
+
+def flash_attention_hpack2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`flash_attention_hpack2`, in the form of
+    the JAX ``_fwd_kernel_hpack2``: q scaled by scale*log2(e) and rounded to
+    its dtype, fp32 logits s2, P = exp2(min(s2, 110)) rounded to v's dtype
+    with no max subtracted, fp32 PV and row sum, out = PV / max(l, 1e-30)
+    and lse = log2(l) / log2(e). q, k, v [B, S, H, D] -> (out [B, S, H*D],
+    lse [B, H, S] fp32)."""
+    b, s, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    s2 = torch.matmul(_bhsd(qs).float(), _bhsd(k).float().transpose(-1, -2))
+    p = torch.exp2(torch.clamp(s2, max=110.0)).to(v.dtype).float()
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = (torch.matmul(p, _bhsd(v).float()) / l).to(q.dtype)
+    return _bhsd(out).reshape(b, s, h * d), torch.log2(l[..., 0]) / LOG2E
 
 
 def flash_attention_qkv_plain(qkv: torch.Tensor, heads: int, dim_head: int,
@@ -281,6 +306,44 @@ class _FlashBSHD(torch.autograd.Function):
         return (*grads, None)
 
 
+class _FlashHpack2(_FlashBSHD):
+    """Kernel B6 forward; the backward is the BSHD entry's (the dQ and dK/dV
+    kernels from the saved natural-log lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_hpack2_plain(q, k, v, scale)
+        else:
+            out, lse = _forward_hpack2(q, k, v, scale)
+            flash_attention_hpack2.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+
+def _forward_hpack2(q, k, v, scale):
+    """Kernel B6 over [B, S, H, D] views -> (out [B, S, H*D], lse)."""
+    what = "flash_attention_hpack2"
+    b, s, h, d = q.shape
+    if (q.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in (q, k, v))
+            or any(t.stride(-1) != 1 for t in (q, k, v))):
+        raise ValueError(f"{what}: needs bf16 CUDA tensors with unit last stride")
+    if h % 2 or 2 * d > 128:
+        raise ValueError(f"{what}: needs an even head count and 2*D <= 128, got H={h} D={d}")
+    out = torch.empty((b, s, h * d), device=q.device, dtype=q.dtype)
+    views = [_bhsd(t) for t in (q, k, v, out.view(b, s, h, d))]
+    strides = [t.stride(i) for t in views for i in (0, 2, 1)]
+    _check_aligned(what, [t.data_ptr() for t in (q, k, v)], strides[:9], d)
+    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    code = _build.cuda_lib().ctrlora_flash_hpack2(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, h, s, k.shape[1], d, *strides, float(scale), _build.stream_ptr(q.device))
+    _build.check(code, what)
+    return out, lse
+
+
 class _FlashQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, heads, dim_head, scale):
@@ -338,6 +401,21 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bshd.launches = 0
 
 
+def flash_attention_hpack2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: Optional[float] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B6: attention over q, k, v [B, S, H, D] (any strides with a
+    unit last stride, H even, 2*D <= 128) one head pair per block, with the
+    skip-max softmax of the JAX ``_fwd_kernel_hpack2``. Returns (out
+    [B, S, H*D], lse [B, H, S] fp32)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashHpack2.apply(q, k, v, scale)
+
+
+flash_attention_hpack2.launches = 0
+
+
 def flash_attention_qkv(qkv: torch.Tensor, heads: int, dim_head: int,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -372,13 +450,22 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     return attention_plain(q, k, v, scale)[0]
 
 
+def _hpack_ok(heads: int, dim_head: int) -> bool:
+    """The JAX rule for the head-pair kernel: hpack=N with N >= 2, an even
+    head count and a pair no wider than 128."""
+    return (kernel_flags.flags().head_pack or 1) > 1 and heads % 2 == 0 and 2 * dim_head <= 128
+
+
 def dot_product_attention_bshd(q, k, v, scale: Optional[float] = None,
                                use_flash: bool = True) -> torch.Tensor:
-    """Attention over q, k, v [B, S, H, D] -> [B, Sq, H*D]; same dispatch."""
+    """Attention over q, k, v [B, S, H, D] -> [B, Sq, H*D]; same dispatch,
+    and kernel B6 instead of the BSHD entry where :func:`_hpack_ok`."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     sq, sk = q.shape[1], k.shape[1]
     if use_flash and sk >= 256 and _tiles(sq) and _tiles(sk):
+        if _hpack_ok(q.shape[2], q.shape[3]):
+            return flash_attention_hpack2(q, k, v, scale)[0]
         return flash_attention_bshd(q, k, v, scale)[0]
     return flash_attention_bshd_plain(q, k, v, scale)[0]
 

@@ -2,7 +2,10 @@
 
 Kernel A of the port, in Triton. It replaces the TPU kernel pair
 ``ctrlora_tpu/ops/group_norm.py`` ``_stats_kernel`` + ``_apply_kernel``
-(launched from ``fused_group_norm``).
+(launched from ``fused_group_norm``). Kernel A2 (``csrc/group_norm_onepass.cu``,
+CUDA C++, :func:`group_norm_onepass`) replaces the one-pass ``_onepass_kernel``;
+:func:`group_norm` routes to it under ``CTRLORA_KERNELS=gn1=1`` where the JAX
+admission rule holds (``_onepass_ok``), and to kernel A everywhere else.
 
 What bounds it on the H100: no matrix product, a few flops per element, so
 device-memory bandwidth: one read of x for the statistics, one read and one
@@ -35,6 +38,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from ctrlora_tpu_torch.ops import _build, kernel_flags
 
 tl = None  # triton.language, bound at the first launch (the kernels' globals)
 
@@ -150,8 +155,97 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# one-pass admission, the JAX constants under their names (a test may
+# monkeypatch _ONEPASS_MIN_ELEMS to 0, as the JAX package's tests do)
+_MAX_BLOCK_ELEMS = 1 << 17
+_ONEPASS_MAX_BYTES = 3 * 1024 * 1024
+_ONEPASS_MIN_ELEMS = 1 << 19
+# A2's CTA: 512 threads, one (sample, group) slice staged in shared memory
+_ONEPASS_THREADS = 512
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+
+
+def _pick_hw_block(hw: int, c: int) -> Optional[int]:
+    for cand in (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8):
+        if cand <= hw and hw % cand == 0 and cand * c <= _MAX_BLOCK_ELEMS:
+            return cand
+    return None
+
+
+def _onepass_ok(hw: int, c: int, dtype: torch.dtype, num_groups: int) -> bool:
+    """The JAX ``_onepass_ok``: gn1=1, and the [hw, c] sample is large
+    enough to gain and small enough (3 MiB) to stay resident."""
+    if not kernel_flags.flags().gn_onepass:
+        return False
+    return (hw * c >= _ONEPASS_MIN_ELEMS
+            and hw * c * dtype.itemsize <= _ONEPASS_MAX_BYTES
+            and c % num_groups == 0
+            and _pick_hw_block(hw, c) is not None)
+
+
+def _onepass_smem(hw: int, cpg: int, itemsize: int) -> int:
+    """A2's dynamic shared memory: per-thread partial sums (two floats per
+    element of a pair), the group's per-channel sums and affine, and the
+    staged [hw, cpg] slice (the layout of csrc/group_norm_onepass.cu)."""
+    vec = 2 if cpg % 2 == 0 else 1
+    stats = (4 * cpg + 2) * 4
+    return 2 * _ONEPASS_THREADS * vec * 4 + (stats + 15) // 16 * 16 + hw * cpg * itemsize
+
+
+_ONEPASS_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
+                       add_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel A2: the one-pass GroupNorm(x + add_row) (+SiLU) of x
+    [B, ..., C] contiguous, in one launch that reads x from device memory
+    once. Its plain version is :func:`group_norm_plain` (the same function),
+    which a CPU tensor takes; on a CUDA tensor the kernel runs or this
+    raises. Forward only: :func:`group_norm` gives it its backward."""
+    if x.device.type == "cpu":
+        return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
+    if x.device.type != "cuda" or x.dtype not in _ONEPASS_DTYPES or not x.is_contiguous():
+        raise ValueError("group_norm_onepass: needs a contiguous bf16 or fp32 CUDA tensor")
+    b, c = x.shape[0], x.shape[-1]
+    hw = x.numel() // (b * c)
+    if c % num_groups:
+        raise ValueError(f"group_norm_onepass: {c} channels do not split into {num_groups} groups")
+    cpg = c // num_groups
+    smem = _onepass_smem(hw, cpg, x.element_size())
+    if smem > _SMEM_LIMIT or cpg > _ONEPASS_THREADS:
+        raise ValueError(f"group_norm_onepass: a [{hw}, {cpg}] group slice needs {smem} bytes "
+                         f"of shared memory (limit {_SMEM_LIMIT})")
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise ValueError("group_norm_onepass: scale and bias must be fp32")
+    row, row_stride = None, 0
+    if add_row is not None:
+        row = add_row.float().reshape(-1, c).contiguous()
+        if row.shape[0] not in (1, b):
+            raise ValueError(f"group_norm_onepass: add_row {tuple(add_row.shape)} is not "
+                             f"[C], [1, C] or [B, C]")
+        row_stride = 0 if row.shape[0] == 1 else c
+    scale, bias = scale.contiguous(), bias.contiguous()  # held until the launch returns
+    y = torch.empty_like(x)
+    code = _build.cuda_lib().ctrlora_group_norm_onepass(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        None if row is None else row.data_ptr(), y.data_ptr(), b, hw, c, num_groups,
+        row_stride, float(eps), int(silu), _ONEPASS_DTYPES[x.dtype], smem,
+        _build.stream_ptr(x.device))
+    _build.check(code, "group_norm_onepass")
+    group_norm_onepass.launches += 1
+    return y
+
+
+group_norm_onepass.launches = 0
+
+
 def _forward(x, scale, bias, num_groups, eps, silu, add_row):
-    """The kernels on a CUDA tensor, the plain version on a CPU tensor."""
+    """Kernel A2 where gn1=1 admits the shape; else kernel A on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    b, c = x.shape[0], x.shape[-1]
+    if _onepass_ok(x.numel() // max(b * c, 1), c, x.dtype, num_groups):
+        return group_norm_onepass(x, scale, bias, num_groups, eps, silu, add_row)
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
     if x.device.type != "cuda":

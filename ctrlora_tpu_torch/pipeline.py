@@ -2,9 +2,12 @@
 (counterpart of ``ctrlora_tpu/pipeline.py``).
 
 The control branch is the fused ControlNet for serving (``lora_fuse``), or,
-with ``fuse_lora=False``, the unfused tree with its stacked LoRA adapters,
-which training updates. Text comes in as token ids (the tokenizer is not
-ported yet). Images and latents are NHWC. The frozen towers run without
+with ``fuse_lora=False``, the unfused tree with its stacked LoRA adapters
+(and switchable banks), which training updates. A condition may carry its
+own control module (``Conditioning.control``: the fused tree of its LoRA,
+the counterpart of JAX ``control_params``), so N LoRAs are served side by
+side. Text comes in as token ids (``utils.tokenizer`` makes them). Images
+and latents are NHWC. The frozen towers run without
 autograd; ``apply_control``/``apply_model`` record it when grad is enabled
 (the training step), and the samplers call them under ``torch.no_grad``.
 """
@@ -21,7 +24,7 @@ from torch import nn
 from ctrlora_tpu_torch.configs import ModelConfig
 from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
-from ctrlora_tpu_torch.models.layers import CL, ResBlock
+from ctrlora_tpu_torch.models.layers import ResBlock, to_channels_last
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
 from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
@@ -30,11 +33,14 @@ from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
 @dataclasses.dataclass(frozen=True)
 class Conditioning:
     """One control condition: a VAE-encoded latent hint [B, h, w, 4], the
-    adapter index of an unfused control tree, and its blend weight."""
+    adapter index of an unfused control tree, its blend weight, and
+    optionally its own control module (a fused ControlNet holding its
+    LoRA's tree) instead of the pipeline's."""
 
     hint: torch.Tensor
     lora_idx: Optional[Union[int, torch.Tensor]] = None
     weight: float = 1.0
+    control: Optional[nn.Module] = None
 
 
 class CtrLoraPipeline:
@@ -53,10 +59,17 @@ class CtrLoraPipeline:
             self.vae = AutoencoderKL(cfg.vae)
             self.clip = CLIPTextModel(cfg.clip)
         for m in self.modules():
-            m.eval().requires_grad_(False).to(memory_format=CL)
+            to_channels_last(m.eval().requires_grad_(False))
         d = cfg.diffusion
         self.schedule: DiffusionSchedule = make_schedule(
             d.timesteps, d.linear_start, d.linear_end)
+
+    def new_control(self) -> nn.Module:
+        """Another control module of the pipeline's kind (fused or not),
+        built as the pipeline builds its own: a condition's own tree."""
+        with self.device:
+            control = ControlNet(self.control.cfg)
+        return to_channels_last(control.eval().requires_grad_(False))
 
     def modules(self) -> List[nn.Module]:
         return [self.unet, self.control, self.vae, self.clip]
@@ -118,42 +131,58 @@ class CtrLoraPipeline:
     # ------------------------------------------------------------------
     # the denoiser
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def emb_proj_tables(self, timesteps: torch.Tensor, n_conds: int = 0) -> dict:
-        """Every t-dependent projection for the S sampling steps at once:
-        {'unet': {res_block: [S, C]}, 'control': (same for each cond, ...)}.
-        The timestep MLP and the per-ResBlock emb_proj Linears depend only on
-        the step, so the sampler computes them once, not per step."""
+    def control_of(self, cond: Conditioning) -> nn.Module:
+        """The control module a condition runs: its own, else the pipeline's."""
+        return self.control if cond.control is None else cond.control
 
-        def branch(module, dtype):
-            x = F.silu(module.time_embed(timesteps, dtype))
-            return {name: block.emb_proj(x) for name, block in module.named_children()
+    @torch.no_grad()
+    def emb_proj_tables(self, timesteps: torch.Tensor,
+                        conds: Sequence[Conditioning] = ()) -> dict:
+        """Every t-dependent projection for the S sampling steps at once:
+        {'unet': {res_block: [S, C]}, 'control': (one dict per cond, ...)}.
+        The timestep MLP and the per-ResBlock emb_proj Linears depend only on
+        the step, so the sampler computes them once, not per step. Each
+        condition's rows come from its own control module and its
+        ``lora_idx`` (both are LoRA sites), as in JAX."""
+
+        def branch(module, dtype, lora_idx=None):
+            x = F.silu(module.time_embed(timesteps, dtype, lora_idx))
+            return {name: block.emb_proj(x, lora_idx) for name, block in module.named_children()
                     if isinstance(block, ResBlock)}
 
-        ctab = branch(self.control, self.cfg.control.unet.compute_dtype)
+        cdt = self.cfg.control.unet.compute_dtype
         return {"unet": branch(self.unet, self.cfg.unet.compute_dtype),
-                "control": tuple(ctab for _ in range(n_conds))}
+                "control": tuple(branch(self.control_of(c), cdt, c.lora_idx) for c in conds)}
 
     def apply_control(self, x_noisy, t, context, conds: Sequence[Conditioning],
+                      control_scales: Optional[Sequence[float]] = None,
                       emb_rows: Optional[Sequence[dict]] = None):
-        """The control branch for each condition, blended."""
+        """The control branch for each condition; each tap i scaled by
+        ``control_scales[i]`` and the condition's weight, and the conditions
+        summed, in fp32 as JAX does (a single condition at weight 1 and no
+        scales keeps the compute dtype)."""
         total = None
         for j, cond in enumerate(conds):
             rows = emb_rows[j] if emb_rows is not None else None
-            taps = self.control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx)
-            if len(conds) > 1 or cond.weight != 1.0:
-                taps = [c.float() * cond.weight for c in taps]  # fp32 blend, as JAX
+            taps = self.control_of(cond)(cond.hint, t, context, emb_rows=rows,
+                                         lora_idx=cond.lora_idx)
+            if control_scales is not None:
+                taps = [c.float() * float(s) * cond.weight for c, s in zip(taps, control_scales)]
+            elif len(conds) > 1 or cond.weight != 1.0:
+                taps = [c.float() * cond.weight for c in taps]
             total = list(taps) if total is None else [a + b for a, b in zip(total, taps)]
         return tuple(total)
 
     def apply_model(self, x_noisy, t, context, conds: Optional[Sequence[Conditioning]] = None,
-                    emb_rows: Optional[Dict] = None) -> torch.Tensor:
+                    emb_rows: Optional[Dict] = None,
+                    control_scales: Optional[Sequence[float]] = None) -> torch.Tensor:
         """Predicted eps [B, h, w, 4] fp32 for noisy latents. emb_rows: one
-        step's rows of ``emb_proj_tables`` (t batch-uniform)."""
+        step's rows of ``emb_proj_tables`` (t batch-uniform);
+        control_scales: one factor per control tap (13 at SD1.5 width)."""
         control = None
         if conds:
             control = self.apply_control(
-                x_noisy, t, context, conds,
+                x_noisy, t, context, conds, control_scales,
                 emb_rows=emb_rows["control"] if emb_rows is not None else None)
         return self.unet(x_noisy, t, context, control=control,
                          emb_rows=emb_rows["unet"] if emb_rows is not None else None)

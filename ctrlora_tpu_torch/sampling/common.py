@@ -3,20 +3,23 @@ time-embedding tables (counterpart of ``ctrlora_tpu/sampling/common.py``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
-from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 
 
-def make_emb_row_tables(pipe: CtrLoraPipeline, n_conds: int, timesteps: torch.Tensor
+def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Sequence[Conditioning],
+                        timesteps: torch.Tensor
                         ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Optional[dict]]]:
-    """Packs every branch's emb_proj table into one [S, n, Cmax] tensor and
-    returns (packed, rows_of): rows_of(packed[i]) rebuilds step i's
-    per-branch rows dict for ``pipe.apply_model`` with ONE kernel-D launch."""
-    tables = pipe.emb_proj_tables(timesteps, n_conds)
+    """Packs every branch's emb_proj table (the UNet's, then each
+    condition's own) into one [S, n, Cmax] tensor and returns (packed,
+    rows_of): rows_of(packed[i]) rebuilds step i's per-branch rows dict for
+    ``pipe.apply_model`` with ONE kernel-D launch."""
+    n_conds = len(conds)
+    tables = pipe.emb_proj_tables(timesteps, conds)
     flat = {f"u.{k}": v for k, v in tables["unet"].items()}
     for j, d in enumerate(tables["control"]):
         flat.update({f"c{j}.{k}": v for k, v in d.items()})

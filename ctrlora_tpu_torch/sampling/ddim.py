@@ -28,10 +28,12 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                 uncond_context: Optional[torch.Tensor],
                 conds: Optional[Sequence[Conditioning]], latent_shape: Sequence[int],
                 cfg: DDIMConfig = DDIMConfig(), x_T: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                control_scales: Optional[Sequence[float]] = None) -> torch.Tensor:
     """Returns the final latents [B, h, w, 4] fp32, deterministic DDIM
     (eta 0). `x_T` is the starting noise; without it the noise comes from
-    `generator`."""
+    `generator`. `control_scales` (one per control tap) pass through to
+    ``pipe.apply_model``."""
     if pipe.cfg.diffusion.parameterization != "eps":
         raise ValueError("the port's DDIM sampler implements eps parameterization")
     device = pipe.device
@@ -51,7 +53,7 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     order = np.arange(dd.num_steps - 1, -1, -1)  # t descending
     ts_seq = dd.timesteps[order]
     packed, rows_of = make_emb_row_tables(
-        pipe, len(full_conds), torch.as_tensor(ts_seq, dtype=torch.int32, device=device))
+        pipe, full_conds, torch.as_tensor(ts_seq, dtype=torch.int32, device=device))
 
     f32 = np.float32
     scale = f32(cfg.guidance_scale)
@@ -62,7 +64,8 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
         n = 2 * b if use_cfg else b
         tvec = torch.full((n,), int(ts_seq[i]), dtype=torch.int32, device=device)
         x_in = torch.cat([img, img]) if use_cfg else img
-        out = pipe.apply_model(x_in, tvec, full_context, full_conds, emb_rows=rows)
+        out = pipe.apply_model(x_in, tvec, full_context, full_conds, emb_rows=rows,
+                               control_scales=control_scales)
         e_t = out[b:] + float(scale) * (out[:b] - out[b:]) if use_cfg else out
         pred_x0 = (img - float(s1m) * e_t) / float(np.sqrt(a_t))
         dir_coef = np.sqrt(np.maximum(f32(1.0) - a_prev, f32(0.0)))

@@ -1,0 +1,470 @@
+"""Reference checkpoints <-> the port's state dicts (counterpart of
+``ctrlora_tpu/utils/ckpt_torch.py``).
+
+The reference's torch state-dict names (SD1.5 ``model.diffusion_model.*``,
+``first_stage_model.*``, ``cond_stage_model.transformer.text_model.*``; the
+Base ControlNet and per-condition LoRAs under ``control_model.*``) map onto
+the flax parameter paths through the same entry tables as the JAX package,
+and a flax path maps onto the port's state-dict key through
+``convert.port_key`` / ``convert.params_from_jax``: one name mapping, shared
+with the JAX package, not a second one.
+
+Layouts: the reference and the port are both torch, so a Linear [out, in] or
+Conv [out, in, k, k] weight has the same layout in both; the loader passes
+through the flax layout (``convert_tree`` transposes as JAX does, then
+``params_from_jax`` transposes back). LoRA: reference down [rank, in] / up
+[out, rank] <-> port banks ``lora_down`` [n, in, rank] / ``lora_up``
+[n, rank, out]; switchable zero convs and transformer norms are [n]-banks.
+
+``.ckpt``/``.pth`` load through ``torch.load`` (a nested ``state_dict`` is
+unwrapped); ``.safetensors`` only where the ``safetensors`` package imports.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ctrlora_tpu_torch import convert
+from ctrlora_tpu_torch.configs import CLIPTextConfig, ControlNetConfig, UNetConfig, VAEConfig
+from ctrlora_tpu_torch.models.unet import decoder_plan, encoder_plan
+
+StateDict = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# entry tables: (torch_key, flax_path, transform)
+# ---------------------------------------------------------------------------
+
+T_LINEAR_W = "linear_w"
+T_CONV_W = "conv_w"
+T_COPY = "copy"
+
+
+def _tfm(kind: str, x: np.ndarray) -> np.ndarray:
+    if kind == T_LINEAR_W:
+        return np.ascontiguousarray(x.T)
+    if kind == T_CONV_W:
+        return np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0)))
+    return x
+
+
+Entry = Tuple[str, Tuple[str, ...], str]
+
+
+def _linear(t: str, f: Tuple[str, ...], bias: bool = True) -> List[Entry]:
+    out = [(f"{t}.weight", (*f, "kernel"), T_LINEAR_W)]
+    if bias:
+        out.append((f"{t}.bias", (*f, "bias"), T_COPY))
+    return out
+
+
+def _conv(t: str, f: Tuple[str, ...]) -> List[Entry]:
+    return [
+        (f"{t}.weight", (*f, "kernel"), T_CONV_W),
+        (f"{t}.bias", (*f, "bias"), T_COPY),
+    ]
+
+
+def _norm(t: str, f: Tuple[str, ...]) -> List[Entry]:
+    return [
+        (f"{t}.weight", (*f, "scale"), T_COPY),
+        (f"{t}.bias", (*f, "bias"), T_COPY),
+    ]
+
+
+def _resblock(t: str, f: str, has_skip: bool) -> List[Entry]:
+    e: List[Entry] = []
+    e += _norm(f"{t}.in_layers.0", (f, "in_norm"))
+    e += _conv(f"{t}.in_layers.2", (f, "in_conv"))
+    e += _linear(f"{t}.emb_layers.1", (f, "emb_proj"))
+    e += _norm(f"{t}.out_layers.0", (f, "out_norm"))
+    e += _conv(f"{t}.out_layers.3", (f, "out_conv"))
+    if has_skip:
+        e += _conv(f"{t}.skip_connection", (f, "skip"))
+    return e
+
+
+def _transformer(t: str, f: str, depth: int = 1) -> List[Entry]:
+    e: List[Entry] = []
+    e += _norm(f"{t}.norm", (f, "norm"))
+    e += _conv(f"{t}.proj_in", (f, "proj_in"))
+    for d in range(depth):
+        tb, fb = f"{t}.transformer_blocks.{d}", (f, f"block_{d}")
+        for attn in ("attn1", "attn2"):
+            e += _linear(f"{tb}.{attn}.to_q", (*fb, attn, "to_q"), bias=False)
+            e += _linear(f"{tb}.{attn}.to_k", (*fb, attn, "to_k"), bias=False)
+            e += _linear(f"{tb}.{attn}.to_v", (*fb, attn, "to_v"), bias=False)
+            e += _linear(f"{tb}.{attn}.to_out.0", (*fb, attn, "to_out"))
+        e += _linear(f"{tb}.ff.net.0.proj", (*fb, "ff", "proj"))
+        e += _linear(f"{tb}.ff.net.2", (*fb, "ff", "out"))
+        e += _norm(f"{tb}.norm1", (*fb, "norm1"))
+        e += _norm(f"{tb}.norm2", (*fb, "norm2"))
+        e += _norm(f"{tb}.norm3", (*fb, "norm3"))
+    e += _conv(f"{t}.proj_out", (f, "proj_out"))
+    return e
+
+
+def unet_entries(cfg: UNetConfig, decoder: bool = True) -> List[Entry]:
+    """Full UNet table (reference names: model.diffusion_model.*)."""
+    e: List[Entry] = []
+    e += _linear("time_embed.0", ("time_embed", "dense0"))
+    e += _linear("time_embed.2", ("time_embed", "dense1"))
+    steps, chans, _ = encoder_plan(cfg)
+    in_ch = cfg.model_channels
+    for i, step in enumerate(steps):
+        if step.kind == "conv":
+            e += _conv(f"input_blocks.{i}.0", ("in_conv",))
+        elif step.kind == "res":
+            e += _resblock(f"input_blocks.{i}.0", f"in_{i}_res", in_ch != step.out_ch)
+            if step.attn:
+                e += _transformer(
+                    f"input_blocks.{i}.1", f"in_{i}_attn", cfg.transformer_depth
+                )
+            in_ch = step.out_ch
+        else:
+            e += _conv(f"input_blocks.{i}.0.op", (f"in_{i}_down", "conv"))
+    e += _resblock("middle_block.0", "mid_res0", False)
+    e += _transformer("middle_block.1", "mid_attn", cfg.transformer_depth)
+    e += _resblock("middle_block.2", "mid_res1", False)
+    if decoder:
+        ch = chans[-1]
+        skips = list(chans)
+        for i, step in enumerate(decoder_plan(cfg)):
+            skip_ch = skips.pop()
+            e += _resblock(f"output_blocks.{i}.0", f"out_{i}_res", True)
+            nxt = 1
+            if step.attn:
+                e += _transformer(
+                    f"output_blocks.{i}.{nxt}", f"out_{i}_attn", cfg.transformer_depth
+                )
+                nxt += 1
+            if step.upsample:
+                e += _conv(f"output_blocks.{i}.{nxt}.conv", (f"out_{i}_up", "conv"))
+        e += _norm("out.0", ("norm_out",))
+        e += _conv("out.2", ("conv_out",))
+    return e
+
+
+def controlnet_entries(cfg: ControlNetConfig) -> List[Entry]:
+    """Control branch table (reference names: control_model.*)."""
+    e = unet_entries(cfg.unet, decoder=False)
+    steps, _, _ = encoder_plan(cfg.unet)
+    for i in range(len(steps)):
+        e += _conv(f"zero_convs.{i}.0", (f"zero_{i}",))
+    e += _conv("middle_block_out.0", ("zero_mid",))
+    return e
+
+
+def lora_site_entries(cfg: ControlNetConfig) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Ordered (torch_linear_path, flax_path) for every nn.Linear in the
+    control branch, in torch named_modules order — the order the reference
+    builds its per-task LoRA lists (cldm_ctrlora_pretrain.py:26-32)."""
+    sites: List[Tuple[str, Tuple[str, ...]]] = [
+        ("time_embed.0", ("time_embed", "dense0")),
+        ("time_embed.2", ("time_embed", "dense1")),
+    ]
+
+    def transformer_sites(t: str, f: str):
+        out = []
+        for d in range(cfg.unet.transformer_depth):
+            tb, fb = f"{t}.transformer_blocks.{d}", (f, f"block_{d}")
+            # torch registration order: attn1, ff, attn2
+            for name in ("to_q", "to_k", "to_v"):
+                out.append((f"{tb}.attn1.{name}", (*fb, "attn1", name)))
+            out.append((f"{tb}.attn1.to_out.0", (*fb, "attn1", "to_out")))
+            out.append((f"{tb}.ff.net.0.proj", (*fb, "ff", "proj")))
+            out.append((f"{tb}.ff.net.2", (*fb, "ff", "out")))
+            for name in ("to_q", "to_k", "to_v"):
+                out.append((f"{tb}.attn2.{name}", (*fb, "attn2", name)))
+            out.append((f"{tb}.attn2.to_out.0", (*fb, "attn2", "to_out")))
+        return out
+
+    steps, _, _ = encoder_plan(cfg.unet)
+    for i, step in enumerate(steps):
+        if step.kind == "res":
+            sites.append((f"input_blocks.{i}.0.emb_layers.1", (f"in_{i}_res", "emb_proj")))
+            if step.attn:
+                sites += transformer_sites(f"input_blocks.{i}.1", f"in_{i}_attn")
+    sites.append(("middle_block.0.emb_layers.1", ("mid_res0", "emb_proj")))
+    sites += transformer_sites("middle_block.1", "mid_attn")
+    sites.append(("middle_block.2.emb_layers.1", ("mid_res1", "emb_proj")))
+    return sites
+
+
+def norm_site_entries(cfg: ControlNetConfig) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Ordered (torch_norm_path, flax_path) for 'norm'-named norms in torch
+    named_modules order (reference: cldm_ctrlora_inference.py:41-48)."""
+    sites: List[Tuple[str, Tuple[str, ...]]] = []
+
+    def st_norms(t: str, f: str):
+        out = [(f"{t}.norm", (f, "norm"))]
+        for d in range(cfg.unet.transformer_depth):
+            for n in ("norm1", "norm2", "norm3"):
+                out.append((f"{t}.transformer_blocks.{d}.{n}", (f, f"block_{d}", n)))
+        return out
+
+    steps, _, _ = encoder_plan(cfg.unet)
+    for i, step in enumerate(steps):
+        if step.kind == "res" and step.attn:
+            sites += st_norms(f"input_blocks.{i}.1", f"in_{i}_attn")
+    sites += st_norms("middle_block.1", "mid_attn")
+    return sites
+
+
+def zero_conv_site_entries(cfg: ControlNetConfig) -> List[Tuple[str, Tuple[str, ...]]]:
+    steps, _, _ = encoder_plan(cfg.unet)
+    sites = [(f"zero_convs.{i}.0", (f"zero_{i}",)) for i in range(len(steps))]
+    sites.append(("middle_block_out.0", ("zero_mid",)))
+    return sites
+
+
+def vae_entries(cfg: VAEConfig) -> List[Entry]:
+    """AutoencoderKL table (reference names: first_stage_model.*)."""
+    e: List[Entry] = []
+
+    def res(t: str, f: Tuple[str, ...], has_nin: bool):
+        out = []
+        out += _norm(f"{t}.norm1", (*f, "norm1"))
+        out += _conv(f"{t}.conv1", (*f, "conv1"))
+        out += _norm(f"{t}.norm2", (*f, "norm2"))
+        out += _conv(f"{t}.conv2", (*f, "conv2"))
+        if has_nin:
+            out += _conv(f"{t}.nin_shortcut", (*f, "nin_shortcut"))
+        return out
+
+    def attn(t: str, f: Tuple[str, ...]):
+        out = []
+        out += _norm(f"{t}.norm", (*f, "norm"))
+        for n in ("q", "k", "v", "proj_out"):
+            out += _conv(f"{t}.{n}", (*f, n))
+        return out
+
+    # encoder
+    e += _conv("encoder.conv_in", ("encoder", "conv_in"))
+    ch = cfg.ch
+    for l, mult in enumerate(cfg.ch_mult):
+        out_ch = cfg.ch * mult
+        for i in range(cfg.num_res_blocks):
+            e += res(
+                f"encoder.down.{l}.block.{i}",
+                ("encoder", f"down_{l}_block_{i}"),
+                has_nin=ch != out_ch,
+            )
+            ch = out_ch
+        if l != len(cfg.ch_mult) - 1:
+            e += _conv(
+                f"encoder.down.{l}.downsample.conv", ("encoder", f"down_{l}_downsample")
+            )
+    e += res("encoder.mid.block_1", ("encoder", "mid_block_1"), False)
+    e += attn("encoder.mid.attn_1", ("encoder", "mid_attn_1"))
+    e += res("encoder.mid.block_2", ("encoder", "mid_block_2"), False)
+    e += _norm("encoder.norm_out", ("encoder", "norm_out"))
+    e += _conv("encoder.conv_out", ("encoder", "conv_out"))
+    e += _conv("quant_conv", ("quant_conv",))
+    e += _conv("post_quant_conv", ("post_quant_conv",))
+    # decoder
+    e += _conv("decoder.conv_in", ("decoder", "conv_in"))
+    e += res("decoder.mid.block_1", ("decoder", "mid_block_1"), False)
+    e += attn("decoder.mid.attn_1", ("decoder", "mid_attn_1"))
+    e += res("decoder.mid.block_2", ("decoder", "mid_block_2"), False)
+    ch = cfg.ch * cfg.ch_mult[-1]
+    for l in reversed(range(len(cfg.ch_mult))):
+        out_ch = cfg.ch * cfg.ch_mult[l]
+        for i in range(cfg.num_res_blocks + 1):
+            e += res(
+                f"decoder.up.{l}.block.{i}",
+                ("decoder", f"up_{l}_block_{i}"),
+                has_nin=ch != out_ch,
+            )
+            ch = out_ch
+        if l != 0:
+            e += _conv(f"decoder.up.{l}.upsample.conv", ("decoder", f"up_{l}_upsample"))
+    e += _norm("decoder.norm_out", ("decoder", "norm_out"))
+    e += _conv("decoder.conv_out", ("decoder", "conv_out"))
+    return e
+
+
+def clip_entries(cfg: CLIPTextConfig) -> List[Entry]:
+    """HF CLIPTextModel table (reference names:
+    cond_stage_model.transformer.text_model.*)."""
+    e: List[Entry] = [
+        ("embeddings.token_embedding.weight", ("token_embedding",), T_COPY),
+        ("embeddings.position_embedding.weight", ("position_embedding",), T_COPY),
+    ]
+    for i in range(cfg.num_layers):
+        t, f = f"encoder.layers.{i}", f"layer_{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            e += _linear(f"{t}.self_attn.{n}", (f, "self_attn", n))
+        e += _norm(f"{t}.layer_norm1", (f, "layer_norm1"))
+        e += _norm(f"{t}.layer_norm2", (f, "layer_norm2"))
+        e += _linear(f"{t}.mlp.fc1", (f, "fc1"))
+        e += _linear(f"{t}.mlp.fc2", (f, "fc2"))
+    e += _norm("final_layer_norm", ("final_layer_norm",))
+    return e
+
+
+# ---------------------------------------------------------------------------
+# reference files -> port state dicts
+# ---------------------------------------------------------------------------
+
+def _set(tree: dict, path: Tuple[str, ...], value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A .ckpt/.pth/.safetensors file -> {name: fp32 np.ndarray}; a nested
+    'state_dict' (Lightning checkpoints) is unwrapped. The reference's
+    checkpoints are pickles with non-tensor entries, so ``torch.load`` runs
+    with ``weights_only=False``: load only files you trust."""
+    if path.endswith(".safetensors"):
+        try:
+            import safetensors.numpy
+        except ImportError as e:
+            raise ImportError(f"{path}: reading .safetensors needs the 'safetensors' "
+                              f"package, which is not installed") from e
+        return {k: np.asarray(v, np.float32) for k, v in safetensors.numpy.load_file(path).items()}
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+            for k, v in sd.items() if hasattr(v, "shape")}
+
+
+def convert_tree(sd: Dict[str, np.ndarray], entries: Sequence[Entry], prefix: str = "",
+                 strict: bool = True) -> Tuple[dict, List[str]]:
+    """Reference state dict -> flax-layout {'params': ...} tree, as the JAX
+    package's ``convert_tree``. Returns (tree, missing keys)."""
+    tree: dict = {}
+    missing: List[str] = []
+    for tkey, fpath, kind in entries:
+        full = prefix + tkey
+        if full not in sd:
+            missing.append(full)
+            continue
+        _set(tree, ("params", *fpath), _tfm(kind, np.asarray(sd[full], np.float32)))
+    if strict and missing:
+        raise KeyError(f"{len(missing)} missing keys, first: {missing[:5]}")
+    return tree, missing
+
+
+def _write_bank(state: StateDict, fpath: Tuple[str, ...], leaf: str, flax_value: np.ndarray,
+                slot: int) -> None:
+    """Write one flax-layout leaf into the port state dict: into bank slot
+    `slot` when the port's tensor is an [n]-bank, else whole."""
+    _, value = convert._leaf(leaf, flax_value)
+    dst = state[convert.port_key((*fpath, leaf))]
+    value = torch.from_numpy(np.ascontiguousarray(value))
+    if dst.ndim == value.ndim + 1:
+        dst[slot] = value
+    else:
+        dst.copy_(value)
+
+
+def load_lora_bank(sd: Dict[str, np.ndarray], cfg: ControlNetConfig, state: StateDict,
+                   slot: int, prefix: str = "control_model.", key_style: str = "module",
+                   task: Optional[str] = None) -> List[str]:
+    """Write one LoRA checkpoint into bank slot `slot` of an unfused control
+    state dict. key_style 'module': finetune keys
+    ``{prefix}{linear}.lora_layer.{down,up}.weight``; 'dict': pretrain keys
+    ``{prefix}loras_dict.{task}.{j}.{down,up}.weight``. Returns the keys
+    consumed."""
+    used = []
+    for j, (tpath, fpath) in enumerate(lora_site_entries(cfg)):
+        if key_style == "module":
+            kd = f"{prefix}{tpath}.lora_layer.down.weight"
+            ku = f"{prefix}{tpath}.lora_layer.up.weight"
+        else:
+            kd = f"{prefix}loras_dict.{task}.{j}.down.weight"
+            ku = f"{prefix}loras_dict.{task}.{j}.up.weight"
+        if kd not in sd or ku not in sd:
+            continue
+        _write_bank(state, fpath, "lora_down", np.asarray(sd[kd], np.float32).T, slot)
+        _write_bank(state, fpath, "lora_up", np.asarray(sd[ku], np.float32).T, slot)
+        used += [kd, ku]
+    return used
+
+
+def load_switchable_bank(sd: Dict[str, np.ndarray], cfg: ControlNetConfig, state: StateDict,
+                         slot: int, prefix: str = "control_model.") -> List[str]:
+    """Write a LoRA file's zero convs and transformer norms into bank slot
+    `slot` (or whole, for an unbanked tree). Returns the keys consumed."""
+    used = []
+    sites = ([(t, f, (("weight", "kernel", T_CONV_W), ("bias", "bias", T_COPY)))
+              for t, f in zero_conv_site_entries(cfg)]
+             + [(t, f, (("weight", "scale", T_COPY), ("bias", "bias", T_COPY)))
+                for t, f in norm_site_entries(cfg)])
+    for tpath, fpath, leaves in sites:
+        for tn, leaf, kind in leaves:
+            key = f"{prefix}{tpath}.{tn}"
+            if key in sd:
+                _write_bank(state, fpath, leaf, _tfm(kind, np.asarray(sd[key], np.float32)),
+                            slot)
+                used.append(key)
+    return used
+
+
+# ---------------------------------------------------------------------------
+# port state dicts -> reference files
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def export_tree(state: StateDict, entries: Sequence[Entry], prefix: str = ""
+                ) -> Dict[str, np.ndarray]:
+    """Port state dict -> reference-named fp32 arrays (the inverse of the
+    loader). A banked Linear or conv weight exports slot 0, as in JAX."""
+    expected_ndim = {T_LINEAR_W: 2, T_CONV_W: 4}
+    out: Dict[str, np.ndarray] = {}
+    for tkey, fpath, kind in entries:
+        key = convert.port_key(fpath)
+        if key not in state:
+            continue
+        v = _np(state[key])
+        want = expected_ndim.get(kind)
+        if want is not None and v.ndim != want:
+            v = v[0]
+        out[prefix + tkey] = v
+    return out
+
+
+def export_lora_slot(state: StateDict, cfg: ControlNetConfig, slot: int = 0,
+                     prefix: str = "control_model.") -> Dict[str, np.ndarray]:
+    """One LoRA slot of an unfused control state dict in the reference's
+    finetune format (what ``api.CtrLoRA.create_model`` reads): the LoRA
+    matrices, zero convs and transformer norms."""
+    out: Dict[str, np.ndarray] = {}
+    for tpath, fpath in lora_site_entries(cfg):
+        kd = convert.port_key((*fpath, "lora_down"))
+        if kd not in state:
+            continue
+        down = _np(state[kd])
+        up = _np(state[convert.port_key((*fpath, "lora_up"))])
+        if down.ndim == 3:
+            down, up = down[slot], up[slot]
+        out[f"{prefix}{tpath}.lora_layer.down.weight"] = np.ascontiguousarray(down.T)
+        out[f"{prefix}{tpath}.lora_layer.up.weight"] = np.ascontiguousarray(up.T)
+    for sites, leaf, ndim in ((zero_conv_site_entries(cfg), "kernel", 4),
+                              (norm_site_entries(cfg), "scale", 1)):
+        for tpath, fpath in sites:
+            w = _np(state[convert.port_key((*fpath, leaf))])
+            b = _np(state[convert.port_key((*fpath, "bias"))])
+            if w.ndim == ndim + 1:
+                w, b = w[slot], b[slot]
+            out[f"{prefix}{tpath}.weight"] = w
+            out[f"{prefix}{tpath}.bias"] = b
+    return out
+
+
+def export_control_base(state: StateDict, cfg: ControlNetConfig,
+                        prefix: str = "control_model.") -> Dict[str, np.ndarray]:
+    """The control branch's base weights (zero convs included, LoRA
+    matrices excluded) in the reference's key format: a Base-ControlNet
+    file."""
+    return export_tree(state, controlnet_entries(cfg), prefix=prefix)

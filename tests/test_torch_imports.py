@@ -27,7 +27,8 @@ def test_port_modules_cover_the_slice():
                 "ops._build", "models.layers", "models.attention", "models.unet",
                 "models.vae", "models.clip", "sampling.common", "sampling.ddim",
                 "training.losses", "training.train_state", "training.step",
-                "training.trainer"):
+                "training.trainer", "api", "ops.kernel_flags", "utils.tokenizer",
+                "utils.image", "utils.ckpt_torch", "utils.loading"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
