@@ -44,6 +44,21 @@ the script exits non-zero:
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
+
+Phase 3 holds each kernel against yardsticks as well: bound_ms, the least
+time the card could take for the same work (the larger of its flops at the
+H100's 989 TFLOP/s bf16 and its bytes, each input read once and each output
+written once, at 3.35 TB/s; bound_by says which), pct_of_bound, and
+library_ms, the time of one PyTorch call that computes the same function
+(F.scaled_dot_product_attention for the flash forwards, its autograd
+backward for dQ and dK/dV together, F.group_norm where there is no row or
+SiLU; null where no call does: GEGLU, the row unpack). The port never calls
+these.
+
+    python3 chip_smoke.py --profile N
+
+also profiles N DDIM steps of phase 4 with torch.profiler (device ms per
+step by kernel, device busy share).
 """
 
 import contextlib
@@ -59,6 +74,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ctrlora_tpu_torch import api as api_mod
@@ -101,6 +117,17 @@ GRAD_REL_TOL = 2e-2
 # bound, since the gradient inherits its bf16 rounding through ~50 blocks)
 LOSS_REL_TOL = 1e-2
 ZERO_INIT = ("conv_out", "out_conv", "proj_out")
+# the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+
+
+def bound_ms(flops: float, nbytes: float):
+    """The least time the card could take for this work, in ms, and what
+    bounds it: the larger of flops at the bf16 peak and bytes at the memory
+    rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
 
 KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
     "group_norm": ("triton", "ctrlora_tpu_torch/ops/group_norm.py",
@@ -230,26 +257,47 @@ def emb_row_sizes(cfg):
     return enc + mid + dec + enc + mid
 
 
+def group_norm_library(x, scale, bias, eps):
+    """F.group_norm on the same channels-last x (a [B, C, H, W] view) with
+    the affine in x's dtype: the yardstick where there is no row or SiLU."""
+    xc = x.permute(0, 3, 1, 2)
+    sc, bi = scale.to(x.dtype), bias.to(x.dtype)
+    return "F.group_norm", lambda: F.group_norm(xc, 32, sc, bi, eps)
+
+
 def kernel_checks(dev, cfg):
     g = torch.Generator(device=dev).manual_seed(SEED)
     rn = lambda *s, dt=torch.bfloat16, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dt)
     results = {}
 
-    def record(name, label, got, want, fn_k, fn_p, extra=None, **beside):
-        """`beside`: ms of the kernels this one stands beside, same inputs."""
+    def yardsticks(work, library, ms):
+        """The least time for `work` (flops, bytes) on the card, and the
+        time of `library` = (name, fn), one PyTorch call that computes the
+        same function, or None where there is none."""
+        bms, by = bound_ms(*work)
+        return {"bound_ms": bms, "bound_by": by, "pct_of_bound": 100.0 * bms / ms,
+                "library": library[0] if library else "—",
+                "library_ms": time_ms(library[1]) if library else None}
+
+    def keep(name, row, err_keys):
+        r = results.setdefault(name, {k: 0.0 for k in err_keys})
+        for key in err_keys:
+            r[key] = max(r[key], row[key])
+        for key, val in row.items():  # the first shape listed is the dominant one
+            r.setdefault(key, val)
+
+    def record(name, label, got, want, fn_k, fn_p, work, library=None, extra=None, **beside):
+        """`work`: (flops, bytes) at this shape; `library`: (name, fn) or None;
+        `beside`: ms of the kernels this one stands beside, same inputs."""
         err = compare(got, want)
         if extra is not None:
             err = max(err, compare(*extra))
         ms, pms = time_ms(fn_k), time_ms(fn_p)
-        log("kernels", kernel=name, shape=label, max_abs_err=err, ms=ms, plain_ms=pms, **beside)
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.setdefault("ms", ms)  # the first shape listed is the dominant one
-        r.setdefault("plain_ms", pms)
-        for key, val in beside.items():
-            r.setdefault(key, val)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **yardsticks(work, library, ms)}
+        log("kernels", kernel=name, shape=label, **row, **beside)
+        keep(name, {**row, **beside}, ("max_abs_err",))
 
-    def record_grad(name, label, got, want, fn_k, fn_p):
+    def record_grad(name, label, got, want, fn_k, fn_p, work, library=None):
         """Gradients: relative L2 per output <= GRAD_REL_TOL, finite."""
         rels, err = [], 0.0
         for g_, w_ in zip(got, want):
@@ -261,13 +309,13 @@ def kernel_checks(dev, cfg):
         if max(rels) > GRAD_REL_TOL:
             raise AssertionError(f"{name} {label}: relative L2 {rels} > {GRAD_REL_TOL}")
         ms, pms = time_ms(fn_k), time_ms(fn_p)
-        log("kernels", kernel=name, shape=label, rel_l2=rels, max_abs_err=err, ms=ms,
-            plain_ms=pms, bound=GRAD_REL_TOL)
-        r = results.setdefault(name, {"max_abs_err": 0.0, "rel_l2": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["rel_l2"] = max(r["rel_l2"], max(rels))
-        r.setdefault("ms", ms)
-        r.setdefault("plain_ms", pms)
+        row = {"max_abs_err": err, "rel_l2": max(rels), "ms": ms, "plain_ms": pms,
+               **yardsticks(work, library, ms)}
+        log("kernels", kernel=name, shape=label, **{**row, "rel_l2": rels}, bound=GRAD_REL_TOL)
+        keep(name, row, ("max_abs_err", "rel_l2"))
+
+    sdpa = lambda *qkv: ("F.scaled_dot_product_attention",
+                         lambda: F.scaled_dot_product_attention(*qkv))
 
     for shape, eps, silu, row in (
             ((8, 64, 64, 320), 1e-5, True, True), ((8, 32, 32, 640), 1e-5, True, True),
@@ -281,7 +329,9 @@ def kernel_checks(dev, cfg):
         args = (x, sc, bi, 32, eps, silu, add)
         record("group_norm", f"{list(shape)} eps={eps} silu={silu} add_row={row}",
                gn_ops.group_norm(*args), gn_ops.group_norm_plain(*args),
-               lambda: gn_ops.group_norm(*args), lambda: gn_ops.group_norm_plain(*args))
+               lambda: gn_ops.group_norm(*args), lambda: gn_ops.group_norm_plain(*args),
+               gn_ops.group_norm_work(shape[0], shape[1] * shape[2], c, 2, 1 if row else 0),
+               library=None if silu or row else group_norm_library(x, sc, bi, eps))
 
     # A2: the one-pass GroupNorm at the five shapes gn1=1 admits on the
     # sampling path (the last: the UNet decoder's 16x16 in_norms over the
@@ -299,6 +349,10 @@ def kernel_checks(dev, cfg):
                    gn_ops.group_norm_onepass(*args), gn_ops.group_norm_plain(*args),
                    lambda: gn_ops.group_norm_onepass(*args),
                    lambda: gn_ops.group_norm_plain(*args),
+                   gn_ops.group_norm_work(shape[0], shape[1] * shape[2], c, 2,
+                                          0 if row is None else row.shape[0]),
+                   library=None if silu or row is not None else group_norm_library(x, sc, bi,
+                                                                                   1e-5),
                    kernel_a_ms=time_ms(lambda: gn_ops.group_norm(*args)))
 
     # B6: the head-pair forward at the 64x64 sites, contiguous and as split
@@ -314,7 +368,9 @@ def kernel_checks(dev, cfg):
         pout, plse = fa_ops.flash_attention_hpack2_plain(*ops)
         record("flash_attention_hpack2", label, out, pout,
                lambda: fa_ops.flash_attention_hpack2(*ops),
-               lambda: fa_ops.flash_attention_hpack2_plain(*ops), extra=(lse, plse),
+               lambda: fa_ops.flash_attention_hpack2_plain(*ops),
+               fa_ops.flash_forward_work(8, 8, 4096, 4096, 40),
+               library=sdpa(*(t.transpose(1, 2) for t in ops)), extra=(lse, plse),
                **beside(*ops))
         del out, lse, pout, plse
 
@@ -324,13 +380,17 @@ def kernel_checks(dev, cfg):
         pout, plse = fa_ops.flash_attention_qkv_plain(qkv, h, d)
         record("flash_attention_qkv", f"[8, {s}, 3*{h}*{d}]", out, pout,
                lambda: fa_ops.flash_attention_qkv(qkv, h, d),
-               lambda: fa_ops.flash_attention_qkv_plain(qkv, h, d), extra=(lse, plse))
+               lambda: fa_ops.flash_attention_qkv_plain(qkv, h, d),
+               fa_ops.flash_forward_work(8, h, s, s, d),
+               library=sdpa(*(t.unflatten(-1, (h, d)).transpose(1, 2)
+                              for t in qkv.split(h * d, dim=-1))), extra=(lse, plse))
 
     q, k, v = (rn(4, 1, 4096, 512) for _ in range(3))
     out, lse = fa_ops.flash_attention(q, k, v)
     pout, plse = fa_ops.attention_plain(q, k, v)
     record("flash_attention", "[4, 1, 4096, 512]", out, pout,
            lambda: fa_ops.flash_attention(q, k, v), lambda: fa_ops.attention_plain(q, k, v),
+           fa_ops.flash_forward_work(4, 1, 4096, 4096, 512), library=sdpa(q, k, v),
            extra=(lse, plse))
 
     # B2: the LoRA control branch's self-attention, q, k, v [B, S, H, D]
@@ -340,7 +400,9 @@ def kernel_checks(dev, cfg):
         pout, plse = fa_ops.flash_attention_bshd_plain(q, k, v)
         record("flash_attention_bshd", f"[4, {s}, {h}, {d}]", out, pout,
                lambda: fa_ops.flash_attention_bshd(q, k, v),
-               lambda: fa_ops.flash_attention_bshd_plain(q, k, v), extra=(lse, plse))
+               lambda: fa_ops.flash_attention_bshd_plain(q, k, v),
+               fa_ops.flash_forward_work(4, h, s, s, d),
+               library=sdpa(*(t.transpose(1, 2) for t in (q, k, v))), extra=(lse, plse))
 
     # B4/B5: the backward at [B*H = 32, S, D], BHSD; then the BSHD and
     # fused-qkv layouts (strided views) at the dominant shape
@@ -353,12 +415,22 @@ def kernel_checks(dev, cfg):
         dk, dv = fa_ops.flash_attention_bwd_dkv(*args)
         pdq = fa_ops.flash_attention_bwd_dq_plain(*args)
         pdk, pdv = fa_ops.flash_attention_bwd_dkv_plain(*args)
+        # the yardstick of both kernels: SDPA's backward (dq, dk and dv in
+        # one call) of one SDPA output, its graph built outside the timing
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        library = ("autograd.grad of F.scaled_dot_product_attention (dq, dk, dv)",
+                   lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
+        b, h, s, d = q.shape
         record_grad("flash_attention_bwd_dq", label, [dq], [pdq],
                     lambda: fa_ops.flash_attention_bwd_dq(*args),
-                    lambda: fa_ops.flash_attention_bwd_dq_plain(*args))
+                    lambda: fa_ops.flash_attention_bwd_dq_plain(*args),
+                    fa_ops.flash_bwd_dq_work(b, h, s, s, d), library)
         record_grad("flash_attention_bwd_dkv", label, [dk, dv], [pdk, pdv],
                     lambda: fa_ops.flash_attention_bwd_dkv(*args),
-                    lambda: fa_ops.flash_attention_bwd_dkv_plain(*args))
+                    lambda: fa_ops.flash_attention_bwd_dkv_plain(*args),
+                    fa_ops.flash_bwd_dkv_work(b, h, s, s, d), library)
+        del lib_out, leaves
 
     for s, d in ((4096, 40), (1024, 80), (256, 160)):
         bwd_case(f"bhsd [4, 8, {s}, {d}]", *(rn(4, 8, s, d) for _ in range(4)))
@@ -375,7 +447,7 @@ def kernel_checks(dev, cfg):
                 rn(c, f, std=f ** -0.5), rn(c, std=0.1))
         record("geglu_ffn", f"rows={rows} C={c} F={f}", geglu_ops.geglu_ffn(*args),
                geglu_ops.geglu_ffn_plain(*args), lambda: geglu_ops.geglu_ffn(*args),
-               lambda: geglu_ops.geglu_ffn_plain(*args))
+               lambda: geglu_ops.geglu_ffn_plain(*args), geglu_ops.geglu_ffn_work(rows, c, f))
 
     sizes = emb_row_sizes(cfg)
     block = rn(len(sizes), max(sizes))
@@ -386,7 +458,8 @@ def kernel_checks(dev, cfg):
             raise AssertionError("unpack_rows differs from its plain version")
     record("unpack_rows", f"[{len(sizes)}, {max(sizes)}]", torch.cat(rows, 1),
            torch.cat(prows, 1), lambda: unpack_ops.unpack_rows(block, sizes),
-           lambda: unpack_ops.unpack_rows_plain(block, sizes))
+           lambda: unpack_ops.unpack_rows_plain(block, sizes),
+           unpack_ops.unpack_rows_work(sizes))
     return results
 
 
@@ -469,7 +542,36 @@ def sample(pipe, ids, uncond, hint, x_T, steps):
     return img, {"prep_s": t[1] - t[0], "ddim_s": t[2] - t[1], "decode_s": t[3] - t[2]}
 
 
-def slice_run(dev, cfg):
+def profile_ddim(pipe, ids, uncond, hint, x_T, steps):
+    """torch.profiler over `steps` DDIM steps of the sampling slice: device
+    time per step by kernel (top 15), and the device's busy share of the
+    window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    hz = pipe.encode_first_stage(hint)
+    run = lambda: ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape,
+                              DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:15]
+    log("profile", steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+        device_ms_per_step=busy / steps, device_busy_share=busy / (wall * 1e3),
+        launches_per_step=sum(e.count for e in events) / steps,
+        top=[{"kernel": e.key[:90], "calls_per_step": e.count / steps,
+              "ms_per_step": dev_us(e) / 1e3 / steps} for e in top])
+
+
+def slice_run(dev, cfg, profile_steps=0):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, dev, gen)
@@ -498,6 +600,8 @@ def slice_run(dev, cfg):
     if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
         raise AssertionError(f"bad image: shape {tuple(img.shape)}")
     log("slice", image_mean=img.mean().item(), image_std=img.std().item())
+    if profile_steps:
+        profile_ddim(pipe, ids, uncond, hint, x_T, profile_steps)
 
     # one UNet+ControlNet evaluation: kernels vs plain versions
     ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
@@ -889,7 +993,7 @@ def api_slice(dev):
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -913,7 +1017,8 @@ def main() -> int:
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)
-    sampling, _, _ = slice_run(dev, cfg)
+    profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
+    sampling, _, _ = slice_run(dev, cfg, profile_steps)
     tiny_gpu_vs_cpu(dev)
     tiny_api_gpu_vs_cpu(dev)
     training, _ = train_slice(dev)
@@ -935,4 +1040,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

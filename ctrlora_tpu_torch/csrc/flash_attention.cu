@@ -1,426 +1,545 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32 softmax.
+// Flash-attention forward for Hopper (sm_90a): wgmma on TMA-loaded tiles,
+// bf16 in and out, fp32 softmax.
 //
 // Replaces the TPU kernels ctrlora_tpu/ops/flash_attention.py
-// `_fwd_kernel_packed_qkv` (the packed q|k|v self-attention of the UNet and
-// ControlNet) and `_fwd_kernel` (the BHSD single-head attention of the VAE).
-// One source serves both: the launcher takes (batch, sequence, head) strides
-// for q, k, v and out, so the packed view (row stride 3*H*D, k at +H*D, v at
-// +2*H*D) and the [B, H, S, D] view need no copies.
+// `_fwd_kernel_packed_qkv` :304 (the packed q|k|v self-attention of the UNet
+// and ControlNet), `_fwd_kernel_packed` :138 (separate [B, S, H, D] q, k, v:
+// the LoRA control branch) and `_fwd_kernel` :58 (the VAE's [B, H, S, D]
+// single-head attention). One C entry serves all three: it takes (batch,
+// sequence, head) strides for q, k, v and out and encodes a 4-D TMA tensor
+// map {D, H, S, B} over each strided view, so the packed view (row stride
+// 3*H*D, k at +H*D, v at +2*H*D) and the [B, H, S, D] view need no copies.
 //
-// What bounds it on the H100: at the UNet's 64x64 sites (S=4096, D=40) the
-// two products are 4*S*S*D flops per head against S*D*8 bytes of q|k|v|out,
-// far above the card's ~295 flop/byte ridge, so the tensor cores bound it;
-// the [S, S] logits are the traffic a plain implementation adds (a 4096^2
-// fp32 block per head). These kernels never write them: each block holds
-// its query rows and walks the keys in tiles with an online softmax, so
-// device memory sees q, k, v once per block and the output once.
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): the two products,
+// 4*B*H*Sq*Sk*D flops, against q, k, v and out read or written once.
+// * [8, 4096, 3*8*40] (the 64x64 UNet sites): 171.8 GFLOP, 0.174 ms at the
+//   tensor-core peak; 85 MB, 0.025 ms at the memory rate. The exp2 of every
+//   logit is a ceiling of its own: 8*8*4096^2 = 1.07e9 per call, at ~3.7e12
+//   MUFU ex2/s (16 a clock on each of 132 SMs) about 0.29 ms, above the
+//   tensor-core bound. Evaluating a share of them by polynomial on the FMA
+//   pipes (FlashAttention-3's trick) is not done.
+// * [4, 1, 4096, 512] (the VAE at 512^2): 137.4 GFLOP, 0.139 ms.
 //
-// Two kernels share the launcher, chosen by head dim:
+// Two kernels, chosen by head dim. Both have consumer warpgroups and a
+// producer warpgroup that hands its registers to them (setmaxnreg). The
+// producer's one thread streams K/V tiles into a ring of shared-memory
+// stages with TMA; each stage's `full` mbarrier completes on the bytes that
+// arrived, and its `empty` mbarrier on all consumer threads being done with
+// it. So loads run under the products, and the
+// consumers spend no registers or instructions on them. S = Q K^T is a
+// wgmma with both operands K-major in shared memory. O += P V is a wgmma
+// with P in registers (the S accumulator rounded to bf16, the RS form) and V
+// read MN-major through the descriptor's transpose bit: V is never
+// transposed by hand. Tiles are boxes of 64 columns with the 128B swizzle.
 //
-// * D <= 160 (the UNet/ControlNet sites, D = 40/80/160): FlashAttention-2's
-//   shape on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). A block of four
-//   warps owns 64 query rows; each warp keeps its 16 rows' q fragments,
-//   logits, probabilities and output accumulator in registers, so the only
-//   shared-memory traffic is the 64-key K/V tile the four warps share (K
-//   row-major, V transposed, rows padded by 8 elements so fragment loads hit
-//   32 distinct banks). The probabilities go from the logits' accumulator
-//   layout straight into the A fragments of the PV product. D = 40 is
-//   zero-padded to 48 (a multiple of the 16-wide k-step); 80 and 160 tile
-//   directly. At D = 40 the exp2 of every logit (8.6e9 per 64x64-site call)
-//   is a bound of its own, next to the tensor cores.
-// * D = 512 (the VAE's single-head attention): too wide for a register
-//   accumulator (64 rows x 512 x 4 B = 128 KB), so its accumulator lives in
-//   shared memory: BQ = 32 rows x 512 fp32 = 64 KB beside the q, k, v tiles,
-//   166 KB in all, within the 227 KB a block can use; both products run
-//   through WMMA 16x16x16 fragments, the softmax row by row.
+// * D <= 160 (`flash_fwd_wgmma`, D = 40/80/160 at the UNet/ControlNet sites;
+//   64 and 128 also build). Each consumer warpgroup owns 64 query rows and
+//   keeps their logits, probabilities and output accumulator in registers:
+//   three consumers at 160 registers a thread where that fits (D <= 64: BQ
+//   = 192, so each K/V tile serves more rows), else two at 240 (BQ = 128).
+//   BK = 128 keys a tile (64 at D = 160: shared memory), 2-4 stages. Within
+//   a warpgroup the exp2s of tile j run while tile j-1's PV product is in
+//   flight; across warpgroups the scheduler interleaves one's softmax with
+//   another's products. Making the warpgroups take turns on the tensor cores
+//   (FlashAttention-3's ping-pong, by named barriers) was tried and cost
+//   20% at D = 40: the small-N products then queue behind each other.
+//   D = 40 is the awkward width: its 80-byte rows fit no swizzle atom and
+//   the k-step is 16. Q arrives in a 64-column box whose columns past D read
+//   as zeros (the tensor map's innermost size is D, not the row pitch, so
+//   the next head's values never enter); K and V arrive in boxes only D % 64
+//   columns wide, which TMA writes into the 128-byte rows and which leave the
+//   rest of each row alone: the pad columns are zeroed once per block (a
+//   64-column box filled past D took the loads twice as long). The QK
+//   product runs over 48 columns (Q's zeros cancel the pad). The PV
+//   product's N is D + 8: column D of V holds ones, written once per block,
+//   so column D of O is the row sum of the bf16 P; the CUDA cores do no row
+//   sums.
+// * D = 512 (`flash_fwd_wide`, the VAE). A 64 x 512 fp32 accumulator does
+//   not fit one warpgroup's registers, so the output is split by D: both
+//   consumer warpgroups own the block's 64 query rows and one 256-wide half
+//   of O each (128 registers a thread). Each computes the partial S over its
+//   half of D; the two 64 x 32 partials are summed through shared memory
+//   (a + b in one, b + a in the other: the same bits), both run the same
+//   softmax and each runs P V over its V half. Q stays resident (64 KB), K/V
+//   tiles of 32 keys in 2 stages (128 KB), the S exchange double-buffered
+//   (32 KB): 224 KB, one block an SM.
 //
-// Both use the exact running-max online softmax (the JAX package's `safemax`
-// variant), not its clamped exp2: the result does not depend on the size of
-// the logits. The row sum is taken over the bf16-rounded probabilities that
-// enter the PV product, as the TPU kernel's ones-augmented V does. Both emit
-// the fp32 natural-log logsumexp [B, H, Sq] that the training backward will
-// read. Loads are 16-byte vectors (the wrappers check the alignment).
-// wgmma, TMA, cp.async pipelining and warp specialisation are later work.
-
-#include <mma.h>
+// Where the D = 40 kernel stands: `python3 -m ctrlora_tpu_torch.tools.
+// ablate_flash` times it with its loads, products or softmax cut out; each
+// part alone takes a large share of the whole, and they overlap only in
+// part (PERF.md has the numbers).
+//
+// The old kernels (mma.sync fragments loaded synchronously through
+// registers with a hand transpose of V; WMMA with a shared-memory fp32
+// accumulator at D = 512) are gone; PERF.md keeps their times.
+//
+// Numerics, as the plain versions hold them: the exact running-max online
+// softmax (the JAX package's `safemax` variant), P rounded to bf16 before the
+// PV product, the row sum taken over the rounded P, and the fp32 natural-log
+// logsumexp [B, H, Sq] that the backward kernels read. Shapes the kernels do
+// not take (Sq or Sk not a multiple of the tile, other head dims) are
+// refused with cudaErrorInvalidValue; the wrapper checks them first.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ctrlora {
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kThreads = 128;  // four warps
-constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int W = 64;                           // box width: 128-byte rows, 128B swizzle
+constexpr int kBarExchange = 1;  // the named barrier of the D = 512 S exchange
 
-template <int DP, int BQ, int BK>
-struct FlashSmem {
-  static constexpr size_t q = 0;                          // bf16 [BQ][DP]
-  static constexpr size_t k = q + 2 * BQ * DP;            // bf16 [BK][DP]
-  static constexpr size_t v = k + 2 * BK * DP;            // bf16 [BK][DP]
-  static constexpr size_t s = v + 2 * BK * DP;            // f32  [BQ][BK]
-  static constexpr size_t p = s + 4 * BQ * BK;            // bf16 [BQ][BK]
-  static constexpr size_t o = p + 2 * BQ * BK;            // f32  [BQ][DP]
-  static constexpr size_t m = o + 4 * BQ * DP;            // f32  [BQ] row max (log2 units)
-  static constexpr size_t l = m + 4 * BQ;                 // f32  [BQ] row sum
-  static constexpr size_t a = l + 4 * BQ;                 // f32  [BQ] rescale
-  static constexpr size_t bytes = a + 4 * BQ;
-};
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
 
-template <int DP, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                 long long qb, long long qs, long long qh,
-                 long long kb, long long ks, long long kh,
-                 long long vb, long long vs, long long vh,
-                 long long ob, long long os, long long oh, float scale_log2) {
-  static_assert(DP % 16 == 0 && BQ % 16 == 0 && BK % 16 == 0, "WMMA tiles");
-  static_assert(kThreads % BQ == 0 && BK % (kThreads / BQ) == 0, "softmax split");
-  using L = FlashSmem<DP, BQ, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
-  float* sA = reinterpret_cast<float*>(smem + L::a);
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const bf16* qbase = q + b * qb + h * qh;
-  const bf16* kbase = k + b * kb + h * kh;
-  const bf16* vbase = v + b * vb + h * vh;
-
-  load_tile<BQ, DP, kThreads>(sQ, qbase, qs, q0, Sq, D);
-  for (int i = tid; i < BQ * DP; i += kThreads) sO[i] = 0.f;
-  for (int i = tid; i < BQ; i += kThreads) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
-  }
-
-  constexpr int TPR = kThreads / BQ;  // threads per softmax row
-  constexpr int CPT = BK / TPR;       // columns per thread
-  const int row = tid / TPR;
-  const int part = tid % TPR;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // previous tile's readers of sK/sV/sP are done
-    load_tile<BK, DP, kThreads>(sK, kbase, ks, k0, Sk, D);
-    load_tile<BK, DP, kThreads>(sV, vbase, vs, k0, Sk, D);
-    __syncthreads();
-
-    // S = Q K^T, fp32
-    for (int t = warp; t < (BQ / 16) * (BK / 16); t += kWarps) {
-      const int tr = t / (BK / 16);
-      const int tc = t % (BK / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + tr * 16 * DP + kk, DP);
-        wmma::load_matrix_sync(fb, sK + tc * 16 * DP + kk, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + tr * 16 * BK + tc * 16, acc, BK, wmma::mem_row_major);
+// Thread 0 initialises the barriers: q_full, then full[] and empty[] of
+// the ST stages (empty[] completes on the `consumers` threads' arrivals).
+template <int ST>
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int consumers) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&bars[1 + s], 1);
+      mbar_init(&bars[1 + ST + s], consumers);
     }
-    __syncthreads();
-
-    // online softmax over this key tile: TPR adjacent lanes share a row
-    {
-      float* srow = sS + row * BK + part * CPT;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const bool valid = k0 + part * CPT + j < Sk;
-        const float sv = valid ? srow[j] * scale_log2 : -INFINITY;
-        srow[j] = sv;
-        mx = fmaxf(mx, sv);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[row];
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid key
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const bf16 pb = __float2bfloat16(exp2f(srow[j] - m_new));
-        sP[row * BK + part * CPT + j] = pb;
-        sum += __bfloat162float(pb);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        const float alpha = exp2f(m_old - m_new);  // 0 on the first tile
-        sA[row] = alpha;
-        sL[row] = sL[row] * alpha + sum;
-        sM[row] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < BQ * DP; i += kThreads) sO[i] *= sA[i / DP];
-    __syncthreads();
-
-    // O += P V
-    for (int t = warp; t < (BQ / 16) * (DP / 16); t += kWarps) {
-      const int tr = t / (DP / 16);
-      const int tc = t % (DP / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + tr * 16 * DP + tc * 16, DP, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + tr * 16 * BK + kk, BK);
-        wmma::load_matrix_sync(fb, sV + kk * DP + tc * 16, DP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sO + tr * 16 * DP + tc * 16, acc, DP, wmma::mem_row_major);
-    }
+    mbar_init_fence();
   }
   __syncthreads();
+}
 
-  bf16* obase = out + b * ob + h * oh;
-  for (int i = tid; i < BQ * DP; i += kThreads) {
-    const int r = i / DP;
-    const int c = i % DP;
-    if (q0 + r < Sq && c < D)
-      obase[(long long)(q0 + r) * os + c] = __float2bfloat16(sO[i] / sL[r]);
-  }
-  for (int r = tid; r < BQ; r += kThreads) {
-    if (q0 + r < Sq)
-      lse[(long long)bh * Sq + q0 + r] = (sM[r] + log2f(sL[r])) / kLog2e;
+// The producer's loop: Q once (NQ boxes of W columns, zero past D), then
+// the K and V tiles of every key block into the ring of ST stages, whose K
+// and V parts are NK and NV boxes wide. Columns [0, D) arrive as D / W full
+// boxes (maps tk, tv) and a tail box of D % W columns (maps tkt, tvt), which
+// leaves the rest of the tail box as it was.
+template <int NQ, int NK, int NV, int BQ, int BK, int ST, int D>
+__device__ __forceinline__ void produce(unsigned char* smem, uint64_t* bars, const CUtensorMap* tq,
+                                        const CUtensorMap* tk, const CUtensorMap* tkt,
+                                        const CUtensorMap* tv, const CUtensorMap* tvt, int h,
+                                        int b, int q0, int nt) {
+  constexpr int BOX_Q = BQ * W * 2, BOX_KV = BK * W * 2;
+  constexpr int STAGE = (NK + NV) * BOX_KV, NFULL = D / W, TAIL = D % W;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+  mbar_expect_tx(bars, NQ * BOX_Q);
+  for (int i = 0; i < NQ; ++i) tma_load_4d(smem + i * BOX_Q, tq, bars, i * W, h, q0, b);
+  for (int j = 0; j < nt; ++j) {
+    const int s = j % ST;
+    mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+    mbar_expect_tx(&full[s], 2 * BK * D * 2);
+    unsigned char* kbuf = smem + NQ * BOX_Q + s * STAGE;
+    unsigned char* vbuf = kbuf + NK * BOX_KV;
+    for (int i = 0; i < NFULL; ++i) {
+      tma_load_4d(kbuf + i * BOX_KV, tk, &full[s], i * W, h, j * BK, b);
+      tma_load_4d(vbuf + i * BOX_KV, tv, &full[s], i * W, h, j * BK, b);
+    }
+    if (TAIL) {
+      tma_load_4d(kbuf + NFULL * BOX_KV, tkt, &full[s], NFULL * W, h, j * BK, b);
+      tma_load_4d(vbuf + NFULL * BOX_KV, tvt, &full[s], NFULL * W, h, j * BK, b);
+    }
   }
 }
 
-template <int DP, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
-                   int B, int H, int Sq, int Sk, int D, const long long* st,
-                   float scale_log2, cudaStream_t stream) {
-  using L = FlashSmem<DP, BQ, BK>;
-  auto kern = flash_fwd_kernel<DP, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+// Online softmax over one tile of a warpgroup's 64 rows, in two halves so
+// that the first can run while the previous tile's PV product is in flight.
+// s: the logits in the accumulator layout (BK/2 values: rows g and g+8 of
+// this warp's 16, 2*BK/8 columns each); m: the running max per row (log2
+// units). softmax_exp replaces s by exp2(s*scale - m_new) and returns the
+// rescale factors exp2(m_old - m_new); softmax_pack rounds them to bf16 as
+// the RS A fragments of the BK/16 k-steps and rescales the output
+// accumulator, and with CORE_SUM adds the rounded values to this thread's
+// partial row sums l (rescaled too).
+template <int BK>
+__device__ __forceinline__ void softmax_exp(float (&s)[BK / 2], float (&m)[2], float (&alpha)[2],
+                                            float scale_log2) {
+  float mx[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mx[r][u] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {  // four chains a row, not one
+    mx[0][i % 4] = fmaxf(mx[0][i % 4], fmaxf(s[4 * i], s[4 * i + 1]));
+    mx[1][i % 4] = fmaxf(mx[1][i % 4], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float mn = fmaxf(m[r], v * scale_log2);  // finite: every key is valid
+    alpha[r] = fast_exp2(m[r] - mn);                 // 0 on the first tile
+    m[r] = mn;
+    neg[r] = -mn;
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * i + e] = fast_exp2(fmaf(s[4 * i + e], scale_log2, neg[e / 2]));
+  }
+}
+
+template <int BK, bool CORE_SUM, int NO>
+__device__ __forceinline__ void softmax_pack(const float (&s)[BK / 2], uint32_t (&p)[BK / 16][4],
+                                             float (&o)[NO], float (&l)[2],
+                                             const float (&alpha)[2]) {
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * kk + half;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+        p[kk][2 * half + r] = as_u32(pr);
+        if (CORE_SUM) sum[r] += __low2float(pr) + __high2float(pr);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NO / 4; ++i) {
+    o[4 * i] *= alpha[0];
+    o[4 * i + 1] *= alpha[0];
+    o[4 * i + 2] *= alpha[1];
+    o[4 * i + 3] *= alpha[1];
+  }
+  if (CORE_SUM) {
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+  }
+}
+
+// Normalise by the row sums l and store a warpgroup's 64 x 2*NO output
+// columns starting at column c0 (columns at or past D are dropped), and
+// the rows' lse.
+template <int NO>
+__device__ __forceinline__ void store_rows(const float (&o)[NO], const float (&l)[2],
+                                           const float (&m)[2], bf16* obase, long long os,
+                                           float* lse_row, int row0, int c0, int D, int Sq,
+                                           bool write_lse) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int w = (threadIdx.x / 32) % 4;
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  const int rows[2] = {row0 + 16 * w + g, row0 + 16 * w + g + 8};
+#pragma unroll
+  for (int i = 0; i < NO / 4; ++i) {
+    const int c = c0 + 8 * i + 2 * t;
+    if (c < D) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (rows[r] < Sq)
+          *reinterpret_cast<__nv_bfloat162*>(obase + (long long)rows[r] * os + c) =
+              __floats2bfloat162_rn(o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
+    }
+  }
+  if (write_lse && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < Sq) lse_row[rows[r]] = (m[r] + log2f(l[r])) / kLog2e;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D <= 160: D = 40, 64, 80, 128, 160
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct FwdCfg {
+  // QK over DP = D rounded up to 16 columns (the k-step); PV over NPV = D + 8
+  // columns, the first pad column of V holding ones, so that O's column D
+  // is the row sum of the bf16 P
+  static constexpr int DP = (D + 15) / 16 * 16, NPV = D + 8;
+  // NC consumer warpgroups of 64 query rows and one producer warpgroup,
+  // which keeps 24 registers a thread and hands the rest over: three
+  // consumers at 160 registers where S, P and O fit them (D <= 64), else
+  // two at 240. 128 keys a tile, 64 at D = 160 (shared memory).
+  static constexpr int NC = D <= 64 ? 3 : 2, REGS = NC == 3 ? 160 : 240;
+  static constexpr int CONSUMERS = NC * 128, THREADS = CONSUMERS + 128;
+  static constexpr int BQ = 64 * NC, BK = D <= 128 ? 128 : 64;
+  static constexpr int NQK = (DP + W - 1) / W, NV = (NPV + W - 1) / W;
+  static constexpr int BOX_Q = BQ * W * 2;   // bytes of one Q box
+  static constexpr int BOX_KV = BK * W * 2;  // ... of one K or V box
+  static constexpr int Q_BYTES = NQK * BOX_Q;
+  static constexpr int K_BYTES = NQK * BOX_KV;
+  static constexpr int STAGE_BYTES = (NQK + NV) * BOX_KV;  // K then V
+  static constexpr int FIT = (200 * 1024 - Q_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment slack
+  // the ones column in the V tile: its box and 16-byte chunk
+  static constexpr int ONES_BOX = D / W, ONES_CHUNK = (D % W) / 8;
+  static_assert(D % 8 == 0 && STAGES >= 2, "tile shape");
+  // setmaxnreg only moves registers the block got at launch (THREADS times
+  // the per-thread count the launch bounds allow): more would wait forever
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static_assert(CONSUMERS * REGS + 128 * 24 <= THREADS * LAUNCH_REGS, "register file");
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tkt, const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tvt, bf16* __restrict__ out,
+                float* __restrict__ lse, int H, int Sq, int Sk, long long ob, long long os,
+                long long oh, float scale_log2) {
+  using C = FwdCfg<D>;
+  constexpr int BK = C::BK, ST = C::STAGES, DP = C::DP, NPV = C::NPV, NC = C::NC;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+  const int warp = threadIdx.x / 32;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * C::BQ;  // the last block's rows past Sq read zeros, store nothing
+  const int nt = Sk / BK;
+
+  // The boxes TMA fills only in part (K's and V's tail, V's ones box) start
+  // as zeros, with ones in V's column D: TMA never writes either again, so
+  // the QK product meets zeros past D and column D of O is the row sum.
+  if (threadIdx.x < C::CONSUMERS) {
+    constexpr int CHUNKS = C::BOX_KV / 16, FIRST = D / W;
+    for (int i = threadIdx.x; i < ST * (C::NQK + C::NV) * CHUNKS; i += C::CONSUMERS) {
+      const int box = (i / CHUNKS) % (C::NQK + C::NV), c = i % CHUNKS;
+      const bool v_box = box >= C::NQK;
+      if ((v_box ? box - C::NQK : box) < FIRST) continue;
+      const int row = c / 8, logical = (c % 8) ^ (row & 7);
+      const bool ones = v_box && box - C::NQK == C::ONES_BOX && logical == C::ONES_CHUNK;
+      reinterpret_cast<uint4*>(smem + C::Q_BYTES)[i] = make_uint4(ones ? 0x3F80u : 0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
+  init_barriers<ST>(bars, C::CONSUMERS);
+  if (warp >= 4 * NC) {  // the producer warpgroup hands registers over
+    regs_dec<24>();
+    if (threadIdx.x == C::CONSUMERS)
+      produce<C::NQK, C::NQK, C::NV, C::BQ, BK, ST, D>(smem, bars, &tq, &tk, &tkt, &tv, &tvt, h,
+                                                        b, q0, nt);
+    return;
+  }
+  regs_inc<C::REGS>();
+
+  // consumer warpgroup cw owns query rows q0 + 64*cw .. +63
+  const int cw = warp / 4;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_rows = base + cw * 64 * W * 2;
+  const uint32_t kv_base = base + C::Q_BYTES;
+  float o[NPV / 2], s[BK / 2];
+#pragma unroll
+  for (int i = 0; i < NPV / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t p[BK / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
+
+  mbar_wait(bars, 0);
+  // iteration j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1}; the exp2s of
+  // S_j run while the PV product is still in flight
+  for (int j = 0; j <= nt; ++j) {
+    gmma_fence();
+    if (j < nt) {
+      const int st = j % ST;
+      mbar_wait(&full[st], (j / ST) & 1);
+      const uint32_t kb = kv_base + st * C::STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk * 16 / W) * C::BOX_Q + (kk * 16 % W) * 2;
+        const uint32_t koff = (kk * 16 / W) * C::BOX_KV + (kk * 16 % W) * 2;
+        Gmma<BK>::ss(s, gmma_desc(q_rows + off, 16), gmma_desc(kb + koff, 16), kk > 0);
+      }
+    }
+    gmma_commit();
+    if (j > 0) {
+      const uint32_t vb = kv_base + ((j - 1) % ST) * C::STAGE_BYTES + C::K_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Gmma<NPV>::rs(o, p[kk], gmma_desc(vb + kk * 16 * W * 2, C::BOX_KV));
+    }
+    gmma_commit();
+    if (j < nt) {
+      gmma_wait<1>();  // S_j is ready
+      fence_regs(s);
+      softmax_exp<BK>(s, m, alpha, scale_log2);
+    }
+    gmma_wait<0>();
+    fence_regs(o);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % ST]);
+    if (j == nt) break;
+    softmax_pack<BK, false>(s, p, o, l, alpha);
+  }
+
+  // column D of O is the row sum; the quad's first thread holds it
+  const int lane0 = (threadIdx.x % 32) & ~3;
+  l[0] = __shfl_sync(0xffffffffu, o[4 * (D / 8)], lane0);
+  l[1] = __shfl_sync(0xffffffffu, o[4 * (D / 8) + 2], lane0);
+  store_rows(o, l, m, out + b * ob + h * oh, os, lse + (long long)bh * Sq, q0 + 64 * cw, 0, D,
+             Sq, true);
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
+                         int B, int H, int Sq, int Sk, const long long* st, float scale_log2,
+                         cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  constexpr int TAIL = D % W;
+  if (Sk % C::BK != 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tkt, tv, tvt;
+  cudaError_t err = encode_bshd_map(&tq, q, B, Sq, H, D, st[0], st[1], st[2], W, C::BQ);
+  // the full-box maps where D >= W, the tail-box maps where D % W != 0
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    const void* base = i ? v : k;
+    const long long* sv = st + 3 + 3 * i;
+    CUtensorMap* full = i ? &tv : &tk;
+    CUtensorMap* tail = i ? &tvt : &tkt;
+    err = encode_bshd_map(full, base, B, Sk, H, D, sv[0], sv[1], sv[2], W, C::BK);
+    if (err == cudaSuccess)
+      err = encode_bshd_map(tail, base, B, Sk, H, D, sv[0], sv[1], sv[2], TAIL ? TAIL : W, C::BK);
+  }
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, kThreads, L::bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
-      H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale_log2);
+  auto kern = flash_fwd_wgmma<D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((Sq + C::BQ - 1) / C::BQ, B * H), C::THREADS, C::BYTES, stream>>>(
+      tq, tk, tkt, tv, tvt, static_cast<bf16*>(out), static_cast<float*>(lse), H, Sq, Sk, st[9],
+      st[10], st[11], scale_log2);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Register-resident kernel for head dims up to 160 (the UNet/ControlNet
-// sites): FlashAttention-2's shape on mma.sync. Each warp owns 16 query rows
-// and keeps their q fragments, logits, probabilities and output accumulator
-// in registers; the block's four warps share each 64-key K/V tile in shared
-// memory (K row-major, V transposed, rows padded by 8 elements so the
-// fragment loads hit 32 distinct banks).
+// D = 512
 // ---------------------------------------------------------------------------
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                     long long qb, long long qs, long long qh,
-                     long long kb, long long ks, long long kh,
-                     long long vb, long long vs, long long vh,
-                     long long ob, long long os, long long oh, float scale_log2) {
-  constexpr int BQ = 16 * kWarps;  // 64 query rows per block
-  constexpr int BK = 64;           // keys per tile
-  constexpr int KS = DP / 16;      // k-steps of the QK product
-  constexpr int ND = DP / 8;       // n-tiles of the PV product
-  constexpr int KST = DP + 8;      // padded row strides (bank-conflict free)
-  constexpr int VST = BK + 8;
-  static_assert(DP % 16 == 0, "head dim pads to a multiple of 16");
-  __shared__ __align__(16) bf16 sK[BK * KST];
-  __shared__ __align__(16) bf16 sVt[DP * VST];
+struct WideCfg {
+  static constexpr int D = 512, BQ = 64, BK = 32, NB = D / W, ST = 2;
+  static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
+  static constexpr int HALF_BOXES = NB / 2;  // one warpgroup's 256 columns
+  static constexpr int BOX_Q = BQ * W * 2;   // 8 KB
+  static constexpr int BOX_KV = BK * W * 2;  // 4 KB
+  static constexpr int Q_BYTES = NB * BOX_Q;
+  static constexpr int KV_BYTES = NB * BOX_KV;
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int X_OFF = Q_BYTES + ST * STAGE_BYTES;
+  static constexpr int X_FLOATS = (BK / 2) * 128;  // one warpgroup's partial S
+  static constexpr int BAR_OFF = X_OFF + 2 * 2 * X_FLOATS * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * ST) + 1024;
+  static_assert(BYTES <= 232448, "shared memory");
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;    // fragment row group
-  const int tig = lane % 4;  // thread in group
-  const int row0 = blockIdx.x * BQ + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bf16* qbase = q + b * qb + h * qh;
-  const bf16* kbase = k + b * kb + h * kh;
-  const bf16* vbase = v + b * vb + h * vh;
+__global__ void __launch_bounds__(WideCfg::THREADS, 1)
+flash_fwd_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+               float* __restrict__ lse, int H, int Sq, int Sk, long long ob, long long os,
+               long long oh, float scale_log2) {
+  using C = WideCfg;
+  constexpr int BK = C::BK, ST = C::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* xbuf = reinterpret_cast<float*>(smem + C::X_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+  const int warp = threadIdx.x / 32;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * C::BQ;
+  const int nt = Sk / BK;
 
-  // q fragments (A operand, row-major 16x16 per k-step), zero past Sq / D
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c0 = kk * 16 + tig * 2;
-    const int c1 = c0 + 8;
-    auto ld = [&](int r, int c) -> uint32_t {
-      return (r < Sq && c < D)
-                 ? *reinterpret_cast<const uint32_t*>(qbase + (long long)r * qs + c)
-                 : 0u;
-    };
-    qf[kk][0] = ld(row0, c0);
-    qf[kk][1] = ld(row1, c0);
-    qf[kk][2] = ld(row0, c1);
-    qf[kk][3] = ld(row1, c1);
+  init_barriers<ST>(bars, C::CONSUMERS);
+  if (warp >= 8) {  // the producer warpgroup hands registers over
+    regs_dec<40>();
+    if (threadIdx.x == C::CONSUMERS)
+      produce<C::NB, C::NB, C::NB, C::BQ, BK, ST, C::D>(smem, bars, &tq, &tk, &tk, &tv, &tv, h, b,
+                                                         q0, nt);
+    return;
   }
+  regs_inc<232>();  // 128 x 40 + 256 x 232 <= 384 x 168, the launch allocation
 
-  float o[ND][4];
+  // consumer warpgroup cw owns output columns 256*cw .. +255 of all 64 rows
+  const int cw = warp / 4;
+  const int ct = threadIdx.x % 128;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t q_half = base + cw * C::HALF_BOXES * C::BOX_Q;
+  const uint32_t kv_base = base + C::Q_BYTES;
+  float o[128], s[BK / 2];
 #pragma unroll
-  for (int dn = 0; dn < ND; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  uint32_t p[BK / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    constexpr int CH = DP / 8;
-    for (int i = tid; i < BK * CH; i += kThreads) {
-      const int r = i / CH;
-      const int c = (i % CH) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < Sk && c < D) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (long long)(k0 + r) * ks + c);
-        vv = *reinterpret_cast<const uint4*>(vbase + (long long)(k0 + r) * vs + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * KST + c) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+  mbar_wait(bars, 0);
+  for (int j = 0; j <= nt; ++j) {
+    gmma_fence();
+    if (j < nt) {
+      const int st = j % ST;
+      mbar_wait(&full[st], (j / ST) & 1);
+      const uint32_t kb = kv_base + st * C::STAGE_BYTES + cw * C::HALF_BOXES * C::BOX_KV;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(c + e) * VST + r] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      const bf16* kr = sK + (j * 8 + g) * KST + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-        mma_bf16_16816(sc[j], qf[kk], b0, b1);
+      for (int kk = 0; kk < 256 / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // within the 64-wide box
+        Gmma<BK>::ss(s, gmma_desc(q_half + (kk / 4) * C::BOX_Q + off, 16),
+                     gmma_desc(kb + (kk / 4) * C::BOX_KV + off, 16), kk > 0);
       }
     }
-
-    // online softmax (exp2 domain); a row's 64 values live in a lane quad
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (j > 0) {
+      const uint32_t vb = kv_base + ((j - 1) % ST) * C::STAGE_BYTES + C::KV_BYTES +
+                          cw * C::HALF_BOXES * C::BOX_KV;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = k0 + j * 8 + tig * 2 + e < Sk;
-        sc[j][e] = valid ? sc[j][e] * scale_log2 : -INFINITY;
-        sc[j][2 + e] = valid ? sc[j][2 + e] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, sc[j][e]);
-        mx1 = fmaxf(mx1, sc[j][2 + e]);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Gmma<256>::rs(o, p[kk], gmma_desc(vb + kk * 16 * W * 2, C::BOX_KV));
     }
+    gmma_commit();
+    gmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+    if (j > 0) mbar_arrive(&empty[(j - 1) % ST]);
+    if (j == nt) break;
+    // the full S: this half's partial plus the other warpgroup's
+    float* mine = xbuf + ((j & 1) * 2 + cw) * C::X_FLOATS;
+    const float* theirs = xbuf + ((j & 1) * 2 + 1 - cw) * C::X_FLOATS;
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0);  // finite: every tile has a valid key
-    const float mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0);  // 0 on the first tile
-    const float al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    // P in bf16, laid out directly as the A fragments of the PV product;
-    // the row sums are taken over the rounded values the product uses
-    uint32_t pa[4][4];
-    float sum0 = 0.f, sum1 = 0.f;
+    for (int i = 0; i < BK / 2; ++i) mine[i * 128 + ct] = s[i];
+    named_sync(kBarExchange, C::CONSUMERS);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat162 p01 =
-          __floats2bfloat162_rn(exp2f(sc[j][0] - mn0), exp2f(sc[j][1] - mn0));
-      const __nv_bfloat162 p23 =
-          __floats2bfloat162_rn(exp2f(sc[j][2] - mn1), exp2f(sc[j][3] - mn1));
-      sum0 += __low2float(p01) + __high2float(p01);
-      sum1 += __low2float(p23) + __high2float(p23);
-      pa[j / 2][(j % 2) * 2 + 0] = as_u32(p01);
-      pa[j / 2][(j % 2) * 2 + 1] = as_u32(p23);
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-    }
-    l0 = l0 * al0 + sum0;
-    l1 = l1 * al1 + sum1;
-
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn) {
-      o[dn][0] *= al0;
-      o[dn][1] *= al0;
-      o[dn][2] *= al1;
-      o[dn][3] *= al1;
-    }
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        const bf16* vr = sVt + (dn * 8 + g) * VST + kc * 16 + tig * 2;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vr + 8);
-        mma_bf16_16816(o[dn], pa[kc], b0, b1);
-      }
-    }
+    for (int i = 0; i < BK / 2; ++i) s[i] += theirs[i * 128 + ct];
+    float alpha[2];
+    softmax_exp<BK>(s, m, alpha, scale_log2);
+    softmax_pack<BK, true>(s, p, o, l, alpha);
   }
 
-  bf16* obase = out + b * ob + h * oh;
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
 #pragma unroll
-  for (int dn = 0; dn < ND; ++dn) {
-    const int c = dn * 8 + tig * 2;
-    if (c < D) {
-      if (row0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)row0 * os + c) =
-            __floats2bfloat162_rn(o[dn][0] * inv0, o[dn][1] * inv0);
-      if (row1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(obase + (long long)row1 * os + c) =
-            __floats2bfloat162_rn(o[dn][2] * inv1, o[dn][3] * inv1);
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (tig == 0) {
-    if (row0 < Sq) lse[(long long)bh * Sq + row0] = (m0 + log2f(l0)) / kLog2e;
-    if (row1 < Sq) lse[(long long)bh * Sq + row1] = (m1 + log2f(l1)) / kLog2e;
-  }
+  store_rows(o, l, m, out + b * ob + h * oh, os, lse + (long long)bh * Sq, q0, 256 * cw,
+             C::D, Sq, cw == 0);
 }
 
-template <int DP>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, void* lse,
-                       int B, int H, int Sq, int Sk, int D, const long long* st,
-                       float scale_log2, cudaStream_t stream) {
-  dim3 grid((Sq + 16 * kWarps - 1) / (16 * kWarps), B * H);
-  flash_fwd_mma_kernel<DP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), static_cast<float*>(lse),
-      H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale_log2);
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                        int H, int Sq, int Sk, const long long* st, float scale_log2,
+                        cudaStream_t stream) {
+  using C = WideCfg;
+  if (Sq % C::BQ != 0 || Sk % C::BK != 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_bshd_map(&tq, q, B, Sq, H, C::D, st[0], st[1], st[2], W, C::BQ);
+  if (err == cudaSuccess)
+    err = encode_bshd_map(&tk, k, B, Sk, H, C::D, st[3], st[4], st[5], W, C::BK);
+  if (err == cudaSuccess)
+    err = encode_bshd_map(&tv, v, B, Sk, H, C::D, st[6], st[7], st[8], W, C::BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::BYTES);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wide<<<dim3(Sq / C::BQ, B * H), C::THREADS, C::BYTES, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), H, Sq, Sk, st[9], st[10],
+      st[11], scale_log2);
   return cudaGetLastError();
 }
 
@@ -439,20 +558,18 @@ extern "C" int ctrlora_flash_fwd(const void* q, const void* k, const void* v, vo
   const float sl2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (D % 8 != 0 || D <= 0) {
-    err = cudaErrorInvalidValue;
-  } else if (D <= 48) {
-    err = launch_mma<48>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
-  } else if (D <= 64) {
-    err = launch_mma<64>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
-  } else if (D <= 80) {
-    err = launch_mma<80>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
-  } else if (D <= 128) {
-    err = launch_mma<128>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
-  } else if (D <= 160) {
-    err = launch_mma<160>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
-  } else if (D <= 512) {
-    err = launch<512, 32, 32>(q, k, v, out, lse, B, H, Sq, Sk, D, st, sl2, s);
+  if (D == 40) {
+    err = launch_wgmma<40>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 64) {
+    err = launch_wgmma<64>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 80) {
+    err = launch_wgmma<80>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 128) {
+    err = launch_wgmma<128>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 160) {
+    err = launch_wgmma<160>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 512) {
+    err = launch_wide(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,26 +1,31 @@
 """Unmasked softmax attention: CUDA flash-attention forward and backward,
 their plain versions, and the autograd Functions that join them.
 
-Kernel B of the port (``csrc/flash_attention.cu``, CUDA C++ for sm_90a)
-replaces the TPU forward kernels ``ctrlora_tpu/ops/flash_attention.py``
-``_fwd_kernel_packed_qkv`` (UNet/ControlNet self-attention read straight
-from the fused [B, S, 3*H*D] projection), ``_fwd_kernel_packed`` (separate
-q, k, v in the projections' [B, S, H, D] layout: the LoRA control branch)
-and ``_fwd_kernel`` (the VAE's [B, H, S, D] single-head attention). The
-backward kernels (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel``. Kernel B6 (``csrc/flash_attention_hpack2.cu``,
+Kernel B of the port (``csrc/flash_attention.cu``, wgmma on TMA-loaded
+tiles for sm_90a: ``flash_fwd_wgmma`` at D = 40/64/80/128/160,
+``flash_fwd_wide`` at D = 512) replaces the TPU forward kernels
+``ctrlora_tpu/ops/flash_attention.py`` ``_fwd_kernel_packed_qkv`` (UNet/
+ControlNet self-attention read straight from the fused [B, S, 3*H*D]
+projection), ``_fwd_kernel_packed`` (separate q, k, v in the projections'
+[B, S, H, D] layout: the LoRA control branch) and ``_fwd_kernel`` (the VAE's
+[B, H, S, D] single-head attention). The backward kernels
+(``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``. Kernel B6 (``csrc/flash_attention_hpack2.cu``,
 :func:`flash_attention_hpack2`) replaces ``_fwd_kernel_hpack2``, the
 head-pair forward with the skip-max softmax, which the BSHD dispatcher takes
 under ``CTRLORA_KERNELS=hpack=2`` where the heads pair and 2*D <= 128. The
 source notes in the .cu files say what bounds them and how they are built.
-Every other entry launches the same forward kernel with its own strides, and
-all share the one pair of backward kernels; each wrapper counts its own
-launches.
+Every other entry launches the same forward kernel with its own strides
+(computed from the shapes, not from views), and all share the one pair of
+backward kernels; each wrapper counts its own launches. Head dims and
+sequence lengths the forward kernel has no instantiation for raise on CUDA
+tensors (:func:`forward_tiles`).
 
 Each forward entry is a ``torch.autograd.Function`` saving (q, k, v, out,
 lse); its backward computes Delta = rowsum(dO * O) in fp32 and launches the
 dQ and dK/dV kernels (on CPU tensors: their plain versions), so a kernel
-output carries its gradient like any torch op.
+output carries its gradient like any torch op. :func:`flash_forward_work`, :func:`flash_bwd_dq_work` and
+:func:`flash_bwd_dkv_work` count the flops and bytes each function needs.
 
 Dispatch follows the JAX package (``dot_product_attention``,
 ``dot_product_attention_bshd``, ``dot_product_attention_bshd_qkv``): the
@@ -54,6 +59,27 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     weights = torch.softmax(logits, dim=-1)
     out = torch.matmul(weights.to(v.dtype), v).to(q.dtype)
     return out, torch.logsumexp(logits, dim=-1)
+
+
+def flash_forward_work(b: int, h: int, sq: int, sk: int, d: int, itemsize: int = 2) -> tuple:
+    """(flops, bytes) of the forward: the two products, 4*B*H*Sq*Sk*D;
+    q, k, v read once, out and the fp32 lse written once."""
+    return (4 * b * h * sq * sk * d,
+            b * h * ((2 * sq + 2 * sk) * d * itemsize + sq * 4))
+
+
+def flash_bwd_dq_work(b: int, h: int, sq: int, sk: int, d: int, itemsize: int = 2) -> tuple:
+    """(flops, bytes) of dQ: S = QK^T, dP = dO V^T and dS K, 6*B*H*Sq*Sk*D;
+    q, k, v, dO, lse and Delta read once, dQ written once."""
+    return (6 * b * h * sq * sk * d,
+            b * h * ((3 * sq + 2 * sk) * d * itemsize + 2 * sq * 4))
+
+
+def flash_bwd_dkv_work(b: int, h: int, sq: int, sk: int, d: int, itemsize: int = 2) -> tuple:
+    """(flops, bytes) of dK/dV: S, dP, P^T dO and dS^T Q, 8*B*H*Sq*Sk*D;
+    q, k, v, dO, lse and Delta read once, dK and dV written once."""
+    return (8 * b * h * sq * sk * d,
+            b * h * ((2 * sq + 4 * sk) * d * itemsize + 2 * sq * 4))
 
 
 def _bhsd(t: torch.Tensor) -> torch.Tensor:
@@ -230,30 +256,80 @@ def _check_aligned(what: str, ptrs, strides, d: int) -> None:
                          f"{[p % 16 for p in ptrs]}, strides {list(strides)})")
 
 
-def _forward(q, k, v, out, scale, what) -> torch.Tensor:
-    """The forward kernel over [B, H, S, D] views (any strides with a unit
-    last stride), writing `out` (a view of the same shape as q); returns
-    lse [B, H, Sq]. A BSHD or fused-qkv caller passes transposed views, so
-    no operand is copied."""
-    b, h, sq, d = q.shape
-    if (q.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in (q, k, v))
-            or any(t.stride(-1) != 1 for t in (q, k, v))):
-        raise ValueError(f"{what}: needs bf16 CUDA tensors with unit last stride")
-    strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)]
-    _check_aligned(what, [t.data_ptr() for t in (q, k, v)], strides[:9], d)
-    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+FORWARD_HEAD_DIMS = (40, 64, 80, 128, 160, 512)  # the forward kernel's instantiations
+
+
+def forward_tiles(d: int) -> Optional[Tuple[int, int]]:
+    """(query rows, keys) that Sq and Sk must be multiples of for the
+    forward kernel at head dim d, or None where it has no instantiation:
+    D = 40/80/160 (the UNet/ControlNet sites), 64, 128 and 512 (the VAE)."""
+    if d not in FORWARD_HEAD_DIMS:
+        return None
+    return (64, 32) if d == 512 else (128, 128)
+
+
+def _launch_forward(what, ptrs, shape, strides, scale, device) -> torch.Tensor:
+    """The forward kernel on raw operands: `ptrs` of q, k, v and out, `shape`
+    (B, H, Sq, Sk, D), `strides` the (batch, sequence, head) strides of q,
+    k, v and out in elements. Returns lse [B, H, Sq]. The callers compute
+    strides from shapes where they can: views cost more host time than the
+    kernel takes at the small sites."""
+    b, h, sq, sk, d = shape
+    tiles = forward_tiles(d)
+    if tiles is None or sq % tiles[0] or sk % tiles[1]:
+        raise ValueError(f"{what}: the forward kernel takes D in {FORWARD_HEAD_DIMS} with Sq, "
+                         f"Sk multiples of 128 (of 64, 32 at D = 512); got D={d}, Sq={sq}, "
+                         f"Sk={sk}")
+    _check_aligned(what, ptrs[:3], strides[:9], d)
+    lse = torch.empty((b, h, sq), device=device, dtype=torch.float32)
     code = _build.cuda_lib().ctrlora_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, h, sq, k.shape[2], d, *strides, float(scale), _build.stream_ptr(q.device))
+        *ptrs, lse.data_ptr(), b, h, sq, sk, d, *strides, float(scale), _build.stream_ptr(device))
     _build.check(code, what)
     return lse
 
 
+def _check_operands(what: str, ts) -> None:
+    if (ts[0].device.type != "cuda"
+            or any(t.dtype != torch.bfloat16 or t.stride(-1) != 1 for t in ts)):
+        raise ValueError(f"{what}: needs bf16 CUDA tensors with unit last stride")
+
+
+def _forward(q, k, v, out, scale, what) -> torch.Tensor:
+    """The forward kernel over [B, H, S, D] views (any strides with a unit
+    last stride), writing `out` (a view of the same shape as q); returns
+    lse [B, H, Sq]."""
+    _check_operands(what, (q, k, v))
+    b, h, sq, d = q.shape
+    return _launch_forward(what, [t.data_ptr() for t in (q, k, v, out)],
+                           (b, h, sq, k.shape[2], d),
+                           [t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)], scale,
+                           q.device)
+
+
 def _forward_bshd(q, k, v, scale, what):
     """The forward kernel over [B, S, H, D] views -> (out [B, S, H*D], lse)."""
+    _check_operands(what, (q, k, v))
     b, s, h, d = q.shape
     out = torch.empty((b, s, h * d), device=q.device, dtype=q.dtype)
-    lse = _forward(_bhsd(q), _bhsd(k), _bhsd(v), _bhsd(out.view(b, s, h, d)), scale, what)
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)] + [s * h * d, h * d, d]
+    lse = _launch_forward(what, [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()],
+                          (b, h, s, k.shape[1], d), strides, scale, q.device)
+    return out, lse
+
+
+def _forward_qkv(qkv, heads, dim_head, scale):
+    """The forward kernel off a contiguous [B, S, 3*H*D] projection: q, k and
+    v are lane offsets 0, H*D and 2*H*D of each row -> (out [B, S, H*D],
+    lse)."""
+    what = "flash_attention_qkv"
+    _check_operands(what, (qkv,))
+    b, s, width = qkv.shape
+    hd = heads * dim_head
+    out = torch.empty((b, s, hd), device=qkv.device, dtype=qkv.dtype)
+    ptr, size = qkv.data_ptr(), qkv.element_size()
+    strides = [s * width, width, dim_head] * 3 + [s * hd, hd, dim_head]
+    lse = _launch_forward(what, [ptr, ptr + hd * size, ptr + 2 * hd * size, out.data_ptr()],
+                          (b, heads, s, s, dim_head), strides, scale, qkv.device)
     return out, lse
 
 
@@ -350,8 +426,7 @@ class _FlashQKV(torch.autograd.Function):
         if qkv.device.type == "cpu":
             out, lse = flash_attention_qkv_plain(qkv, heads, dim_head, scale)
         else:
-            out, lse = _forward_bshd(*_split_qkv(qkv, heads, dim_head), scale,
-                                     "flash_attention_qkv")
+            out, lse = _forward_qkv(qkv, heads, dim_head, scale)
             flash_attention_qkv.launches += 1
         ctx.save_for_backward(qkv, out, lse)
         ctx.args = (heads, dim_head, scale)

@@ -30,6 +30,15 @@ def geglu_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return F.linear(a * F.gelu(g), w2.to(x.dtype), b2.to(x.dtype))
 
 
+def geglu_ffn_work(rows: int, c: int, f: int, itemsize: int = 2,
+                   weight_itemsize: int = 2) -> tuple:
+    """(flops, bytes) the function needs: both projections (2*rows*C*2F and
+    2*rows*F*C); x and the weights and biases read once, y written once."""
+    flops = 2 * rows * c * 2 * f + 2 * rows * f * c
+    weights = (2 * f * c + 2 * f + c * f + c) * weight_itemsize
+    return flops, 2 * rows * c * itemsize + weights
+
+
 def geglu_shapes_ok(x, w1, b1, w2, b2) -> bool:
     """Static dispatch rule: the kernel serves the SD1.5 widths with F a
     multiple of its 64-wide chunk; other shapes take the plain version."""

@@ -68,6 +68,15 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def group_norm_work(b: int, hw: int, c: int, itemsize: int = 2,
+                    row_rows: int = 0) -> tuple:
+    """(flops, bytes) of GroupNorm over x [B, HW, C]: x read once and y
+    written once, fp32 scale and bias read once, and `row_rows` added rows
+    [n, C] in x's dtype. Its arithmetic is a few operations per element, far
+    below the card's ridge, so it is counted as bytes only (flops 0)."""
+    return 0, 2 * b * hw * c * itemsize + 2 * c * 4 + row_rows * c * itemsize
+
+
 @functools.cache
 def _kernels():
     global tl

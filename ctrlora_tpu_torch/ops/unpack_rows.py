@@ -38,6 +38,12 @@ def unpack_rows_plain(block: torch.Tensor, sizes: Sequence[int]) -> Tuple[torch.
     return tuple(block[i, :c].reshape(1, c) for i, c in enumerate(sizes))
 
 
+def unpack_rows_work(sizes: Sequence[int], itemsize: int = 2) -> tuple:
+    """(flops, bytes): no arithmetic; each row's used prefix read once and
+    written once."""
+    return 0, 2 * sum(sizes) * itemsize
+
+
 @functools.cache
 def _kernel():
     global tl

@@ -49,7 +49,7 @@ class CtrLoraPipeline:
     holds the unfused LoRA control tree (training) instead of the fused one
     (serving)."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu", fuse_lora: bool = True):
+    def __init__(self, cfg: ModelConfig, device="cuda", fuse_lora: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
         with self.device:

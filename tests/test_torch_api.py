@@ -123,7 +123,7 @@ def test_loader_matches_jax(ref_files):
     sd_file, cn_file, lora_files, _ = ref_files
     jparams = jax_loading.load_ctrlora(JaxPipeline(jax_tiny(n_loras=2, switchable_banks=True)),
                                        sd_file, cn_file, lora_files)
-    states = loading.load_ctrlora(CtrLoraPipeline(_port_tiny(), fuse_lora=False), sd_file,
+    states = loading.load_ctrlora(CtrLoraPipeline(_port_tiny(), "cpu", fuse_lora=False), sd_file,
                                   cn_file, lora_files)
     for name in ("unet", "control", "vae", "clip"):
         want = convert.params_from_jax(jax.tree_util.tree_map(np.asarray,
@@ -139,7 +139,7 @@ def test_loader_matches_jax(ref_files):
 
 def test_loaded_pipeline_runs_both_slots(ref_files):
     sd_file, cn_file, lora_files, _ = ref_files
-    pipe = CtrLoraPipeline(_port_tiny(), fuse_lora=False)
+    pipe = CtrLoraPipeline(_port_tiny(), "cpu", fuse_lora=False)
     pipe.load_state_dicts(*loading.load_ctrlora(pipe, sd_file, cn_file, lora_files))
     hint, t, ctx = torch.ones(1, 16, 16, 4), torch.tensor([5]), torch.ones(1, 16, 64)
     taps = [pipe.control(hint, t, ctx, lora_idx=i) for i in (0, 1)]
@@ -161,7 +161,7 @@ def test_lora_file_without_lora_keys_raises(ref_files):
     bogus = tmp / "bogus.ckpt"
     torch.save({"control_model.time_embed.0.weight": torch.zeros(1)}, bogus)
     with pytest.raises(ValueError, match="no LoRA keys"):
-        loading.load_ctrlora(CtrLoraPipeline(_port_tiny(), fuse_lora=False), None, None,
+        loading.load_ctrlora(CtrLoraPipeline(_port_tiny(), "cpu", fuse_lora=False), None, None,
                              [str(bogus), lora_files[1]])
 
 
@@ -193,7 +193,7 @@ def _api_cfg():
 def api_files(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("api_ckpts")
     cfg = _api_cfg()
-    src = CtrLoraPipeline(cfg, fuse_lora=False)
+    src = CtrLoraPipeline(cfg, "cpu", fuse_lora=False)
     rng = np.random.default_rng(1)
     for m in src.modules():
         for name, p in m.named_parameters():
@@ -230,7 +230,7 @@ def api_files(tmp_path_factory):
 
 def test_export_then_load_round_trips(api_files):
     cfg, src, paths = api_files
-    states = loading.load_ctrlora(CtrLoraPipeline(cfg, fuse_lora=False), paths["sd"],
+    states = loading.load_ctrlora(CtrLoraPipeline(cfg, "cpu", fuse_lora=False), paths["sd"],
                                   paths["cn"], paths["loras"])
     for name, module in zip(("unet", "control", "vae", "clip"), src.modules()):
         want = module.state_dict()
@@ -337,7 +337,7 @@ def two_slot():
 
 
 def _port_pipe(params, fuse_lora):
-    pipe = CtrLoraPipeline(_port_tiny(), fuse_lora=fuse_lora)
+    pipe = CtrLoraPipeline(_port_tiny(), "cpu", fuse_lora=fuse_lora)
     unfused = convert.params_from_jax(params.control)
     control = (lora_fuse.fuse_control_tree(pipe.control, unfused, 0, pipe.cfg.control.lora)
                if fuse_lora else unfused)

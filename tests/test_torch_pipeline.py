@@ -4,6 +4,8 @@ from the same x_T, decoding. fp32 on the CPU; tolerance rtol=2e-3,
 atol=2e-4 as tests/test_parity.py.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +52,7 @@ def both():
     params = type(params)(*(_bump(p, 10 + i) for i, p in enumerate(params)))
 
     pcfg = configs.tiny_test_config(n_loras=1, switchable_banks=True)
-    ppipe = CtrLoraPipeline(pcfg)
+    ppipe = CtrLoraPipeline(pcfg, device="cpu")
     fused = lora_fuse.fuse_control_tree(ppipe.control, convert.params_from_jax(params.control),
                                         0, pcfg.control.lora)
     ppipe.load_state_dicts(convert.params_from_jax(params.unet), fused,
@@ -105,3 +107,17 @@ def test_ddim_slice_matches_jax(both):
     z0 = ddim_sample(ppipe, ctx, unc, None, (1, 8, 8, 4),
                      DDIMConfig(steps=3, guidance_scale=7.5), x_T=torch.from_numpy(x_T))
     assert (z0 - z).abs().max() > 1e-3
+
+
+def test_pipeline_defaults_to_the_card_and_cpu_is_explicit(both):
+    """The entry point runs on the card unless the caller asks for the CPU;
+    a pipeline built with device="cpu" keeps every weight there and still
+    encodes the hint as the JAX package does."""
+    default = inspect.signature(CtrLoraPipeline.__init__).parameters["device"].default
+    assert default == "cuda"
+    _, jpipe, params, ppipe = both
+    assert ppipe.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for m in ppipe.modules() for p in m.parameters())
+    hint = np.random.default_rng(3).uniform(-1, 1, size=(1, 16, 16, 3)).astype(np.float32)
+    _close(ppipe.encode_first_stage(torch.from_numpy(hint)).numpy(),
+           jpipe.encode_first_stage(params, hint))

@@ -76,7 +76,7 @@ def _flat_mask(params_tree, mask_tree):
 
 
 def _port_pipeline(params):
-    pipe = CtrLoraPipeline(configs.tiny_test_config(n_loras=1), fuse_lora=False)
+    pipe = CtrLoraPipeline(configs.tiny_test_config(n_loras=1), "cpu", fuse_lora=False)
     pipe.load_state_dicts(*(convert.params_from_jax(p) for p in params))
     return pipe
 
@@ -173,7 +173,7 @@ def test_adamw_step_matches_jax_optimizer(jax_side):
 def _tiny_trainer(tmp_path, **kw):
     gen = torch.Generator().manual_seed(3)
     cfg = configs.tiny_test_config(n_loras=1)
-    pipe = CtrLoraPipeline(cfg, fuse_lora=False)
+    pipe = CtrLoraPipeline(cfg, "cpu", fuse_lora=False)
     with torch.no_grad():
         for name, p in pipe.control.named_parameters():
             if "lora_up" in name or name.startswith("zero_"):
