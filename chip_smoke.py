@@ -13,7 +13,8 @@ the script exits non-zero:
 3. each hand-written kernel against its plain PyTorch version at the
    paths' shapes, in bf16: max error (relative L2 for gradients) and
    median time of both (for A2 and B6 also of the kernel each stands
-   beside: A, and B's BSHD and fused-qkv entries);
+   beside: A, and B's BSHD and fused-qkv entries; for C also its two
+   launches alone, up_ms and down_ms);
 4. the sampling slice at SD1.5 width: ctrlora_inference_config(1, 128) with
    seeded random weights, one rank-128 LoRA fused, bf16; 4 prompts of 77
    token ids, a 512x512 hint, DDIM at CFG 7.5 and eta 0, decode; counts the
@@ -232,6 +233,19 @@ def time_ms(fn, iters=10):
     return times[len(times) // 2]
 
 
+def host_us(fn, calls=200):
+    """Host microseconds per call of fn() at a shape whose device work is
+    shorter than its launch: the time to enqueue, not to run."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
 def compare(got, want, rtol=RTOL, atol=ATOL):
     """Max abs error; raises unless |got - want| <= atol + rtol |want|."""
     g, w = got.float(), want.float()
@@ -441,13 +455,30 @@ def kernel_checks(dev, cfg):
     views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
     bwd_case(f"qkv [4, {s}, 3*{h}*{d}]", *views, rn(4, s, h, d).transpose(1, 2))
 
-    for rows, c in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280)):
+    # C at the four sampling sites (the CFG batch of 8), then the finetune
+    # step's 64^2 site (batch 4); beside each, its two launches alone
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, c in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280),
+                    (4 * 4096, 320)):
         f = 4 * c
-        args = (rn(8, rows // 8, c), rn(2 * f, c, std=c ** -0.5), rn(2 * f, std=0.1),
-                rn(c, f, std=f ** -0.5), rn(c, std=0.1))
+        x, w1, b1, w2, b2 = args = (rn(rows, c), rn(2 * f, c, std=c ** -0.5), rn(2 * f, std=0.1),
+                                    rn(c, f, std=f ** -0.5), rn(c, std=0.1))
+        plan = geglu_ops.geglu_plan(rows, c, f, sms)
+        h, y = torch.empty((rows, f), dtype=torch.bfloat16, device=dev), torch.empty_like(x)
         record("geglu_ffn", f"rows={rows} C={c} F={f}", geglu_ops.geglu_ffn(*args),
                geglu_ops.geglu_ffn_plain(*args), lambda: geglu_ops.geglu_ffn(*args),
-               lambda: geglu_ops.geglu_ffn_plain(*args), geglu_ops.geglu_ffn_work(rows, c, f))
+               lambda: geglu_ops.geglu_ffn_plain(*args), geglu_ops.geglu_ffn_work(rows, c, f),
+               up_ms=time_ms(lambda: geglu_ops.launch_up(x, w1, b1, h, plan)),
+               down_ms=time_ms(lambda: geglu_ops.launch_down(h, w2, b2, y, plan)),
+               plan=dataclasses.asdict(plan))
+        del x, w1, b1, w2, b2, args, h, y
+    # the wrapper's host time per call (128 rows: the launches take longer
+    # to issue than to run), kernels and plain version
+    args = (rn(128, 320), rn(2560, 320, std=320 ** -0.5), rn(2560, std=0.1),
+            rn(320, 1280, std=1280 ** -0.5), rn(320, std=0.1))
+    log("kernels", kernel="geglu_ffn", shape="rows=128 C=320 F=1280, host time",
+        host_us_per_call=host_us(lambda: geglu_ops.geglu_ffn(*args)),
+        plain_host_us_per_call=host_us(lambda: geglu_ops.geglu_ffn_plain(*args)))
 
     sizes = emb_row_sizes(cfg)
     block = rn(len(sizes), max(sizes))
@@ -1014,6 +1045,11 @@ def main(argv) -> int:
               if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     log("build", cuda_library_s=time.perf_counter() - t0, nvcc_flags=" ".join(_build.NVCC_FLAGS),
         ptxas_spills=spills, note="Triton kernels compile at their first launch (phase 3)")
+    # kernel C's instantiations run on wgmma (HGMMA) and nothing older (HMMA)
+    sass = _build.sass_opcodes(("HGMMA", "HMMA"), "geglu")
+    log("build", geglu_sass=sass)
+    if not sass or any(n["HGMMA"] == 0 or n["HMMA"] for n in sass.values()):
+        raise AssertionError(f"GEGLU kernels without HGMMA or with HMMA: {sass}")
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)

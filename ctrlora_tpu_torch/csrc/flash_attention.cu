@@ -90,11 +90,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int W = 64;                           // box width: 128-byte rows, 128B swizzle
 constexpr int kBarExchange = 1;  // the named barrier of the D = 512 S exchange
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
 // Thread 0 initialises the barriers: q_full, then full[] and empty[] of
 // the ST stages (empty[] completes on the `consumers` threads' arrivals).
 template <int ST>

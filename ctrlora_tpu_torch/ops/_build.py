@@ -46,8 +46,11 @@ _ENTRIES = {
     # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides of q, k, v,
     # dout, dk, dv as one int64[18], scale, stream
     "ctrlora_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_STRIDES, _F, _P],
-    # x, w1 [2F, C], b1, w2 [C, F], b2, out, rows, C, F, stream
-    "ctrlora_geglu_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w1 [2F, C], b1, h [rows, F], rows, C, F, up tile width, grid, stream
+    "ctrlora_geglu_up": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # h, w2 [C, F], b2, y, split workspace, split counters, rows, C, F,
+    # split, grid, stream
+    "ctrlora_geglu_down": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -109,6 +112,26 @@ def ptxas_report() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def sass_opcodes(opcodes, name_filter: str = "") -> dict:
+    """Per kernel of the built library whose mangled name holds
+    `name_filter`: how many instructions of each of `opcodes` its SASS has
+    (cuobjdump -sass; needs the library built)."""
+    so = BUILD_DIR / f"libctrlora_kernels_{source_hash()}.so"
+    sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            current = counts.setdefault(name, dict.fromkeys(opcodes, 0)) \
+                if name_filter in name else None
+        elif current is not None:
+            words = line.replace(";", " ").split()
+            for op in opcodes:
+                current[op] += any(w == op or w.startswith(op + ".") for w in words)
+    return counts
+
+
 def cuda_lib() -> ctypes.CDLL:
     """The kernel library, built on first call from the sources in csrc/."""
     global _lib
@@ -134,6 +157,8 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of `device`'s current CUDA stream (torch's own binding,
+    which builds no torch.cuda.Stream object: host time on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -44,10 +44,13 @@ ABLATIONS = {
 }
 
 
-def build(name: str, edits) -> ctypes.CDLL:
+def build(name: str, edits, source: str = "flash_attention.cu",
+          entries=("ctrlora_flash_fwd",)) -> ctypes.CDLL:
+    """`source` with `edits` applied, built alone into _build/ablate/, with
+    the argument types of its C `entries` set."""
     from ctrlora_tpu_torch.ops import _build
 
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    src = (_build.CSRC / source).read_text()
     for old, new in edits:
         if old not in src:
             raise RuntimeError(f"ablation {name}: the source no longer holds {old.strip()!r}")
@@ -61,8 +64,9 @@ def build(name: str, edits) -> ctypes.CDLL:
     if res.returncode:
         raise RuntimeError(f"ablation {name}: nvcc failed\n{res.stdout}\n{res.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.ctrlora_flash_fwd.argtypes = _build._ENTRIES["ctrlora_flash_fwd"]
-    lib.ctrlora_flash_fwd.restype = ctypes.c_int
+    for entry in entries:
+        getattr(lib, entry).argtypes = _build._ENTRIES[entry]
+        getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 

@@ -28,7 +28,8 @@ def test_port_modules_cover_the_slice():
                 "models.vae", "models.clip", "sampling.common", "sampling.ddim",
                 "training.losses", "training.train_state", "training.step",
                 "training.trainer", "api", "ops.kernel_flags", "utils.tokenizer",
-                "utils.image", "utils.ckpt_torch", "utils.loading"):
+                "utils.image", "utils.ckpt_torch", "utils.loading", "tools.ablate_flash",
+                "tools.ablate_geglu"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
