@@ -14,12 +14,16 @@ the script exits non-zero:
    paths' shapes, in bf16: max error (relative L2 for gradients) and
    median time of both (for A2 and B6 also of the kernel each stands
    beside: A, and B's BSHD and fused-qkv entries; for C also its two
-   launches alone, up_ms and down_ms);
+   launches alone, up_ms and down_ms; for B4/B5 also the time per call
+   of 20 calls queued back to back, b2b_ms, and two launches bit-equal);
 4. the sampling slice at SD1.5 width: ctrlora_inference_config(1, 128) with
    seeded random weights, one rank-128 LoRA fused, bf16; 4 prompts of 77
    token ids, a 512x512 hint, DDIM at CFG 7.5 and eta 0, decode; counts the
    kernel launches of that run and compares one UNet+ControlNet evaluation
    with the kernels against the same evaluation with the plain versions;
+   then one fp32 copy of the VAE decodes a 64x64 latent through the plain
+   attention (the dispatch rules admit bf16 only) within relative L2 5e-2
+   of the bf16 VAE's decode, which launches the kernel;
 5. the tiny test configuration sampled on the GPU against the same run on
    the CPU; then the tiny two-LoRA API path from tiny reference-format
    files, GPU against CPU;
@@ -58,11 +62,13 @@ these.
 
     python3 chip_smoke.py --profile N
 
-also profiles N DDIM steps of phase 4 with torch.profiler (device ms per
-step by kernel, device busy share).
+also profiles N DDIM steps of phase 4 and one finetune step of phase 6
+with torch.profiler (device ms per step by kernel, launches, device busy
+share, and the flash backward's share of the step).
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -82,6 +88,7 @@ from ctrlora_tpu_torch import api as api_mod
 from ctrlora_tpu_torch import configs, lora_fuse
 from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32
 from ctrlora_tpu_torch.models.unet import decoder_plan, encoder_plan
+from ctrlora_tpu_torch.models.vae import AutoencoderKL
 from ctrlora_tpu_torch.ops import _build
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
@@ -233,6 +240,23 @@ def time_ms(fn, iters=10):
     return times[len(times) // 2]
 
 
+def time_b2b(fn, calls=20):
+    """Device ms per call of fn(), `calls` calls queued behind a sleep kernel
+    between one pair of CUDA events: the launches queue up while the card
+    sleeps, so the host's time to issue them (which per-call events read
+    for kernels under ~0.15 ms) stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms of the card's clock
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / calls
+
+
 def host_us(fn, calls=200):
     """Host microseconds per call of fn() at a shape whose device work is
     shorter than its launch: the time to enqueue, not to run."""
@@ -311,22 +335,24 @@ def kernel_checks(dev, cfg):
         log("kernels", kernel=name, shape=label, **row, **beside)
         keep(name, {**row, **beside}, ("max_abs_err",))
 
-    def record_grad(name, label, got, want, fn_k, fn_p, work, library=None):
-        """Gradients: relative L2 per output <= GRAD_REL_TOL, finite."""
+    def record_grad(name, label, got, want, fn_k, fn_p, work, library=None, **beside):
+        """Gradients: relative L2 per output <= GRAD_REL_TOL, and within
+        RTOL/ATOL elementwise, finite."""
         rels, err = [], 0.0
         for g_, w_ in zip(got, want):
             g_, w_ = g_.float(), w_.float()
             if not torch.isfinite(g_).all():
                 raise AssertionError(f"{name} {label}: gradient is not finite")
             rels.append(((g_ - w_).norm() / w_.norm()).item())
-            err = max(err, (g_ - w_).abs().max().item())
+            err = max(err, compare(g_, w_))
         if max(rels) > GRAD_REL_TOL:
             raise AssertionError(f"{name} {label}: relative L2 {rels} > {GRAD_REL_TOL}")
         ms, pms = time_ms(fn_k), time_ms(fn_p)
         row = {"max_abs_err": err, "rel_l2": max(rels), "ms": ms, "plain_ms": pms,
                **yardsticks(work, library, ms)}
-        log("kernels", kernel=name, shape=label, **{**row, "rel_l2": rels}, bound=GRAD_REL_TOL)
-        keep(name, row, ("max_abs_err", "rel_l2"))
+        log("kernels", kernel=name, shape=label, **{**row, "rel_l2": rels}, bound=GRAD_REL_TOL,
+            **beside)
+        keep(name, {**row, **beside}, ("max_abs_err", "rel_l2"))
 
     sdpa = lambda *qkv: ("F.scaled_dot_product_attention",
                          lambda: F.scaled_dot_product_attention(*qkv))
@@ -427,6 +453,11 @@ def kernel_checks(dev, cfg):
         args = (q, k, v, lse, dout, delta, sc)
         dq = fa_ops.flash_attention_bwd_dq(*args)
         dk, dv = fa_ops.flash_attention_bwd_dkv(*args)
+        # no atomics: a second launch gives the same bits
+        again = (fa_ops.flash_attention_bwd_dq(*args), *fa_ops.flash_attention_bwd_dkv(*args))
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"B4/B5 {label}: two launches differ")
+        del again
         pdq = fa_ops.flash_attention_bwd_dq_plain(*args)
         pdk, pdv = fa_ops.flash_attention_bwd_dkv_plain(*args)
         # the yardstick of both kernels: SDPA's backward (dq, dk and dv in
@@ -436,14 +467,13 @@ def kernel_checks(dev, cfg):
         library = ("autograd.grad of F.scaled_dot_product_attention (dq, dk, dv)",
                    lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
         b, h, s, d = q.shape
-        record_grad("flash_attention_bwd_dq", label, [dq], [pdq],
-                    lambda: fa_ops.flash_attention_bwd_dq(*args),
-                    lambda: fa_ops.flash_attention_bwd_dq_plain(*args),
-                    fa_ops.flash_bwd_dq_work(b, h, s, s, d), library)
-        record_grad("flash_attention_bwd_dkv", label, [dk, dv], [pdk, pdv],
-                    lambda: fa_ops.flash_attention_bwd_dkv(*args),
-                    lambda: fa_ops.flash_attention_bwd_dkv_plain(*args),
-                    fa_ops.flash_bwd_dkv_work(b, h, s, s, d), library)
+        for name, got, want, work in (
+                ("flash_attention_bwd_dq", [dq], [pdq], fa_ops.flash_bwd_dq_work),
+                ("flash_attention_bwd_dkv", [dk, dv], [pdk, pdv], fa_ops.flash_bwd_dkv_work)):
+            wrapper = getattr(fa_ops, name)
+            record_grad(name, label, got, want, lambda: wrapper(*args),
+                        lambda: getattr(fa_ops, name + "_plain")(*args), work(b, h, s, s, d),
+                        library, bit_equal_runs=True, b2b_ms=time_b2b(lambda: wrapper(*args)))
         del lib_out, leaves
 
     for s, d in ((4096, 40), (1024, 80), (256, 160)):
@@ -573,19 +603,14 @@ def sample(pipe, ids, uncond, hint, x_T, steps):
     return img, {"prep_s": t[1] - t[0], "ddim_s": t[2] - t[1], "decode_s": t[3] - t[2]}
 
 
-def profile_ddim(pipe, ids, uncond, hint, x_T, steps):
-    """torch.profiler over `steps` DDIM steps of the sampling slice: device
-    time per step by kernel (top 15), and the device's busy share of the
-    window's wall time."""
+def profile_window(path, run, steps):
+    """torch.profiler over run(), which takes `steps` steps of `path`: device
+    time per step by kernel (top 15), launches, the flash backward's device
+    ms and launches (B4/B5 kernels, `flash_bwd` in their names), and the
+    device's busy share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
-    hz = pipe.encode_first_stage(hint)
-    run = lambda: ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape,
-                              DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
-    run()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -594,12 +619,53 @@ def profile_ddim(pipe, ids, uncond, hint, x_T, steps):
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in events) / 1e3
+    bwd = [e for e in events if "flash_bwd" in e.key]
     top = sorted(events, key=dev_us, reverse=True)[:15]
-    log("profile", steps=steps, wall_ms_per_step=wall * 1e3 / steps,
+    log("profile", path=path, steps=steps, wall_ms_per_step=wall * 1e3 / steps,
         device_ms_per_step=busy / steps, device_busy_share=busy / (wall * 1e3),
         launches_per_step=sum(e.count for e in events) / steps,
+        flash_bwd_ms_per_step=sum(dev_us(e) for e in bwd) / 1e3 / steps,
+        flash_bwd_launches_per_step=sum(e.count for e in bwd) / steps,
+        flash_bwd=[{"kernel": e.key[:60], "calls_per_step": e.count / steps,
+                    "ms_per_step": dev_us(e) / 1e3 / steps} for e in bwd],
         top=[{"kernel": e.key[:90], "calls_per_step": e.count / steps,
               "ms_per_step": dev_us(e) / 1e3 / steps} for e in top])
+
+
+def profile_ddim(pipe, ids, uncond, hint, x_T, steps):
+    """`steps` DDIM steps of the sampling slice under the profiler."""
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    hz = pipe.encode_first_stage(hint)
+    run = lambda: ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape,
+                              DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
+    run()
+    torch.cuda.synchronize()
+    profile_window("ddim", run, steps)
+
+
+def fp32_vae_decode(pipe, cfg, z):
+    """An fp32 copy of the pipeline's VAE decodes latent z: the dispatch
+    rules send its 64^2 mid-block attention (S = 4096, D = 512) to the plain
+    version, where the bf16 VAE launches the kernel. Finite, and within
+    relative L2 MODEL_REL_TOL of the bf16 decode (bf16 rounding through the
+    decoder's ~30 blocks)."""
+    vae32 = AutoencoderKL(dataclasses.replace(cfg.vae, dtype="float32")).to(z.device).eval()
+    vae32.load_state_dict({k: v.float() for k, v in pipe.vae.state_dict().items()}, strict=True)
+    z = z / cfg.diffusion.scale_factor
+    with torch.no_grad(), counted("fp32 VAE decode", ()) as fp32_launches:
+        img32 = vae32.decode(z)
+    with torch.no_grad(), counted("bf16 VAE decode", ("flash_attention",)) as bf16_launches:
+        img16 = pipe.vae.decode(z)
+    rel = ((img32 - img16).norm() / img32.norm()).item()
+    log("slice", fp32_vae_decode_shape=list(img32.shape), fp32_vs_bf16_rel_l2=rel,
+        bound=MODEL_REL_TOL, fp32_flash_launches=fp32_launches["flash_attention"],
+        bf16_flash_launches=bf16_launches["flash_attention"])
+    if not torch.isfinite(img32).all() or not rel <= MODEL_REL_TOL:
+        raise AssertionError(f"fp32 VAE decode: finite {bool(torch.isfinite(img32).all())}, "
+                             f"rel L2 to bf16 {rel}")
+    if fp32_launches["flash_attention"]:
+        raise AssertionError("the fp32 VAE's attention reached the bf16 kernel")
+    del vae32
 
 
 def slice_run(dev, cfg, profile_steps=0):
@@ -655,6 +721,7 @@ def slice_run(dev, cfg, profile_steps=0):
         max_abs=(out_k - out_p).abs().max().item(), bound=MODEL_REL_TOL)
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"kernel path departs from the plain path: rel {rel}")
+    fp32_vae_decode(pipe, cfg, x_T[:1])
     return launches, total, phases
 
 
@@ -709,7 +776,7 @@ def step_grads(pipe, params, batch, draws):
     return loss.item(), torch.cat([p.grad.float().flatten() for p in params])
 
 
-def train_slice(dev):
+def train_slice(dev, profile=False):
     cfg = configs.ctrlora_finetune_config(lora_rank=128)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -760,6 +827,9 @@ def train_slice(dev):
         raise AssertionError(f"frozen changed {changed_frozen[:5]}, trainable unchanged "
                              f"{unchanged[:5]}")
     del before
+    if profile:  # one more step, under the profiler
+        profile_window("train", lambda: trainer.fit(batches[:1],
+                                                    max_steps=trainer.state.step + 1), 1)
 
     # one step's loss and trainable gradients: kernels vs plain versions
     batch = batches[0]
@@ -1045,11 +1115,36 @@ def main(argv) -> int:
               if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     log("build", cuda_library_s=time.perf_counter() - t0, nvcc_flags=" ".join(_build.NVCC_FLAGS),
         ptxas_spills=spills, note="Triton kernels compile at their first launch (phase 3)")
-    # kernel C's instantiations run on wgmma (HGMMA) and nothing older (HMMA)
-    sass = _build.sass_opcodes(("HGMMA", "HMMA"), "geglu")
-    log("build", geglu_sass=sass)
-    if not sass or any(n["HGMMA"] == 0 or n["HMMA"] for n in sass.values()):
-        raise AssertionError(f"GEGLU kernels without HGMMA or with HMMA: {sass}")
+    # kernel C's and B4/B5's instantiations run on wgmma (HGMMA) and nothing
+    # older (HMMA); B4/B5 spill nothing and tile as flash_bwd_plan says
+    for what, name in (("geglu", "geglu"), ("flash_bwd", "flash_bwd")):
+        sass = _build.sass_opcodes(("HGMMA", "HMMA"), name)
+        log("build", **{f"{what}_sass": sass})
+        if not sass or any(n["HGMMA"] == 0 or n["HMMA"] for n in sass.values()):
+            raise AssertionError(f"{what} kernels without HGMMA or with HMMA: {sass}")
+    bwd_spills = _build.spilling_kernels("flash_bwd")
+    # ptxas serialises a kernel's wgmmas (every note logged) when, among other
+    # causes, a plain instruction touches an accumulator inside a batch
+    # (C7514/C7515): B4/B5 must have none of those
+    serialized = _build.serialized_kernels()
+    log("build", wgmma_serialized=serialized)
+    touched = {n: c for n, c in serialized.items()
+               if "flash_bwd" in n and {"C7514", "C7515"} & set(c)}
+    if touched:
+        raise AssertionError(f"B4/B5 wgmmas serialised by accumulator accesses: {touched}")
+    configs_c = {}
+    for d in fa_ops.BWD_HEAD_DIMS:
+        for dkv in (True, False):
+            out = (ctypes.c_int * 5)()
+            _build.check(_build.cuda_lib().ctrlora_flash_bwd_config(d, int(dkv), out),
+                         "ctrlora_flash_bwd_config")
+            plan = fa_ops.flash_bwd_plan(d, dkv)
+            configs_c[f"{'dkv' if dkv else 'dq'} D={d}"] = got = list(out)
+            if got != [plan.rows, plan.tile, plan.stages, plan.smem_bytes, int(plan.split)]:
+                raise AssertionError(f"flash_bwd_plan({d}, {dkv}) = {plan}, the kernel: {got}")
+    log("build", flash_bwd_config=configs_c, flash_bwd_spills=bwd_spills)
+    if bwd_spills:
+        raise AssertionError(f"B4/B5 spill registers: {bwd_spills}")
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)
@@ -1057,7 +1152,7 @@ def main(argv) -> int:
     sampling, _, _ = slice_run(dev, cfg, profile_steps)
     tiny_gpu_vs_cpu(dev)
     tiny_api_gpu_vs_cpu(dev)
-    training, _ = train_slice(dev)
+    training, _ = train_slice(dev, profile=bool(profile_steps))
     tiny_train_gpu_vs_cpu(dev)
     api_runs = api_slice(dev)
 

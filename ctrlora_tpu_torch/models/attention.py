@@ -110,7 +110,7 @@ class FeedForward(nn.Module):
             return self.out(a * F.gelu(gate), lora_idx)
         args = (x.contiguous(), self.proj.weight.to(x.dtype), self.proj.bias.to(x.dtype),
                 self.out.weight.to(x.dtype), self.out.bias.to(x.dtype))
-        if geglu_ops.geglu_shapes_ok(*args):
+        if geglu_ops.geglu_kernel_ok(*args):
             return geglu_ops.geglu_ffn(*args)
         return geglu_ops.geglu_ffn_plain(*args)
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,6 +47,9 @@ _ENTRIES = {
     # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides of q, k, v,
     # dout, dk, dv as one int64[18], scale, stream
     "ctrlora_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_STRIDES, _F, _P],
+    # D, dkv (1: the dK/dV kernel), int[5] out: rows, tile, stages, shared
+    # memory bytes, split (the backward's tiling, flash_bwd_plan's mirror)
+    "ctrlora_flash_bwd_config": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, w1 [2F, C], b1, h [rows, F], rows, C, F, up tile width, grid, stream
     "ctrlora_geglu_up": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # h, w2 [C, F], b2, y, split workspace, split counters, rows, C, F,
@@ -110,6 +114,36 @@ def ptxas_report() -> str:
     library ('' before the first build)."""
     log = BUILD_DIR / f"libctrlora_kernels_{source_hash()}.ptxas.txt"
     return log.read_text() if log.exists() else ""
+
+
+def spilling_kernels(name_filter: str = "", report: str = None) -> dict:
+    """Kernels whose mangled name holds `name_filter` and which ptxas's
+    `report` (the built library's by default) shows spilling: name ->
+    (spill store, spill load) bytes."""
+    out, current = {}, None
+    for line in (ptxas_report() if report is None else report).splitlines():
+        if "Function properties for " in line:
+            current = line.split("Function properties for ", 1)[1].strip()
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and current is not None and name_filter in current:
+            stores, loads = int(found.group(1)), int(found.group(2))
+            if stores or loads:
+                out[current] = (stores, loads)
+    return out
+
+
+def serialized_kernels(name_filter: str = "") -> dict:
+    """Kernels of the built library whose mangled name holds `name_filter`
+    and whose wgmma instructions ptxas serialises (its C7510-C7518 notes:
+    the products then run one at a time): name -> the notes' codes."""
+    out = {}
+    for line in ptxas_report().splitlines():
+        found = re.search(r"\((C75\d\d)\).*wgmma\.mma_async instructions are serialized.*"
+                          r"function '([^']+)'", line)
+        if found and name_filter in found.group(2):
+            out.setdefault(found.group(2), []).append(found.group(1))
+    return out
 
 
 def sass_opcodes(opcodes, name_filter: str = "") -> dict:

@@ -30,12 +30,19 @@ output carries its gradient like any torch op. :func:`flash_forward_work`, :func
 Dispatch follows the JAX package (``dot_product_attention``,
 ``dot_product_attention_bshd``, ``dot_product_attention_bshd_qkv``): the
 kernel only where Sk >= 256 and the sequences tile by 128; cross-attention
-over 77 text tokens and the 8x8 mid-block self-attention stay plain.
+over 77 text tokens and the 8x8 mid-block self-attention stay plain. The
+rule (:func:`flash_kernel_ok`) is a pure function of dtypes and shapes: it
+also admits only bf16 operands at a head dim the forward kernel has (and,
+where a gradient will flow, one the backward kernels have); anything else,
+an fp32 VAE for one, takes the plain version. An admitted CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -44,7 +51,10 @@ import torch
 from ctrlora_tpu_torch.ops import _build, kernel_flags
 
 LOG2E = 1.4426950408889634
-MAX_BWD_HEAD_DIM = 160  # the backward kernels' widest instantiation
+KERNEL_DTYPES = (torch.bfloat16,)  # the operand dtypes the kernels take
+BWD_HEAD_DIMS = (40, 80, 160)  # the backward kernels' instantiations (the finetune sites)
+BWD_SEQ_MULTIPLE = 128  # Sq and Sk must be multiples of it for the backward kernels
+TMA_BOX = 64  # columns of a full TMA box (128 bf16 bytes)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -172,18 +182,70 @@ def _strides(ts: Sequence[torch.Tensor]):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The tiling of one backward kernel at one head dim (the Python mirror
+    of ``BwdCfg`` in csrc/flash_attention_bwd.cu, which
+    ``ctrlora_flash_bwd_config`` reports): a block owns ``rows`` rows (keys
+    for dK/dV, queries for dQ) and walks the other sequence in tiles of
+    ``tile`` rows through a ring of ``stages``, with two consumer
+    warpgroups beside one producer; ``split``: dK and dV on separate
+    warpgroups over the same 64 keys."""
+    rows: int
+    tile: int
+    stages: int
+    smem_bytes: int
+    split: bool
+
+    def grid(self, b: int, h: int, owned: int) -> Tuple[int, int]:
+        """(blocks along the owned sequence, batch * heads)."""
+        return owned // self.rows, b * h
+
+
+@functools.lru_cache(maxsize=None)
+def flash_bwd_plan(d: int, dkv: bool) -> BwdPlan:
+    """The tiling of the dK/dV (``dkv``) or dQ kernel at head dim d. Up to
+    D = 80 each warpgroup owns 64 rows and all of their products; at
+    D = 160 the dK/dV kernel's two warpgroups share 64 keys, one holding
+    dV and one dK (the register budget). Streamed tiles of 64 rows where two
+    buffers of S and dP fit the registers beside the accumulators (dK/dV at
+    D = 40, dQ up to D = 80), else 32; up to four stages in 200 KB beside
+    the owned rows."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward: head dim {d} not in {BWD_HEAD_DIMS}")
+    boxes = -(-d // TMA_BOX)
+    split = dkv and d > 128
+    rows = 64 if split else 128
+    tile = 64 if (d <= 40 if dkv else d <= 80) else 32
+    owned = 2 * boxes * rows * TMA_BOX * 2
+    stage = 2 * boxes * tile * TMA_BOX * 2
+    stages = min(4, (200 * 1024 - owned) // stage)
+    vec = 2 * tile * 4 if dkv else 0  # the tile's lse and Delta rows
+    smem = owned + stages * (stage + vec) + 8 * (1 + 2 * stages) + 1024
+    return BwdPlan(rows, tile, stages, smem, split)
+
+
+def tma_box_widths(d: int) -> Tuple[int, ...]:
+    """Columns of the TMA boxes a streamed row of head dim d arrives in: full
+    64-column boxes, then a tail box of d % 64 columns."""
+    return (TMA_BOX,) * (d // TMA_BOX) + ((d % TMA_BOX,) if d % TMA_BOX else ())
+
+
 def _check_bwd(what: str, tensors, lse, delta) -> None:
-    d = tensors[0].shape[-1]
-    if any(t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.stride(-1) != 1
+    sq, d = tensors[0].shape[2:]
+    sk = tensors[1].shape[2]
+    if d not in BWD_HEAD_DIMS or sq % BWD_SEQ_MULTIPLE or sk % BWD_SEQ_MULTIPLE:
+        raise ValueError(f"{what}: the backward kernels take D in {BWD_HEAD_DIMS} with Sq, Sk "
+                         f"multiples of {BWD_SEQ_MULTIPLE}; got D={d}, Sq={sq}, Sk={sk}")
+    if any(t.device.type != "cuda" or t.dtype not in KERNEL_DTYPES or t.stride(-1) != 1
            for t in tensors):
         raise ValueError(f"{what}: needs bf16 CUDA [B, H, S, D] views with unit last stride")
-    if d > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} > {MAX_BWD_HEAD_DIM}")
     _check_aligned(what, [t.data_ptr() for t in tensors],
                    [t.stride(i) for t in tensors for i in (0, 1, 2)], d)
     for t in (lse, delta):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: lse and delta must be contiguous fp32 [B, H, Sq]")
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: lse and delta must be contiguous, 16-byte aligned "
+                             "fp32 [B, H, Sq]")
 
 
 def flash_attention_bwd_dq(q, k, v, lse, dout, delta, scale: float,
@@ -513,14 +575,29 @@ def _tiles(s: int) -> bool:
     return s >= 128 and s % 128 == 0
 
 
+def flash_kernel_ok(dtypes, sq: int, sk: int, d: int, grad: bool = False) -> bool:
+    """The static dispatch rule of the flash entries: the JAX package's
+    shape rule (Sk >= 256, both sequences tiling by 128), bf16 operands
+    (`dtypes`), a head dim the forward kernel has, and where a gradient will
+    flow (`grad`) one the backward kernels have too. False: the plain
+    version."""
+    return (all(dt in KERNEL_DTYPES for dt in dtypes) and d in FORWARD_HEAD_DIMS
+            and sk >= 256 and _tiles(sq) and _tiles(sk) and (not grad or d in BWD_HEAD_DIMS))
+
+
+def _grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def dot_product_attention(q, k, v, scale: Optional[float] = None,
                           use_flash: bool = True) -> torch.Tensor:
-    """[B, H, S, D] attention; the kernel when Sk >= 256 and both sequences
-    tile, else the plain version (the JAX dispatch rule)."""
+    """[B, H, S, D] attention; the kernel where :func:`flash_kernel_ok`,
+    else the plain version."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     sq, sk = q.shape[2], k.shape[2]
-    if use_flash and sk >= 256 and _tiles(sq) and _tiles(sk):
+    if use_flash and flash_kernel_ok((q.dtype, k.dtype, v.dtype), sq, sk, q.shape[3],
+                                     _grad(q, k, v)):
         return flash_attention(q, k, v, scale)[0]
     return attention_plain(q, k, v, scale)[0]
 
@@ -538,7 +615,8 @@ def dot_product_attention_bshd(q, k, v, scale: Optional[float] = None,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     sq, sk = q.shape[1], k.shape[1]
-    if use_flash and sk >= 256 and _tiles(sq) and _tiles(sk):
+    if use_flash and flash_kernel_ok((q.dtype, k.dtype, v.dtype), sq, sk, q.shape[3],
+                                     _grad(q, k, v)):
         if _hpack_ok(q.shape[2], q.shape[3]):
             return flash_attention_hpack2(q, k, v, scale)[0]
         return flash_attention_bshd(q, k, v, scale)[0]
@@ -552,6 +630,6 @@ def dot_product_attention_bshd_qkv(qkv, heads: int, dim_head: int,
     if scale is None:
         scale = 1.0 / math.sqrt(dim_head)
     s = qkv.shape[1]
-    if use_flash and s >= 256 and _tiles(s):
+    if use_flash and flash_kernel_ok((qkv.dtype,), s, s, dim_head, _grad(qkv)):
         return flash_attention_qkv(qkv, heads, dim_head, scale)[0]
     return flash_attention_qkv_plain(qkv, heads, dim_head, scale)[0]

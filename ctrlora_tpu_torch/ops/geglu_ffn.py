@@ -96,6 +96,14 @@ def geglu_shapes_ok(x, w1, b1, w2, b2) -> bool:
             and b1.shape == (f2,) and w2.shape == (c, f2 // 2) and b2.shape == (c,))
 
 
+def geglu_kernel_ok(x, w1, b1, w2, b2) -> bool:
+    """The static dispatch rule of ``FeedForward``, a pure function of
+    dtypes and shapes: bf16 operands (the kernels' only type) at the shapes
+    :func:`geglu_shapes_ok` admits; anything else takes the plain version."""
+    return (all(t.dtype == torch.bfloat16 for t in (x, w1, b1, w2, b2))
+            and geglu_shapes_ok(x, w1, b1, w2, b2))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

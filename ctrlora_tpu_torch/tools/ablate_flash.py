@@ -45,9 +45,10 @@ ABLATIONS = {
 
 
 def build(name: str, edits, source: str = "flash_attention.cu",
-          entries=("ctrlora_flash_fwd",)) -> ctypes.CDLL:
+          entries=("ctrlora_flash_fwd",), keep_log: bool = False):
     """`source` with `edits` applied, built alone into _build/ablate/, with
-    the argument types of its C `entries` set."""
+    the argument types of its C `entries` set; with `keep_log`, returns
+    (library, nvcc's output, ptxas's report included)."""
     from ctrlora_tpu_torch.ops import _build
 
     src = (_build.CSRC / source).read_text()
@@ -67,7 +68,7 @@ def build(name: str, edits, source: str = "flash_attention.cu",
     for entry in entries:
         getattr(lib, entry).argtypes = _build._ENTRIES[entry]
         getattr(lib, entry).restype = ctypes.c_int
-    return lib
+    return (lib, res.stdout + res.stderr) if keep_log else lib
 
 
 def time_ms(fn, iters=20) -> float:

@@ -205,14 +205,21 @@ def _attention(heads, dim_head, seq):
 def test_cross_attention_dispatch(spec, heads, dim_head, want, monkeypatch):
     """Self-attention at S=256 under the flags takes the wrapper the JAX
     rules take (qkvpack and fuse_qkv in ``CrossAttention``, then hpack
-    where the heads pair and 2*D <= 128), and all give one result."""
+    where the heads pair and 2*D <= 128), and all give one result. The
+    kernels take bf16 only, so fp32 takes no wrapper; with fp32 admitted
+    (the wrappers run their plain versions on CPU tensors) the routes show."""
     taken = []
     for name in ("flash_attention_qkv", "flash_attention_bshd", "flash_attention_hpack2"):
         real = getattr(fa_ops, name)
         monkeypatch.setattr(fa_ops, name,
                             lambda *a, _n=name, _r=real, **k: taken.append(_n) or _r(*a, **k))
     attn, x = _attention(heads, dim_head, 256)
+    with kernel_flags.override(**spec):
+        plain = attn(x)
+    assert taken == []
+    monkeypatch.setattr(fa_ops, "KERNEL_DTYPES", (torch.float32,))
     base = attn(x)
+    _close(base.detach().numpy(), plain.detach().numpy())
     taken.clear()
     jfield = {"head_pack": 2} if spec.get("head_pack") else {}
     with kernel_flags.override(**spec), jflags.override(**jfield):

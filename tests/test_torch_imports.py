@@ -29,7 +29,7 @@ def test_port_modules_cover_the_slice():
                 "training.losses", "training.train_state", "training.step",
                 "training.trainer", "api", "ops.kernel_flags", "utils.tokenizer",
                 "utils.image", "utils.ckpt_torch", "utils.loading", "tools.ablate_flash",
-                "tools.ablate_geglu"):
+                "tools.ablate_geglu", "tools.ablate_flash_bwd", "tools.time_flash_bwd"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
