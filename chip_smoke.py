@@ -9,13 +9,19 @@ Phases, each printing its results on its own line; any failure raises and
 the script exits non-zero:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ctrlora_tpu_torch/csrc (nvcc, sm_90a);
+2. build the CUDA kernels from ctrlora_tpu_torch/csrc (nvcc, sm_90a) and
+   gate them: C, B6 and B4/B5 on wgmma (HGMMA, no HMMA in the SASS), B6
+   and B4/B5 without spills or wgmma serialised by accumulator accesses,
+   A without spills, and the tilings of A, B6 and B4/B5 as their Python
+   mirrors (group_norm_plan, hpack2_plan, flash_bwd_plan) say;
 3. each hand-written kernel against its plain PyTorch version at the
-   paths' shapes, in bf16: max error (relative L2 for gradients) and
-   median time of both (for A2 and B6 also of the kernel each stands
-   beside: A, and B's BSHD and fused-qkv entries; for C also its two
-   launches alone, up_ms and down_ms; for B4/B5 also the time per call
-   of 20 calls queued back to back, b2b_ms, and two launches bit-equal);
+   paths' shapes, in bf16 (A also in fp32): max error (relative L2 for
+   gradients) and median time of both (for A2 and B6 also of the kernel
+   each stands beside: A, and B's BSHD and fused-qkv entries; for C also
+   its two launches alone, up_ms and down_ms; for A, B6 and B4/B5 also
+   the time per call of 20 calls queued back to back, b2b_ms, beside the
+   library call's, and two launches bit-equal; for A one device kernel per
+   call, counted by torch.profiler);
 4. the sampling slice at SD1.5 width: ctrlora_inference_config(1, 128) with
    seeded random weights, one rank-128 LoRA fused, bf16; 4 prompts of 77
    token ids, a 512x512 hint, DDIM at CFG 7.5 and eta 0, decode; counts the
@@ -138,7 +144,7 @@ def bound_ms(flops: float, nbytes: float):
 
 
 KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
-    "group_norm": ("triton", "ctrlora_tpu_torch/ops/group_norm.py",
+    "group_norm": ("cuda", "ctrlora_tpu_torch/csrc/group_norm.cu",
                    "ctrlora_tpu/ops/group_norm.py:30 _stats_kernel + :47 _apply_kernel"),
     "group_norm_onepass": ("cuda", "ctrlora_tpu_torch/csrc/group_norm_onepass.cu",
                            "ctrlora_tpu/ops/group_norm.py:55 _onepass_kernel"),
@@ -170,6 +176,36 @@ def wrappers():
             "flash_attention_bwd_dq": fa_ops.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa_ops.flash_attention_bwd_dkv,
             "geglu_ffn": geglu_ops.geglu_ffn, "unpack_rows": unpack_ops.unpack_rows}
+
+
+# kernel A's rows in phase 3: (shape, dtype, eps, SiLU, add_row): the
+# sampling path's sites at the CFG batch of 8 (the ResBlocks' out_norm with
+# its row and SiLU, a transformer norm without either), the decoder's
+# in_norms over the concatenated skips, the finetune step's batch of 4, and
+# the VAE at 512^2 in bf16 and fp32 (phase 4's fp32 decode); the build phase
+# holds the kernel's plan against group_norm_plan at each
+GN_CASES = (
+    ((8, 64, 64, 320), torch.bfloat16, 1e-5, True, True),
+    ((8, 32, 32, 640), torch.bfloat16, 1e-5, True, True),
+    ((8, 16, 16, 1280), torch.bfloat16, 1e-5, True, True),
+    ((8, 8, 8, 1280), torch.bfloat16, 1e-5, True, True),
+    ((8, 64, 64, 320), torch.bfloat16, 1e-6, False, False),
+    ((8, 64, 64, 640), torch.bfloat16, 1e-5, True, False),
+    ((8, 64, 64, 960), torch.bfloat16, 1e-5, True, False),
+    ((8, 32, 32, 1920), torch.bfloat16, 1e-5, True, False),
+    ((8, 16, 16, 2560), torch.bfloat16, 1e-5, True, False),
+    ((4, 64, 64, 320), torch.bfloat16, 1e-5, True, True),
+    ((4, 32, 32, 640), torch.bfloat16, 1e-5, True, True),
+    ((4, 16, 16, 1280), torch.bfloat16, 1e-5, True, True),
+    ((4, 8, 8, 1280), torch.bfloat16, 1e-5, True, True),
+    ((4, 512, 512, 128), torch.bfloat16, 1e-6, True, False),
+    ((4, 64, 64, 512), torch.bfloat16, 1e-6, False, False),
+    ((4, 512, 512, 128), torch.float32, 1e-6, True, False),
+)
+# kernel B6's rows: (label, B, S, H, D, as views of the fused projection)
+HPACK2_CASES = (("[8, 4096, 8, 40]", 8, 4096, 8, 40, False),
+                ("views of [8, 4096, 3*8*40]", 8, 4096, 8, 40, True),
+                ("[8, 1024, 8, 64]", 8, 1024, 8, 64, False))
 
 
 # the kernels each path must launch
@@ -303,7 +339,20 @@ def group_norm_library(x, scale, bias, eps):
     return "F.group_norm", lambda: F.group_norm(xc, 32, sc, bi, eps)
 
 
+def device_kernels(fn) -> int:
+    """Device kernels that fn() launches, counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
 def kernel_checks(dev, cfg):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(SEED)
     rn = lambda *s, dt=torch.bfloat16, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dt)
     results = {}
@@ -357,21 +406,38 @@ def kernel_checks(dev, cfg):
     sdpa = lambda *qkv: ("F.scaled_dot_product_attention",
                          lambda: F.scaled_dot_product_attention(*qkv))
 
-    for shape, eps, silu, row in (
-            ((8, 64, 64, 320), 1e-5, True, True), ((8, 32, 32, 640), 1e-5, True, True),
-            ((8, 16, 16, 1280), 1e-5, True, True), ((8, 8, 8, 1280), 1e-5, True, True),
-            ((8, 64, 64, 320), 1e-6, False, False), ((4, 512, 512, 128), 1e-6, True, False),
-            ((4, 64, 64, 512), 1e-6, False, False)):
+    # A: one launch per call (one device kernel in a profiler window over a
+    # call at each shape), the same bits from two launches, and each row
+    # against its plain version with its back-to-back time beside the
+    # library call's
+    gn_args = []
+    for shape, dt, eps, silu, row in GN_CASES:
         c = shape[-1]
-        x = rn(*shape, std=2.0) + 0.5
+        x = rn(*shape, std=2.0, dt=dt) + 0.5
         sc, bi = rn(c, dt=torch.float32, std=0.1) + 1, rn(c, dt=torch.float32, std=0.1)
-        add = rn(1, c, std=0.5) if row else None
-        args = (x, sc, bi, 32, eps, silu, add)
-        record("group_norm", f"{list(shape)} eps={eps} silu={silu} add_row={row}",
-               gn_ops.group_norm(*args), gn_ops.group_norm_plain(*args),
-               lambda: gn_ops.group_norm(*args), lambda: gn_ops.group_norm_plain(*args),
-               gn_ops.group_norm_work(shape[0], shape[1] * shape[2], c, 2, 1 if row else 0),
-               library=None if silu or row else group_norm_library(x, sc, bi, eps))
+        gn_args.append((x, sc, bi, 32, eps, silu, rn(1, c, std=0.5, dt=dt) if row else None))
+    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm(*a) for a in gn_args]) \
+        / len(gn_args)
+    if kernels_per_call != 1:
+        raise AssertionError(f"group_norm: {kernels_per_call} device kernels per call, not 1")
+    for (shape, dt, eps, silu, row), args in zip(GN_CASES, gn_args):
+        x, sc, bi = args[:3]
+        y = gn_ops.group_norm(*args)
+        if not torch.equal(y, gn_ops.group_norm(*args)):
+            raise AssertionError(f"group_norm {list(shape)}: two launches differ")
+        library = None if silu or row else group_norm_library(x, sc, bi, eps)
+        fn = lambda: gn_ops.group_norm(*args)
+        record("group_norm", f"{list(shape)} {str(dt)[6:]} eps={eps} silu={silu} add_row={row}",
+               y, gn_ops.group_norm_plain(*args), fn, lambda: gn_ops.group_norm_plain(*args),
+               gn_ops.group_norm_work(shape[0], shape[1] * shape[2], shape[-1], x.element_size(),
+                                      1 if row else 0),
+               library=library, b2b_ms=time_b2b(fn), bit_equal_runs=True,
+               device_kernels_per_call=kernels_per_call,
+               library_b2b_ms=time_b2b(library[1]) if library else None,
+               plan=dataclasses.asdict(gn_ops.group_norm_plan(
+                   shape[0], shape[1] * shape[2], shape[-1], 32, x.element_size(), sms)))
+        del y
+    del gn_args, x, sc, bi, args
 
     # A2: the one-pass GroupNorm at the five shapes gn1=1 admits on the
     # sampling path (the last: the UNet decoder's 16x16 in_norms over the
@@ -396,23 +462,31 @@ def kernel_checks(dev, cfg):
                    kernel_a_ms=time_ms(lambda: gn_ops.group_norm(*args)))
 
     # B6: the head-pair forward at the 64x64 sites, contiguous and as split
-    # views of the fused projection, beside B's BSHD and fused-qkv entries
-    qkv = rn(8, 4096, 3 * 320)
-    views = [t.unflatten(-1, (8, 40)) for t in qkv.split(320, dim=-1)]
-    for label, ops, beside in (
-            ("[8, 4096, 8, 40]", [t.contiguous() for t in views],
-             lambda q, k, v: {"bshd_ms": time_ms(lambda: fa_ops.flash_attention_bshd(q, k, v))}),
-            ("views of [8, 4096, 3*8*40]", views,
-             lambda *_: {"qkv_ms": time_ms(lambda: fa_ops.flash_attention_qkv(qkv, 8, 40))})):
+    # views of the fused projection, and at D = 64; beside B's BSHD and
+    # fused-qkv entries, each also back to back, and the same bits twice
+    for label, b, s, h, d, fused in HPACK2_CASES:
+        qkv = rn(b, s, 3 * h * d)
+        views = [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1)]
+        ops = views if fused else [t.contiguous() for t in views]
         out, lse = fa_ops.flash_attention_hpack2(*ops)
+        again = fa_ops.flash_attention_hpack2(*ops)
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"B6 {label}: two launches differ")
+        del again
         pout, plse = fa_ops.flash_attention_hpack2_plain(*ops)
-        record("flash_attention_hpack2", label, out, pout,
-               lambda: fa_ops.flash_attention_hpack2(*ops),
+        fn = lambda: fa_ops.flash_attention_hpack2(*ops)
+        library = sdpa(*(t.transpose(1, 2) for t in ops))
+        beside = ({"qkv_ms": time_ms(lambda: fa_ops.flash_attention_qkv(qkv, h, d)),
+                   "qkv_b2b_ms": time_b2b(lambda: fa_ops.flash_attention_qkv(qkv, h, d))}
+                  if fused else
+                  {"bshd_ms": time_ms(lambda: fa_ops.flash_attention_bshd(*ops)),
+                   "bshd_b2b_ms": time_b2b(lambda: fa_ops.flash_attention_bshd(*ops))})
+        record("flash_attention_hpack2", label, out, pout, fn,
                lambda: fa_ops.flash_attention_hpack2_plain(*ops),
-               fa_ops.flash_forward_work(8, 8, 4096, 4096, 40),
-               library=sdpa(*(t.transpose(1, 2) for t in ops)), extra=(lse, plse),
-               **beside(*ops))
-        del out, lse, pout, plse
+               fa_ops.flash_forward_work(b, h, s, s, d), library=library, extra=(lse, plse),
+               b2b_ms=time_b2b(fn), library_b2b_ms=time_b2b(library[1]), bit_equal_runs=True,
+               plan=dataclasses.asdict(fa_ops.hpack2_plan(d)), **beside)
+        del out, lse, pout, plse, qkv, views, ops
 
     for s, h, d in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
         qkv = rn(8, s, 3 * h * d)
@@ -466,6 +540,7 @@ def kernel_checks(dev, cfg):
         lib_out = F.scaled_dot_product_attention(*leaves)
         library = ("autograd.grad of F.scaled_dot_product_attention (dq, dk, dv)",
                    lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True))
+        library_b2b = time_b2b(library[1])
         b, h, s, d = q.shape
         for name, got, want, work in (
                 ("flash_attention_bwd_dq", [dq], [pdq], fa_ops.flash_bwd_dq_work),
@@ -473,7 +548,8 @@ def kernel_checks(dev, cfg):
             wrapper = getattr(fa_ops, name)
             record_grad(name, label, got, want, lambda: wrapper(*args),
                         lambda: getattr(fa_ops, name + "_plain")(*args), work(b, h, s, s, d),
-                        library, bit_equal_runs=True, b2b_ms=time_b2b(lambda: wrapper(*args)))
+                        library, bit_equal_runs=True, b2b_ms=time_b2b(lambda: wrapper(*args)),
+                        library_b2b_ms=library_b2b)
         del lib_out, leaves
 
     for s, d in ((4096, 40), (1024, 80), (256, 160)):
@@ -487,7 +563,6 @@ def kernel_checks(dev, cfg):
 
     # C at the four sampling sites (the CFG batch of 8), then the finetune
     # step's 64^2 site (batch 4); beside each, its two launches alone
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for rows, c in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280),
                     (4 * 4096, 320)):
         f = 4 * c
@@ -1094,6 +1169,69 @@ def api_slice(dev):
     return launches
 
 
+def build_gates(dev) -> None:
+    """The build phase's gates on the kernels just built: C, B6 and B4/B5
+    run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
+    nothing and ptxas serialises none of their wgmmas for accumulator
+    accesses (C7514/C7515: a plain instruction touching an accumulator
+    inside a batch); A spills nothing; and A's, B6's and B4/B5's tilings are
+    what their Python mirrors say."""
+    for what, name in (("geglu", "geglu"), ("flash_bwd", "flash_bwd"),
+                       ("flash_hpack2", "flash_hpack2")):
+        sass = _build.sass_opcodes(("HGMMA", "HMMA"), name)
+        log("build", **{f"{what}_sass": sass})
+        if not sass or any(n["HGMMA"] == 0 or n["HMMA"] for n in sass.values()):
+            raise AssertionError(f"{what} kernels without HGMMA or with HMMA: {sass}")
+    serialized = _build.serialized_kernels()
+    log("build", wgmma_serialized=serialized)
+    touched = {n: c for n, c in serialized.items()
+               if ("flash_bwd" in n or "flash_hpack2" in n) and {"C7514", "C7515"} & set(c)}
+    if touched:
+        raise AssertionError(f"B4/B5/B6 wgmmas serialised by accumulator accesses: {touched}")
+    spilled = {name: _build.spilling_kernels(name)
+               for name in ("flash_bwd", "flash_hpack2", "gn_cluster")}
+    log("build", spills=spilled)
+    if any(spilled.values()):
+        raise AssertionError(f"B4/B5, B6 or A spill registers: {spilled}")
+
+    lib = _build.cuda_lib()
+    configs_c = {}
+    for d in fa_ops.BWD_HEAD_DIMS:
+        for dkv in (True, False):
+            out = (ctypes.c_int * 5)()
+            _build.check(lib.ctrlora_flash_bwd_config(d, int(dkv), out), "ctrlora_flash_bwd_config")
+            plan = fa_ops.flash_bwd_plan(d, dkv)
+            configs_c[f"{'dkv' if dkv else 'dq'} D={d}"] = got = list(out)
+            if got != [plan.rows, plan.tile, plan.stages, plan.smem_bytes, int(plan.split)]:
+                raise AssertionError(f"flash_bwd_plan({d}, {dkv}) = {plan}, the kernel: {got}")
+    for d in fa_ops.HPACK2_HEAD_DIMS:
+        out = (ctypes.c_int * 5)()
+        _build.check(lib.ctrlora_flash_hpack2_config(d, out), "ctrlora_flash_hpack2_config")
+        plan = fa_ops.hpack2_plan(d)
+        configs_c[f"hpack2 D={d}"] = got = list(out)
+        if got != plan.as_list():
+            raise AssertionError(f"hpack2_plan({d}) = {plan}, the kernel: {got}")
+    log("build", flash_bwd_hpack2_config=configs_c)
+    # A: the kernel's plan at every shape phase 3 runs, beside how many of
+    # its clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gn_plans = []
+    for shape, dt, *_ in GN_CASES:
+        b, hw, c = shape[0], shape[1] * shape[2], shape[-1]
+        item = torch.empty((), dtype=dt).element_size()
+        out = (ctypes.c_int * 9)()
+        _build.check(lib.ctrlora_group_norm_config(b, hw, c, 32, item, sms, out),
+                     "ctrlora_group_norm_config")
+        plan = gn_ops.group_norm_plan(b, hw, c, 32, item, sms)
+        if list(out)[:8] != plan.as_list():
+            raise AssertionError(f"group_norm_plan{(b, hw, c, 32, item, sms)} = {plan}, "
+                                 f"the kernel: {list(out)[:8]}")
+        gn_plans.append({"shape": list(shape), "dtype": str(dt)[6:], "blocks": plan.blocks(b),
+                         "clusters": plan.blocks(b) // plan.cluster,
+                         "max_active_clusters": out[8], **dataclasses.asdict(plan)})
+    log("build", group_norm_plans=gn_plans)
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1114,37 +1252,8 @@ def main(argv) -> int:
     spills = [ln.strip() for ln in _build.ptxas_report().splitlines()
               if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     log("build", cuda_library_s=time.perf_counter() - t0, nvcc_flags=" ".join(_build.NVCC_FLAGS),
-        ptxas_spills=spills, note="Triton kernels compile at their first launch (phase 3)")
-    # kernel C's and B4/B5's instantiations run on wgmma (HGMMA) and nothing
-    # older (HMMA); B4/B5 spill nothing and tile as flash_bwd_plan says
-    for what, name in (("geglu", "geglu"), ("flash_bwd", "flash_bwd")):
-        sass = _build.sass_opcodes(("HGMMA", "HMMA"), name)
-        log("build", **{f"{what}_sass": sass})
-        if not sass or any(n["HGMMA"] == 0 or n["HMMA"] for n in sass.values()):
-            raise AssertionError(f"{what} kernels without HGMMA or with HMMA: {sass}")
-    bwd_spills = _build.spilling_kernels("flash_bwd")
-    # ptxas serialises a kernel's wgmmas (every note logged) when, among other
-    # causes, a plain instruction touches an accumulator inside a batch
-    # (C7514/C7515): B4/B5 must have none of those
-    serialized = _build.serialized_kernels()
-    log("build", wgmma_serialized=serialized)
-    touched = {n: c for n, c in serialized.items()
-               if "flash_bwd" in n and {"C7514", "C7515"} & set(c)}
-    if touched:
-        raise AssertionError(f"B4/B5 wgmmas serialised by accumulator accesses: {touched}")
-    configs_c = {}
-    for d in fa_ops.BWD_HEAD_DIMS:
-        for dkv in (True, False):
-            out = (ctypes.c_int * 5)()
-            _build.check(_build.cuda_lib().ctrlora_flash_bwd_config(d, int(dkv), out),
-                         "ctrlora_flash_bwd_config")
-            plan = fa_ops.flash_bwd_plan(d, dkv)
-            configs_c[f"{'dkv' if dkv else 'dq'} D={d}"] = got = list(out)
-            if got != [plan.rows, plan.tile, plan.stages, plan.smem_bytes, int(plan.split)]:
-                raise AssertionError(f"flash_bwd_plan({d}, {dkv}) = {plan}, the kernel: {got}")
-    log("build", flash_bwd_config=configs_c, flash_bwd_spills=bwd_spills)
-    if bwd_spills:
-        raise AssertionError(f"B4/B5 spill registers: {bwd_spills}")
+        ptxas_spills=spills, note="the Triton kernel (D) compiles at its first launch (phase 3)")
+    build_gates(dev)
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)

@@ -38,6 +38,15 @@ _ENTRIES = {
     "ctrlora_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
     # the head-pair forward (kernel B6): the same arguments
     "ctrlora_flash_hpack2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
+    # D, int[5] out: consumer warpgroups, query rows a head, keys a tile,
+    # stages, shared memory bytes (B6's tiling, hpack2_plan's mirror)
+    "ctrlora_flash_hpack2_config": [_I, ctypes.POINTER(ctypes.c_int)],
+    # kernel A: x, scale, bias, row (or null), y, B, HW, C, G, row stride,
+    # row is fp32, eps, silu, dtype (0 bf16, 1 fp32), SMs, stream
+    "ctrlora_group_norm": [_P] * 5 + [_I] * 4 + [_LL, _I, _F, _I, _I, _I, _P],
+    # B, HW, C, G, itemsize, SMs, int[9] out: the plan (group_norm_plan's
+    # mirror) and the launch's cudaOccupancyMaxActiveClusters
+    "ctrlora_group_norm_config": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
     # x, scale, bias, row (or null), y, B, HW, C, G, row stride, eps, silu,
     # dtype (0 bf16, 1 fp32), dynamic shared memory bytes, stream
     "ctrlora_group_norm_onepass": [_P] * 5 + [_I] * 4 + [_LL, _F, _I, _I, _I, _P],

@@ -10,10 +10,11 @@ projection), ``_fwd_kernel_packed`` (separate q, k, v in the projections'
 [B, S, H, D] layout: the LoRA control branch) and ``_fwd_kernel`` (the VAE's
 [B, H, S, D] single-head attention). The backward kernels
 (``csrc/flash_attention_bwd.cu``) replace ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``. Kernel B6 (``csrc/flash_attention_hpack2.cu``,
-:func:`flash_attention_hpack2`) replaces ``_fwd_kernel_hpack2``, the
-head-pair forward with the skip-max softmax, which the BSHD dispatcher takes
-under ``CTRLORA_KERNELS=hpack=2`` where the heads pair and 2*D <= 128. The
+``_bwd_dkv_kernel``. Kernel B6 (``csrc/flash_attention_hpack2.cu``, wgmma
+on TMA-loaded tiles, :func:`flash_attention_hpack2`, tiled by
+:func:`hpack2_plan`) replaces ``_fwd_kernel_hpack2``, the head-pair forward
+with the skip-max softmax, which the BSHD dispatcher takes under
+``CTRLORA_KERNELS=hpack=2`` where the heads pair and 2*D <= 128. The
 source notes in the .cu files say what bounds them and how they are built.
 Every other entry launches the same forward kernel with its own strides
 (computed from the shapes, not from views), and all share the one pair of
@@ -461,6 +462,57 @@ class _FlashHpack2(_FlashBSHD):
         return out, lse
 
 
+HPACK2_HEAD_DIMS = (40, 64)  # kernel B6's instantiations (H even, 2*D <= 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class Hpack2Plan:
+    """Kernel B6's tiling at one head dim (the Python mirror of ``Hp2Cfg``
+    in csrc/flash_attention_hpack2.cu, which ``ctrlora_flash_hpack2_config``
+    reports): ``consumers`` warpgroups a block, each owning ``rows`` query
+    rows of one head of the pair (the pair's query tiles dealt out in turn,
+    so a block serves both heads); the key tiles of ``keys`` rows of both
+    heads stream through a ring of ``stages``; ``smem_bytes`` dynamic shared
+    memory. ``threads``: the consumers and a producer warpgroup;
+    ``regs``: what a consumer thread holds after the producer hands its
+    registers over; ``frag_regs``: the registers of a consumer's fragments
+    (S, two P buffers, O, the row sums and q)."""
+    consumers: int
+    rows: int
+    keys: int
+    stages: int
+    smem_bytes: int
+    threads: int
+    regs: int
+    frag_regs: int
+
+    def as_list(self):
+        """The numbers in the order the C entry reports them."""
+        return [self.consumers, self.rows, self.keys, self.stages, self.smem_bytes]
+
+    def grid(self, b: int, h: int, sq: int) -> Tuple[int, int]:
+        """(blocks along the pair's query tiles, batch * head pairs)."""
+        return -(-(2 * sq // self.rows) // self.consumers), b * h // 2
+
+
+@functools.lru_cache(maxsize=None)
+def hpack2_plan(d: int) -> Hpack2Plan:
+    """Kernel B6's tiling at head dim d (40 or 64): three consumer
+    warpgroups of 64 query rows at 160 registers beside a producer
+    warpgroup (four consumers would have ~112 registers and spill); 64-key
+    tiles, each stage holding K and V of both heads, four boxes of 128-byte
+    rows; up to six stages in 200 KB beside a 16-row tile of ones."""
+    if d not in HPACK2_HEAD_DIMS:
+        raise ValueError(f"flash_attention_hpack2: head dim {d} not in {HPACK2_HEAD_DIMS}")
+    consumers, keys, regs = 3, 64, 160
+    box = keys * TMA_BOX * 2
+    ones = 16 * TMA_BOX * 2
+    stages = min(6, (200 * 1024 - ones) // (4 * box))
+    smem = stages * 4 * box + ones + 8 * 2 * stages + 1024
+    frag = keys // 2 + 2 * (keys // 16) * 4 + d // 2 + 4 + -(-d // 16) * 4
+    return Hpack2Plan(consumers, 64, keys, stages, smem, (consumers + 1) * 128, regs, frag)
+
+
 def _forward_hpack2(q, k, v, scale):
     """Kernel B6 over [B, S, H, D] views -> (out [B, S, H*D], lse)."""
     what = "flash_attention_hpack2"
@@ -468,8 +520,13 @@ def _forward_hpack2(q, k, v, scale):
     if (q.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in (q, k, v))
             or any(t.stride(-1) != 1 for t in (q, k, v))):
         raise ValueError(f"{what}: needs bf16 CUDA tensors with unit last stride")
-    if h % 2 or 2 * d > 128:
-        raise ValueError(f"{what}: needs an even head count and 2*D <= 128, got H={h} D={d}")
+    if h % 2 or d not in HPACK2_HEAD_DIMS:
+        raise ValueError(f"{what}: needs an even head count and D in {HPACK2_HEAD_DIMS}, "
+                         f"got H={h} D={d}")
+    tiles = forward_tiles(d)
+    if s % tiles[0] or k.shape[1] % tiles[1]:
+        raise ValueError(f"{what}: needs Sq and Sk multiples of {tiles}; got Sq={s}, "
+                         f"Sk={k.shape[1]}")
     out = torch.empty((b, s, h * d), device=q.device, dtype=q.dtype)
     views = [_bhsd(t) for t in (q, k, v, out.view(b, s, h, d))]
     strides = [t.stride(i) for t in views for i in (0, 2, 1)]

@@ -1,51 +1,39 @@
 """GroupNorm (+SiLU, +add_row) over [B, ..., C] channels-last data.
 
-Kernel A of the port, in Triton. It replaces the TPU kernel pair
-``ctrlora_tpu/ops/group_norm.py`` ``_stats_kernel`` + ``_apply_kernel``
-(launched from ``fused_group_norm``). Kernel A2 (``csrc/group_norm_onepass.cu``,
-CUDA C++, :func:`group_norm_onepass`) replaces the one-pass ``_onepass_kernel``;
-:func:`group_norm` routes to it under ``CTRLORA_KERNELS=gn1=1`` where the JAX
-admission rule holds (``_onepass_ok``), and to kernel A everywhere else.
+Kernel A of the port (``csrc/group_norm.cu``, CUDA C++ for sm_90a, one
+launch per call) replaces the TPU kernel pair ``ctrlora_tpu/ops/group_norm.py``
+``_stats_kernel`` + ``_apply_kernel`` (launched from ``fused_group_norm``).
+Kernel A2 (``csrc/group_norm_onepass.cu``, :func:`group_norm_onepass`)
+replaces the one-pass ``_onepass_kernel``; :func:`group_norm` routes to it
+under ``CTRLORA_KERNELS=gn1=1`` where the JAX admission rule holds
+(``_onepass_ok``), and to kernel A everywhere else.
 
 What bounds it on the H100: no matrix product, a few flops per element, so
-device-memory bandwidth: one read of x for the statistics, one read and one
-write to apply them. Design:
-
-* pass 1 (stats, Triton): the TPU kernel carried its channel sums across
-  sequential grid steps; Hopper blocks run in no order, so each program
-  reduces one (batch, HW-chunk, channel-block) tile and writes its fp32
-  partial sums and sums of squares to a [B, chunks, C] scratch. No atomics:
-  the summation order is the same on every run.
-* epilogue (Triton, one program per (batch, group)): fold the partials
-  over chunks, reduce the group's channels, and turn the group moments into
-  a per-(batch, channel) affine ``y = x * a + b``. The ``add_row`` algebra of
-  the JAX epilogue (plain XLA there) is kept exactly, so GN(x + row) never
-  builds x + row. One launch instead of a dozen small torch ops: at ~90
-  GroupNorms per DDIM step the launches matter.
-* pass 2 (apply, Triton): ``y = x * a + b`` and the optional SiLU in fp32,
-  stored in x's dtype.
-
-Channel blocks are masked, so 10 or 20 channels per group (UNet widths)
-and 4 (VAE) need no special case, and HW is chunked, so the VAE decoder's
-[4, 262144, 128] tensor runs like any other.
+device-memory bandwidth: x read once and y written once. Kernel A is one
+launch of thread-block clusters: a cluster of up to 8 blocks owns one
+(sample, slab of whole groups), each block sums its share of the sample's
+rows in fp32, the cluster exchanges the per-channel sums through distributed
+shared memory and every block folds them in the same order (no atomics, no
+scratch tensors), then applies the affine to its rows, kept in shared memory
+where they fit (x read once) or read a second time where they do not (the
+VAE's 512^2 sites). The ``add_row`` algebra of the JAX epilogue is kept
+exactly, so GN(x + row) never builds x + row. :func:`group_norm_plan` is the
+Python mirror of the kernel's own choice of cluster, slab and path (the
+source note says how it is chosen); the kernel's C entry
+``ctrlora_group_norm_config`` reports the same numbers.
 
 :func:`group_norm` is a ``torch.autograd.Function``: kernel forward, and a
 backward that recomputes the plain math under autograd (the JAX
 ``custom_vjp``), with gradients for x, scale, bias and add_row.
 """
 
+import dataclasses
 import functools
 from typing import Optional
 
 import torch
 
 from ctrlora_tpu_torch.ops import _build, kernel_flags
-
-tl = None  # triton.language, bound at the first launch (the kernels' globals)
-
-_BLOCK_R = 64
-_BLOCK_C = 64
-_CHUNK_ROWS = 512  # rows per stats program
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -77,91 +65,102 @@ def group_norm_work(b: int, hw: int, c: int, itemsize: int = 2,
     return 0, 2 * b * hw * c * itemsize + 2 * c * 4 + row_rows * c * itemsize
 
 
-@functools.cache
-def _kernels():
-    global tl
-    import triton
-    import triton.language as language
+_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
-    tl = language
-
-    @triton.jit
-    def gn_stats(x_ptr, psum_ptr, psq_ptr, HW, C, stride_b, chunk_rows,
-                 BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        ch = tl.program_id(1)
-        cb = tl.program_id(2)
-        n_chunks = tl.num_programs(1)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        s = tl.zeros([BLOCK_C], dtype=tl.float32)
-        q = tl.zeros([BLOCK_C], dtype=tl.float32)
-        base = x_ptr + b * stride_b
-        for r0 in range(0, chunk_rows, BLOCK_R):
-            rows = ch * chunk_rows + r0 + tl.arange(0, BLOCK_R)
-            m = (rows < HW)[:, None] & cmask[None, :]
-            v = tl.load(base + rows.to(tl.int64)[:, None] * C + cols[None, :],
-                        mask=m, other=0.0).to(tl.float32)
-            s += tl.sum(v, axis=0)
-            q += tl.sum(v * v, axis=0)
-        off = (b * n_chunks + ch) * C + cols
-        tl.store(psum_ptr + off, s, mask=cmask)
-        tl.store(psq_ptr + off, q, mask=cmask)
-
-    @triton.jit
-    def gn_apply(x_ptr, y_ptr, a_ptr, bb_ptr, HW, C, stride_b,
-                 SILU: tl.constexpr, BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        rb = tl.program_id(1)
-        cb = tl.program_id(2)
-        rows = rb * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        m = (rows < HW)[:, None] & cmask[None, :]
-        off = b * stride_b + rows.to(tl.int64)[:, None] * C + cols[None, :]
-        v = tl.load(x_ptr + off, mask=m, other=0.0).to(tl.float32)
-        a = tl.load(a_ptr + b * C + cols, mask=cmask, other=0.0)
-        bb = tl.load(bb_ptr + b * C + cols, mask=cmask, other=0.0)
-        y = v * a[None, :] + bb[None, :]
-        if SILU:
-            y = y / (1.0 + tl.exp(-y))
-        tl.store(y_ptr + off, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit
-    def gn_affine(psum_ptr, psq_ptr, scale_ptr, bias_ptr, row_ptr, a_ptr, bb_ptr,
-                  HW, C, n_chunks, cpg, row_stride, eps,
-                  HAS_ROW: tl.constexpr, BLOCK: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        grp = tl.program_id(1)
-        offs = tl.arange(0, BLOCK)
-        cmask = offs < cpg
-        ch = grp * cpg + offs
-        s = tl.zeros([BLOCK], dtype=tl.float32)
-        q = tl.zeros([BLOCK], dtype=tl.float32)
-        for i in range(0, n_chunks):
-            base = (b * n_chunks + i) * C
-            s += tl.load(psum_ptr + base + ch, mask=cmask, other=0.0)
-            q += tl.load(psq_ptr + base + ch, mask=cmask, other=0.0)
-        if HAS_ROW:  # GN(x + row) from the moments of x
-            row = tl.load(row_ptr + b * row_stride + ch, mask=cmask, other=0.0).to(tl.float32)
-            q = q + 2.0 * row * s + HW * row * row
-            s = s + HW * row
-        n = HW * cpg
-        mean = tl.sum(s, axis=0) / n
-        var = tl.sum(q, axis=0) / n - mean * mean
-        inv = 1.0 / tl.sqrt_rn(var + eps)
-        a = inv * tl.load(scale_ptr + ch, mask=cmask, other=0.0)
-        bb = tl.load(bias_ptr + ch, mask=cmask, other=0.0) - mean * a
-        if HAS_ROW:
-            bb = bb + row * a
-        tl.store(a_ptr + b * C + ch, a, mask=cmask)
-        tl.store(bb_ptr + b * C + ch, bb, mask=cmask)
-
-    return gn_stats, gn_affine, gn_apply
+# kernel A's plan (csrc/group_norm.cu gn_plan): 256 threads a block, rows
+# streamed in ~16 KB chunks, a ring of 4 chunk buffers on the re-read path,
+# clusters of at most 8 blocks
+GN_THREADS = 256
+GN_VEC_BYTES = 16  # one copy, and one thread's column of a slab
+_GN_CHUNK_BYTES = 16384
+_GN_RING = 4
+GN_MAX_CLUSTER = 8
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # the kernels' dtype codes (A and A2)
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+@dataclasses.dataclass(frozen=True)
+class GroupNormPlan:
+    """Kernel A's launch at one shape (the Python mirror of ``gn_plan`` in
+    csrc/group_norm.cu, which ``ctrlora_group_norm_config`` reports): a
+    cluster of ``cluster`` blocks owns one (sample, slab); a slab is
+    ``groups`` whole groups, ``slab`` channels, and a row has ``slabs`` of
+    them; each block owns ``rows`` rows (the last may own fewer), streamed
+    in chunks of ``chunk_rows`` rows with 16-byte copies, and
+    keeps them in shared memory (``staged``) or reads them again for the
+    apply; ``smem`` dynamic shared-memory bytes."""
+    cluster: int
+    slab: int
+    slabs: int
+    staged: bool
+    smem: int
+    chunk_rows: int
+    rows: int
+    groups: int
+
+    def blocks(self, b: int) -> int:
+        """Blocks of the grid at batch b."""
+        return b * self.slabs * self.cluster
+
+    def as_list(self):
+        """The numbers in the order the C entry reports them."""
+        return [self.cluster, self.slab, self.slabs, int(self.staged), self.smem,
+                self.chunk_rows, self.rows, self.groups]
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_plan(b: int, hw: int, c: int, groups: int, itemsize: int,
+                    sms: int) -> GroupNormPlan:
+    """Kernel A's cluster size, slab and path at x [b, hw, c] of `itemsize`
+    bytes an element on a card of `sms` multiprocessors. The slab is the
+    fewest whole groups (a divisor of `groups`) whose channels make >= 128
+    contiguous bytes of a row, or the whole row; slab and row must be whole
+    numbers of 16-byte copies. Staged where it can be: the
+    smallest cluster of 1, 2, 4, 8 whose grid reaches 15/16 of the SMs (or
+    of 8 blocks) and whose block's rows of the slab fit shared memory; else
+    the smallest whose grid reaches 15/16 of the SMs, re-reading through a
+    ring of chunks; else (the grid cannot fill the card) 8 blocks
+    re-reading in chunks twice as large. Raises ValueError where the kernel
+    takes no such shape."""
+    if b <= 0 or hw <= 0 or groups <= 0 or c % groups or itemsize not in (2, 4):
+        raise ValueError(f"group_norm: no plan for [{b}, {hw}, {c}] in {groups} groups, "
+                         f"{itemsize}-byte elements")
+    cpg = c // groups
+    gps = next((d for d in range(1, groups + 1) if groups % d == 0 and d * cpg * itemsize >= 128),
+               groups)
+    slab = gps * cpg
+    sb, rb = slab * itemsize, c * itemsize
+    if sb % GN_VEC_BYTES or rb % GN_VEC_BYTES:
+        raise ValueError(f"group_norm: a {sb}-byte slab of a {rb}-byte row is not a whole "
+                         f"number of {GN_VEC_BYTES}-byte copies")
+    fixed = _round16(4 * (2 * GN_THREADS * (GN_VEC_BYTES // itemsize) + 6 * slab + 2 * gps))
+    target = sms - sms // 16
+    slabs = groups // gps
+    units = b * slabs
+    chunk_rows = max(1, _GN_CHUNK_BYTES // sb)
+    plan = functools.partial(GroupNormPlan, slab=slab, slabs=slabs, groups=gps)
+    for k in (1, 2, 4, 8):
+        rows = -(-hw // k)
+        smem = fixed + _round16(rows * sb)
+        if (units * k >= target or k == GN_MAX_CLUSTER) and smem <= _SMEM_LIMIT:
+            return plan(cluster=k, staged=True, smem=smem, chunk_rows=chunk_rows, rows=rows)
+    ring = fixed + _round16(_GN_RING * chunk_rows * sb)
+    for k in (1, 2, 4, 8):
+        if units * k >= target:
+            return plan(cluster=k, staged=False, smem=ring, chunk_rows=chunk_rows,
+                        rows=-(-hw // k))
+    chunk_rows = max(1, 2 * _GN_CHUNK_BYTES // sb)
+    return plan(cluster=GN_MAX_CLUSTER, staged=False,
+                smem=fixed + _round16(_GN_RING * chunk_rows * sb), chunk_rows=chunk_rows,
+                rows=-(-hw // GN_MAX_CLUSTER))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # one-pass admission, the JAX constants under their names (a test may
@@ -171,7 +170,6 @@ _ONEPASS_MAX_BYTES = 3 * 1024 * 1024
 _ONEPASS_MIN_ELEMS = 1 << 19
 # A2's CTA: 512 threads, one (sample, group) slice staged in shared memory
 _ONEPASS_THREADS = 512
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 
 
 def _pick_hw_block(hw: int, c: int) -> Optional[int]:
@@ -201,9 +199,6 @@ def _onepass_smem(hw: int, cpg: int, itemsize: int) -> int:
     return 2 * _ONEPASS_THREADS * vec * 4 + (stats + 15) // 16 * 16 + hw * cpg * itemsize
 
 
-_ONEPASS_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-
-
 def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                        num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
                        add_row: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -214,7 +209,7 @@ def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     raises. Forward only: :func:`group_norm` gives it its backward."""
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
-    if x.device.type != "cuda" or x.dtype not in _ONEPASS_DTYPES or not x.is_contiguous():
+    if x.device.type != "cuda" or x.dtype not in _DTYPES or not x.is_contiguous():
         raise ValueError("group_norm_onepass: needs a contiguous bf16 or fp32 CUDA tensor")
     b, c = x.shape[0], x.shape[-1]
     hw = x.numel() // (b * c)
@@ -239,7 +234,7 @@ def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     code = _build.cuda_lib().ctrlora_group_norm_onepass(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         None if row is None else row.data_ptr(), y.data_ptr(), b, hw, c, num_groups,
-        row_stride, float(eps), int(silu), _ONEPASS_DTYPES[x.dtype], smem,
+        row_stride, float(eps), int(silu), _DTYPES[x.dtype], smem,
         _build.stream_ptr(x.device))
     _build.check(code, "group_norm_onepass")
     group_norm_onepass.launches += 1
@@ -257,41 +252,30 @@ def _forward(x, scale, bias, num_groups, eps, silu, add_row):
         return group_norm_onepass(x, scale, bias, num_groups, eps, silu, add_row)
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm: unsupported device {x.device}")
-    import triton
-
-    if not x.is_contiguous():
-        raise ValueError("group_norm: x must be contiguous [B, ..., C]")
-    b, c = x.shape[0], x.shape[-1]
+    if (x.device.type != "cuda" or x.dtype not in _DTYPES or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError("group_norm: needs a contiguous, 16-byte aligned bf16 or fp32 CUDA "
+                         "tensor [B, ..., C]")
     if c % num_groups:
         raise ValueError(f"group_norm: {c} channels do not split into {num_groups} groups")
-    hw = x.numel() // (b * c)
-    chunk = min(_CHUNK_ROWS, _cdiv(hw, _BLOCK_R) * _BLOCK_R)
-    n_chunks = _cdiv(hw, chunk)
-    n_cb = _cdiv(c, _BLOCK_C)
     if scale.dtype != torch.float32 or bias.dtype != torch.float32:
         raise ValueError("group_norm: scale and bias must be fp32")
-    gn_stats, gn_affine, gn_apply = _kernels()
-    part = torch.empty((2, b, n_chunks, c), device=x.device, dtype=torch.float32)
-    gn_stats[(b, n_chunks, n_cb)](x, part[0], part[1], hw, c, hw * c, chunk,
-                                  BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C)
-    ab = torch.empty((2, b, c), device=x.device, dtype=torch.float32)
-    cpg = c // num_groups
-    row = None
+    row, row_stride = None, 0
     if add_row is not None:
         row = add_row.reshape(-1, c)
-        if row.shape[0] not in (1, b) or not row.is_contiguous():
-            raise ValueError(f"group_norm: add_row {tuple(add_row.shape)} is not [C], [1, C] or [B, C]")
-    gn_affine[(b, num_groups)](part[0], part[1], scale, bias, ab if row is None else row,
-                               ab[0], ab[1], hw, c, n_chunks, cpg,
-                               0 if row is None or row.shape[0] == 1 else c, eps,
-                               HAS_ROW=row is not None,
-                               BLOCK=triton.next_power_of_2(cpg))
-    a, bb = ab[0], ab[1]
+        if (row.shape[0] not in (1, b) or not row.is_contiguous()
+                or row.dtype not in (torch.bfloat16, torch.float32)):
+            raise ValueError(f"group_norm: add_row {tuple(add_row.shape)} {add_row.dtype} is "
+                             "not a contiguous bf16 or fp32 [C], [1, C] or [B, C]")
+        row_stride = 0 if row.shape[0] == 1 else c
+    scale, bias = scale.contiguous(), bias.contiguous()  # held until the launch returns
     y = torch.empty_like(x)
-    gn_apply[(b, _cdiv(hw, _BLOCK_R), n_cb)](x, y, a, bb, hw, c, hw * c,
-                                            SILU=silu, BLOCK_R=_BLOCK_R, BLOCK_C=_BLOCK_C)
+    code = _build.cuda_lib().ctrlora_group_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), None if row is None else row.data_ptr(),
+        y.data_ptr(), b, x.numel() // (b * c), c, num_groups, row_stride,
+        int(row is not None and row.dtype == torch.float32), float(eps), int(silu),
+        _DTYPES[x.dtype], _sms(x.device.index), _build.stream_ptr(x.device))
+    _build.check(code, "group_norm")
     group_norm.launches += 1
     return y
 

@@ -88,6 +88,23 @@ def time_ms(fn, iters=20) -> float:
     return times[len(times) // 2]
 
 
+def time_b2b(fn, calls=20) -> float:
+    """Device ms per call of fn(), `calls` calls queued behind a sleep kernel
+    between one pair of CUDA events: the host's launch time stays out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms of the card's clock
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / calls
+
+
 def main(argv) -> int:
     import torch
 

@@ -29,7 +29,8 @@ def test_port_modules_cover_the_slice():
                 "training.losses", "training.train_state", "training.step",
                 "training.trainer", "api", "ops.kernel_flags", "utils.tokenizer",
                 "utils.image", "utils.ckpt_torch", "utils.loading", "tools.ablate_flash",
-                "tools.ablate_geglu", "tools.ablate_flash_bwd", "tools.time_flash_bwd"):
+                "tools.ablate_geglu", "tools.ablate_flash_bwd", "tools.time_flash_bwd",
+                "tools.ablate_hpack2", "tools.ablate_group_norm", "tools.time_gn_hpack2"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
