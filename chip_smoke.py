@@ -12,16 +12,19 @@ the script exits non-zero:
 2. build the CUDA kernels from ctrlora_tpu_torch/csrc (nvcc, sm_90a) and
    gate them: C, B6 and B4/B5 on wgmma (HGMMA, no HMMA in the SASS), B6
    and B4/B5 without spills or wgmma serialised by accumulator accesses,
-   A without spills, and the tilings of A, B6 and B4/B5 as their Python
-   mirrors (group_norm_plan, hpack2_plan, flash_bwd_plan) say;
+   A (and A2, the same kernel) and D without spills, the tilings of A, A2,
+   B6 and B4/B5 as their Python mirrors (group_norm_plan,
+   group_norm_onepass_plan, hpack2_plan, flash_bwd_plan) say, with the
+   waves A2's plan makes, and D's layout capacity as UNPACK_MAX_ROWS;
 3. each hand-written kernel against its plain PyTorch version at the
-   paths' shapes, in bf16 (A also in fp32): max error (relative L2 for
-   gradients) and median time of both (for A2 and B6 also of the kernel
-   each stands beside: A, and B's BSHD and fused-qkv entries; for C also
-   its two launches alone, up_ms and down_ms; for A, B6 and B4/B5 also
-   the time per call of 20 calls queued back to back, b2b_ms, beside the
-   library call's, and two launches bit-equal; for A one device kernel per
-   call, counted by torch.profiler);
+   paths' shapes, in bf16 (A and A2 also in fp32): max error (relative L2
+   for gradients) and median time of both (for A2 and B6 also of the
+   kernel each stands beside: A, and B's BSHD and fused-qkv entries; for C
+   also its two launches alone, up_ms and down_ms; for A, A2, B6, B4/B5
+   and D also the time per call of 20 calls queued back to back, b2b_ms,
+   beside the library call's, and two launches bit-equal (D: equal to its
+   plain version); for A and A2 one device kernel per call, counted by
+   torch.profiler; for C and D the wrapper's host time per call);
 4. the sampling slice at SD1.5 width: ctrlora_inference_config(1, 128) with
    seeded random weights, one rank-128 LoRA fused, bf16; 4 prompts of 77
    token ids, a 512x512 hint, DDIM at CFG 7.5 and eta 0, decode; counts the
@@ -63,8 +66,8 @@ written once, at 3.35 TB/s; bound_by says which), pct_of_bound, and
 library_ms, the time of one PyTorch call that computes the same function
 (F.scaled_dot_product_attention for the flash forwards, its autograd
 backward for dQ and dK/dV together, F.group_norm where there is no row or
-SiLU; null where no call does: GEGLU, the row unpack). The port never calls
-these.
+SiLU, torch.take with a cached flat index for the row unpack; null where no
+call does: GEGLU). The port never calls these.
 
     python3 chip_smoke.py --profile N
 
@@ -146,7 +149,7 @@ def bound_ms(flops: float, nbytes: float):
 KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
     "group_norm": ("cuda", "ctrlora_tpu_torch/csrc/group_norm.cu",
                    "ctrlora_tpu/ops/group_norm.py:30 _stats_kernel + :47 _apply_kernel"),
-    "group_norm_onepass": ("cuda", "ctrlora_tpu_torch/csrc/group_norm_onepass.cu",
+    "group_norm_onepass": ("cuda", "ctrlora_tpu_torch/csrc/group_norm.cu",
                            "ctrlora_tpu/ops/group_norm.py:55 _onepass_kernel"),
     "flash_attention": ("cuda", "ctrlora_tpu_torch/csrc/flash_attention.cu",
                         "ctrlora_tpu/ops/flash_attention.py:58 _fwd_kernel"),
@@ -162,7 +165,7 @@ KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
                                 "ctrlora_tpu/ops/flash_attention.py:651 _bwd_dkv_kernel"),
     "geglu_ffn": ("cuda", "ctrlora_tpu_torch/csrc/geglu_ffn.cu",
                   "ctrlora_tpu/ops/geglu_ffn.py:59 _geglu_kernel + :120 _geglu_kernel_blocked"),
-    "unpack_rows": ("triton", "ctrlora_tpu_torch/ops/unpack_rows.py",
+    "unpack_rows": ("cuda", "ctrlora_tpu_torch/csrc/unpack_rows.cu",
                     "ctrlora_tpu/ops/unpack_rows.py:32 _unpack_kernel"),
 }
 
@@ -202,6 +205,11 @@ GN_CASES = (
     ((4, 64, 64, 512), torch.bfloat16, 1e-6, False, False),
     ((4, 512, 512, 128), torch.float32, 1e-6, True, False),
 )
+# kernel A2's [HW, C] samples (batch 8 in phase 3): the five sampling-path
+# shapes gn1=1 admits in bf16, and the two of them it admits in fp32
+ONEPASS_SHAPES = ((64 * 64, 320), (32 * 32, 640), (32 * 32, 960), (32 * 32, 1280),
+                  (16 * 16, 2560))
+ONEPASS_FP32_SHAPES = ((32 * 32, 640), (16 * 16, 2560))
 # kernel B6's rows: (label, B, S, H, D, as views of the fused projection)
 HPACK2_CASES = (("[8, 4096, 8, 40]", 8, 4096, 8, 40, False),
                 ("views of [8, 4096, 3*8*40]", 8, 4096, 8, 40, True),
@@ -441,25 +449,46 @@ def kernel_checks(dev, cfg):
 
     # A2: the one-pass GroupNorm at the five shapes gn1=1 admits on the
     # sampling path (the last: the UNet decoder's 16x16 in_norms over the
-    # concatenated skip), with and without row and SiLU, beside kernel A
-    for shape in ((8, 64, 64, 320), (8, 32, 32, 640), (8, 32, 32, 960), (8, 32, 32, 1280),
-                  (8, 16, 16, 2560)):
-        c = shape[-1]
-        x = rn(*shape, std=2.0) + 0.5
+    # concatenated skip), with and without row and SiLU, and at two fp32
+    # shapes gn1=1 admits; one device kernel a call, the same bits from two
+    # launches, its back-to-back time beside kernel A's and (no row, no
+    # SiLU) the library call's at the same inputs
+    a2_args = []
+    for (hw, c), dt in [(s_, torch.bfloat16) for s_ in ONEPASS_SHAPES] + \
+            [(s_, torch.float32) for s_ in ONEPASS_FP32_SHAPES]:
+        side = math.isqrt(hw)
+        x = rn(8, side, side, c, std=2.0, dt=dt) + 0.5
         sc, bi = rn(c, dt=torch.float32, std=0.1) + 1, rn(c, dt=torch.float32, std=0.1)
-        for silu, row in ((True, rn(1, c, std=0.5)), (False, None),
-                          (True, rn(shape[0], c, std=0.5))):
-            args = (x, sc, bi, 32, 1e-5, silu, row)
-            record("group_norm_onepass", f"{list(shape)} silu={silu} add_row="
-                   f"{None if row is None else list(row.shape)}",
-                   gn_ops.group_norm_onepass(*args), gn_ops.group_norm_plain(*args),
-                   lambda: gn_ops.group_norm_onepass(*args),
-                   lambda: gn_ops.group_norm_plain(*args),
-                   gn_ops.group_norm_work(shape[0], shape[1] * shape[2], c, 2,
-                                          0 if row is None else row.shape[0]),
-                   library=None if silu or row is not None else group_norm_library(x, sc, bi,
-                                                                                   1e-5),
-                   kernel_a_ms=time_ms(lambda: gn_ops.group_norm(*args)))
+        rows_ = ((True, rn(1, c, std=0.5, dt=dt)), (False, None),
+                 (True, rn(8, c, std=0.5, dt=torch.float32)))
+        a2_args += [(x, sc, bi, 32, 1e-5, silu, row) for silu, row in
+                    (rows_ if dt == torch.bfloat16 else rows_[:2])]
+    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm_onepass(*a) for a in a2_args]) \
+        / len(a2_args)
+    if kernels_per_call != 1:
+        raise AssertionError(f"group_norm_onepass: {kernels_per_call} device kernels per call")
+    for args in a2_args:
+        x, sc, bi, _, _, silu, row = args
+        b, c = x.shape[0], x.shape[-1]
+        y = gn_ops.group_norm_onepass(*args)
+        if not torch.equal(y, gn_ops.group_norm_onepass(*args)):
+            raise AssertionError(f"group_norm_onepass {list(x.shape)}: two launches differ")
+        library = None if silu or row is not None else group_norm_library(x, sc, bi, 1e-5)
+        fn = lambda: gn_ops.group_norm_onepass(*args)
+        record("group_norm_onepass", f"{list(x.shape)} {str(x.dtype)[6:]} silu={silu} add_row="
+               f"{None if row is None else [list(row.shape), str(row.dtype)[6:]]}",
+               y, gn_ops.group_norm_plain(*args), fn, lambda: gn_ops.group_norm_plain(*args),
+               gn_ops.group_norm_work(b, x.shape[1] * x.shape[2], c, x.element_size(),
+                                      0 if row is None else row.shape[0]),
+               library=library, b2b_ms=time_b2b(fn), bit_equal_runs=True,
+               device_kernels_per_call=kernels_per_call,
+               library_b2b_ms=time_b2b(library[1]) if library else None,
+               kernel_a_ms=time_ms(lambda: gn_ops.group_norm(*args)),
+               kernel_a_b2b_ms=time_b2b(lambda: gn_ops.group_norm(*args)),
+               plan=dataclasses.asdict(gn_ops.group_norm_onepass_plan(
+                   b, x.shape[1] * x.shape[2], c, 32, x.element_size(), sms)))
+        del y
+    del a2_args, x, sc, bi, args
 
     # B6: the head-pair forward at the 64x64 sites, contiguous and as split
     # views of the fused projection, and at D = 64; beside B's BSHD and
@@ -585,6 +614,10 @@ def kernel_checks(dev, cfg):
         host_us_per_call=host_us(lambda: geglu_ops.geglu_ffn(*args)),
         plain_host_us_per_call=host_us(lambda: geglu_ops.geglu_ffn_plain(*args)))
 
+    # D at one step's block of one-LoRA sampling: bit-equal to its plain
+    # version; beside its time, its host time per call (the step is
+    # host-bound) and the library call: torch.take with a cached flat index
+    # gives the concatenation of every block[i, :C_i]
     sizes = emb_row_sizes(cfg)
     block = rn(len(sizes), max(sizes))
     rows = unpack_ops.unpack_rows(block, sizes)
@@ -592,10 +625,18 @@ def kernel_checks(dev, cfg):
     for a, b in zip(rows, prows):
         if not torch.equal(a, b):
             raise AssertionError("unpack_rows differs from its plain version")
+    index = torch.cat([torch.arange(c, device=dev) + i * block.stride(0)
+                       for i, c in enumerate(sizes)])
+    library = ("torch.take (cached flat index)", lambda: torch.take(block, index))
+    if not torch.equal(library[1](), torch.cat(rows, 1)[0]):
+        raise AssertionError("torch.take of the cached index differs from unpack_rows")
+    fn = lambda: unpack_ops.unpack_rows(block, sizes)
+    plain = lambda: unpack_ops.unpack_rows_plain(block, sizes)
     record("unpack_rows", f"[{len(sizes)}, {max(sizes)}]", torch.cat(rows, 1),
-           torch.cat(prows, 1), lambda: unpack_ops.unpack_rows(block, sizes),
-           lambda: unpack_ops.unpack_rows_plain(block, sizes),
-           unpack_ops.unpack_rows_work(sizes))
+           torch.cat(prows, 1), fn, plain, unpack_ops.unpack_rows_work(sizes),
+           library=library, b2b_ms=time_b2b(fn), library_b2b_ms=time_b2b(library[1]),
+           bit_equal=True, host_us_per_call=host_us(fn), plain_host_us_per_call=host_us(plain),
+           library_host_us_per_call=host_us(library[1]))
     return results
 
 
@@ -758,7 +799,7 @@ def slice_run(dev, cfg, profile_steps=0):
     x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
 
     t0 = time.perf_counter()
-    sample(pipe, ids, uncond, hint, x_T, steps=2)  # warm-up: Triton compiles here
+    sample(pipe, ids, uncond, hint, x_T, steps=2)  # warm-up
     log("slice", warmup_s=time.perf_counter() - t0, steps=2)
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -873,7 +914,7 @@ def train_slice(dev, profile=False):
         params=sum(p.numel() for p in named.values()))
 
     t0 = time.perf_counter()
-    trainer.fit(batches[:WARMUP_STEPS], max_steps=WARMUP_STEPS)  # Triton compiles here
+    trainer.fit(batches[:WARMUP_STEPS], max_steps=WARMUP_STEPS)  # warm-up
     torch.cuda.synchronize()
     log("train", warmup_s=time.perf_counter() - t0, steps=WARMUP_STEPS)
 
@@ -1174,8 +1215,10 @@ def build_gates(dev) -> None:
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
     nothing and ptxas serialises none of their wgmmas for accumulator
     accesses (C7514/C7515: a plain instruction touching an accumulator
-    inside a batch); A spills nothing; and A's, B6's and B4/B5's tilings are
-    what their Python mirrors say."""
+    inside a batch); A (and so A2, the same kernel) and D spill nothing;
+    A's, A2's, B6's and B4/B5's tilings are what their Python mirrors say,
+    with the waves A2's plan makes; and D's layout holds as many rows as
+    its Python mirror says."""
     for what, name in (("geglu", "geglu"), ("flash_bwd", "flash_bwd"),
                        ("flash_hpack2", "flash_hpack2")):
         sass = _build.sass_opcodes(("HGMMA", "HMMA"), name)
@@ -1189,10 +1232,10 @@ def build_gates(dev) -> None:
     if touched:
         raise AssertionError(f"B4/B5/B6 wgmmas serialised by accumulator accesses: {touched}")
     spilled = {name: _build.spilling_kernels(name)
-               for name in ("flash_bwd", "flash_hpack2", "gn_cluster")}
+               for name in ("flash_bwd", "flash_hpack2", "gn_cluster", "unpack_rows")}
     log("build", spills=spilled)
     if any(spilled.values()):
-        raise AssertionError(f"B4/B5, B6 or A spill registers: {spilled}")
+        raise AssertionError(f"B4/B5, B6, A/A2 or D spill registers: {spilled}")
 
     lib = _build.cuda_lib()
     configs_c = {}
@@ -1230,6 +1273,35 @@ def build_gates(dev) -> None:
                          "clusters": plan.blocks(b) // plan.cluster,
                          "max_active_clusters": out[8], **dataclasses.asdict(plan)})
     log("build", group_norm_plans=gn_plans)
+    # A2: its plan at the shapes gn1=1 admits, at both batches, in bf16 and
+    # in fp32 where admitted, and the waves it makes there
+    onepass_plans = []
+    for (hw, c), b, dt in ((s, b, dt) for s in ONEPASS_SHAPES for b in (8, 4)
+                           for dt in (torch.bfloat16, torch.float32)):
+        with kernel_flags.override(gn_onepass=True):
+            if not gn_ops._onepass_ok(hw, c, dt, 32):
+                continue
+        item = torch.empty((), dtype=dt).element_size()
+        out = (ctypes.c_int * 9)()
+        _build.check(lib.ctrlora_group_norm_onepass_config(b, hw, c, 32, item, sms, out),
+                     "ctrlora_group_norm_onepass_config")
+        plan = gn_ops.group_norm_onepass_plan(b, hw, c, 32, item, sms)
+        if list(out)[:8] != plan.as_list():
+            raise AssertionError(f"group_norm_onepass_plan{(b, hw, c, 32, item, sms)} = {plan}, "
+                                 f"the kernel: {list(out)[:8]}")
+        clusters = plan.blocks(b) // plan.cluster
+        onepass_plans.append({"shape": [b, hw, c], "dtype": str(dt)[6:], "clusters": clusters,
+                              "max_active_clusters": out[8],
+                              "waves": -(-clusters // out[8]) if out[8] else None,
+                              **dataclasses.asdict(plan)})
+    log("build", group_norm_onepass_plans=onepass_plans)
+    if len({(p["shape"][1], p["shape"][2]) for p in onepass_plans}) != len(ONEPASS_SHAPES):
+        raise AssertionError("gn1=1 does not admit every A2 shape in bf16")
+    capacity = lib.ctrlora_unpack_rows_capacity()
+    log("build", unpack_rows_capacity=capacity)
+    if capacity != unpack_ops.UNPACK_MAX_ROWS:
+        raise AssertionError(f"D's layout holds {capacity} rows, UNPACK_MAX_ROWS says "
+                             f"{unpack_ops.UNPACK_MAX_ROWS}")
 
 
 def main(argv) -> int:
@@ -1252,7 +1324,7 @@ def main(argv) -> int:
     spills = [ln.strip() for ln in _build.ptxas_report().splitlines()
               if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     log("build", cuda_library_s=time.perf_counter() - t0, nvcc_flags=" ".join(_build.NVCC_FLAGS),
-        ptxas_spills=spills, note="the Triton kernel (D) compiles at its first launch (phase 3)")
+        ptxas_spills=spills)
     build_gates(dev)
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)

@@ -2,6 +2,6 @@
 
 The JAX package ``ctrlora_tpu`` is the reference this package is held
 against. This package imports torch and numpy only; its kernels
-(``ops/``) are written by hand for sm_90a in CUDA C++ (``csrc/``) or Triton
-and built at first use.
+(``ops/``) are written by hand for sm_90a in CUDA C++ (``csrc/``), built
+with nvcc at first use.
 """

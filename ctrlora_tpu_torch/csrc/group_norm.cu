@@ -13,9 +13,9 @@
 // What bounds it on the H100: a few flops per element, so device memory: x
 // read once and y written once (0.0125 ms at [8, 64*64, 320] bf16 at 3.35
 // TB/s). The TPU kernels carried the channel sums across sequential grid
-// steps; Hopper blocks run in no order, and the Triton kernel that stood
-// here took three launches (partial sums to a scratch, a per-group
-// epilogue, the apply) and read x twice.
+// steps; Hopper blocks run in no order, and the first port of this kernel
+// took three launches (partial sums to a scratch, a per-group epilogue, the
+// apply) and read x twice.
 //
 // Design: one launch. A thread-block cluster of K <= 8 blocks owns one
 // (sample, slab), a slab being the fewest whole groups whose channels make
@@ -45,6 +45,19 @@
 // The plan is `gn_plan` below; its Python mirror is ops/group_norm.py
 // `group_norm_plan`, and ctrlora_group_norm_config reports it (with
 // cudaOccupancyMaxActiveClusters of the launch) for the two to be checked.
+//
+// Kernel A2, the second C entry (ctrlora_group_norm_onepass), replaces the
+// TPU kernel ctrlora_tpu/ops/group_norm.py `_onepass_kernel` :55 (launched
+// from `fused_group_norm` :195), which holds a whole sample (<= 3 MiB) in
+// VMEM and reads x once. A sample does not fit one block's 227 KB, but it
+// fits a cluster's distributed shared memory, so A2 is this kernel's staged
+// path under its own plan, `gn_onepass_plan`: always staged (x read once at
+// every shape A2 takes; no staged plan, no launch), clusters of up to 16
+// blocks (a non-portable size), and the cluster size chosen so the whole
+// grid is resident in one wave, where kernel A's plan may take two (at
+// [8, 64*64, 320]: 32 clusters of 7 blocks, two a SM, against A's 32
+// clusters of 4 of which the card holds 30). Its Python mirror is
+// `group_norm_onepass_plan`; ctrlora_group_norm_onepass_config reports it.
 
 #include <cooperative_groups.h>
 
@@ -60,8 +73,12 @@ constexpr int kVec = 16;           // bytes of one copy and one thread column
 constexpr int kChunkBytes = 16384;  // a chunk of rows in flight
 constexpr int kRing = 4;            // re-read path: chunk buffers
 constexpr int kAhead = 3;           // chunks in flight ahead of the one summed
-constexpr int kMaxCluster = 8;
+constexpr int kMaxCluster = 8;          // kernel A
+constexpr int kMaxClusterOnepass = 16;  // kernel A2 (a non-portable cluster size)
 constexpr int kSmemLimit = 232448;  // a block's shared memory
+constexpr long long kOnepassMaxBytes = 3 << 20;  // A2: a sample's bytes at most
+constexpr int kSmSmem = 233472;     // an SM's shared memory
+constexpr int kBlockReserve = 1024;  // of it, held by the system for each block
 
 struct GnPlan {
   int cluster;     // K blocks a (sample, slab)
@@ -83,16 +100,18 @@ inline int fixed_bytes(int slab, int gps, int vec) {
   return round16(4LL * (2 * kThreads * vec + 6 * slab + 2 * gps));
 }
 
-// returns false where the shape cannot take the kernel
+// the fewest whole groups (a divisor of G) whose channels make a run of
+// >= 128 contiguous bytes of a row, or all G
+inline int slab_groups(int C, int G, int itemsize) {
+  for (int d = 1; d <= G; ++d)
+    if (G % d == 0 && d * (C / G) * itemsize >= 128) return d;
+  return G;
+}
+
+// kernel A's plan; returns false where the shape cannot take the kernel
 inline bool gn_plan(int B, int HW, int C, int G, int itemsize, int sms, GnPlan* p) {
   if (B <= 0 || HW <= 0 || G <= 0 || C % G != 0 || (itemsize != 2 && itemsize != 4)) return false;
-  const int cpg = C / G;
-  int gps = G;
-  for (int d = 1; d <= G; ++d)
-    if (G % d == 0 && d * cpg * itemsize >= 128) {
-      gps = d;
-      break;
-    }
+  const int cpg = C / G, gps = slab_groups(C, G, itemsize);
   const int slab = gps * cpg, sb = slab * itemsize, rb = C * itemsize;
   if (sb % kVec != 0 || rb % kVec != 0) return false;
   p->slab = slab;
@@ -133,6 +152,65 @@ inline bool gn_plan(int B, int HW, int C, int G, int itemsize, int sms, GnPlan* 
   p->rows = (HW + kMaxCluster - 1) / kMaxCluster;
   p->smem = fixed + round16((long long)kRing * p->chunk_rows * sb);
   return true;
+}
+
+// Kernel A2's plan at one cluster size k and a slab of gps groups: always
+// staged (each block keeps its rows of the slab in shared memory, so x is
+// read once); false where the rows do not fit or the slab cannot be copied
+// in 16-byte columns by one block's threads
+inline bool onepass_plan_k(int B, int HW, int C, int G, int itemsize, int k, int gps,
+                           GnPlan* p) {
+  if (B <= 0 || HW <= 0 || G <= 0 || C % G != 0 || (itemsize != 2 && itemsize != 4) ||
+      gps <= 0 || G % gps != 0 || k < 1 || k > kMaxClusterOnepass)
+    return false;
+  const int slab = gps * (C / G), sb = slab * itemsize;
+  if (sb % kVec != 0 || (C * itemsize) % kVec != 0 || sb / kVec > kThreads) return false;
+  const int rows = (HW + k - 1) / k;
+  const long long bytes =
+      (long long)fixed_bytes(slab, gps, kVec / itemsize) + round16((long long)rows * sb);
+  if (bytes > kSmemLimit) return false;
+  p->cluster = k;
+  p->slab = slab;
+  p->slabs = G / gps;
+  p->groups = gps;
+  p->staged = 1;
+  p->smem = static_cast<int>(bytes);
+  p->rows = rows;
+  p->chunk_rows = kChunkBytes / sb > 0 ? kChunkBytes / sb : 1;
+  return true;
+}
+
+// Kernel A2's plan: A's slab, and the cluster size that makes the grid run
+// in one wave, as many blocks as that allows (the finest split of the
+// work). Blocks per SM m = 2 where the rows fit half an SM's shared memory,
+// else m = 1; the grid must fit m blocks a SM, and 7/8 of that for clusters
+// of 3 or more blocks, which the card's GPCs cannot pack without gaps
+// (cudaOccupancyMaxActiveClusters on the H100 SXM: 32 clusters of 7 blocks
+// at two a SM, 30 of 4 and 39 of 3 at one a SM). The largest k of
+// 1..16 that meets both; where none does, the smallest that stages. A
+// sample over 3 MiB (the TPU kernel's resident limit) has no plan.
+inline bool gn_onepass_plan(int B, int HW, int C, int G, int itemsize, int sms, GnPlan* p) {
+  if (G <= 0 || C % G != 0 || (itemsize != 2 && itemsize != 4) ||
+      (long long)HW * C * itemsize > kOnepassMaxBytes)
+    return false;
+  const int gps = slab_groups(C, G, itemsize);
+  for (int m = 2; m >= 1; --m) {
+    const int per_block = kSmSmem / m - kBlockReserve;  // <= kSmemLimit
+    bool found = false;
+    for (int k = 1; k <= kMaxClusterOnepass; ++k) {
+      GnPlan q;
+      if (!onepass_plan_k(B, HW, C, G, itemsize, k, gps, &q) || q.smem > per_block) continue;
+      const long long cap = k <= 2 ? (long long)m * sms : (long long)m * sms * 7 / 8;
+      if ((long long)B * q.slabs * k <= cap) {
+        *p = q;
+        found = true;
+      }
+    }
+    if (found) return true;
+  }
+  for (int k = 1; k <= kMaxClusterOnepass; ++k)
+    if (onepass_plan_k(B, HW, C, G, itemsize, k, gps, p)) return true;
+  return false;
 }
 
 template <typename T>
@@ -290,13 +368,20 @@ __global__ void __launch_bounds__(kThreads) gn_cluster(const GnArgs a) {
     xsum[ch] = cs;
     xsum[slab + ch] = cq;
   }
-  cluster.sync();  // every block's sums are written
+  // a cluster of one block needs only its own barrier
+  auto cluster_sync = [&] {
+    if (K > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  cluster_sync();  // every block's sums are written
 
   // the cluster's sums in rank order, the row folded in per channel
   for (int ch = threadIdx.x; ch < slab; ch += kThreads) {
     float cs = 0.f, cq = 0.f;
     for (int k = 0; k < K; ++k) {
-      const float* peer = cluster.map_shared_rank(xsum, k);
+      const float* peer = K > 1 ? cluster.map_shared_rank(xsum, k) : xsum;
       cs += peer[ch];
       cq += peer[slab + ch];
     }
@@ -312,18 +397,27 @@ __global__ void __launch_bounds__(kThreads) gn_cluster(const GnArgs a) {
     fold[slab + ch] = cq;
     aff[slab + ch] = rv;  // kept for the affine
   }
-  cluster.sync();  // no block reads a peer's sums after this: it may exit
-  const int cpg = slab / gps;
-  for (int gi = threadIdx.x; gi < gps; gi += kThreads) {
+  cluster_sync();  // no block reads a peer's sums after this: it may exit
+  // the group statistics: one warp a group, its lanes over the group's
+  // channels, then a butterfly of shuffles (the same order every run)
+  const int cpg = slab / gps, lane = threadIdx.x % 32;
+  for (int gi = threadIdx.x / 32; gi < gps; gi += kThreads / 32) {
     float gs = 0.f, gq = 0.f;
-    for (int c = gi * cpg; c < (gi + 1) * cpg; ++c) {
+    for (int c = gi * cpg + lane; c < (gi + 1) * cpg; c += 32) {
       gs += fold[c];
       gq += fold[slab + c];
     }
-    const float n = (float)a.HW * (float)cpg;
-    const float mean = gs / n;
-    gst[gi] = mean;
-    gst[gps + gi] = rsqrtf(gq / n - mean * mean + a.eps);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      gs += __shfl_xor_sync(0xffffffffu, gs, o);
+      gq += __shfl_xor_sync(0xffffffffu, gq, o);
+    }
+    if (lane == 0) {
+      const float n = (float)a.HW * (float)cpg;
+      const float mean = gs / n;
+      gst[gi] = mean;
+      gst[gps + gi] = rsqrtf(gq / n - mean * mean + a.eps);
+    }
   }
   __syncthreads();
   for (int ch = threadIdx.x; ch < slab; ch += kThreads) {
@@ -368,8 +462,10 @@ cudaError_t launch(const GnArgs& a, int B, cudaStream_t stream, int* max_cluster
   auto kern = gn_cluster<T, STAGED>;
   static bool attr_set = false;  // the attribute holds for the process
   if (!attr_set) {
-    const cudaError_t err =
+    cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -400,17 +496,18 @@ cudaError_t dispatch(const GnArgs& a, int B, cudaStream_t s, int* max_clusters) 
 }  // namespace
 }  // namespace ctrlora
 
+using PlanFn = bool (*)(int, int, int, int, int, int, ctrlora::GnPlan*);
+
 // x, y: [B, HW, C] contiguous, 16-byte aligned; dtype 0 bf16, 1 fp32; scale,
 // bias fp32 [C]; row: nullptr or [1 or B, C] (row_stride 0 or C), fp32 where
-// row_f32 else bf16; sms: the card's multiprocessors (the plan's target)
-extern "C" int ctrlora_group_norm(const void* x, const void* scale, const void* bias,
-                                  const void* row, void* y, int B, int HW, int C, int G,
-                                  long long row_stride, int row_f32, float eps, int silu,
-                                  int dtype, int sms, void* stream) {
+// row_f32 else bf16; sms: the card's multiprocessors (the plan's input)
+static int run(PlanFn plan, const void* x, const void* scale, const void* bias, const void* row,
+               void* y, int B, int HW, int C, int G, long long row_stride, int row_f32,
+               float eps, int silu, int dtype, int sms, void* stream) {
   using namespace ctrlora;
   GnArgs a{x, static_cast<const float*>(scale), static_cast<const float*>(bias), row, y, HW, C,
            G, row_f32, row_stride, eps, silu, {}};
-  if ((dtype != 0 && dtype != 1) || !gn_plan(B, HW, C, G, dtype ? 4 : 2, sms, &a.p))
+  if ((dtype != 0 && dtype != 1) || !plan(B, HW, C, G, dtype ? 4 : 2, sms, &a.p))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype ? dispatch<float>(a, B, s, nullptr)
@@ -420,11 +517,10 @@ extern "C" int ctrlora_group_norm(const void* x, const void* scale, const void* 
 // the plan at one shape: out[0..7] = cluster, slab, slabs, staged, smem,
 // chunk_rows, rows, groups of a slab; out[8] =
 // cudaOccupancyMaxActiveClusters of that launch (on the current device)
-extern "C" int ctrlora_group_norm_config(int B, int HW, int C, int G, int itemsize, int sms,
-                                         int* out) {
+static int config(PlanFn plan, int B, int HW, int C, int G, int itemsize, int sms, int* out) {
   using namespace ctrlora;
   GnArgs a{};
-  if (!gn_plan(B, HW, C, G, itemsize, sms, &a.p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan(B, HW, C, G, itemsize, sms, &a.p)) return static_cast<int>(cudaErrorInvalidValue);
   const GnPlan& p = a.p;
   const int vals[8] = {p.cluster, p.slab, p.slabs, p.staged, p.smem, p.chunk_rows, p.rows,
                        p.groups};
@@ -435,4 +531,33 @@ extern "C" int ctrlora_group_norm_config(int B, int HW, int C, int G, int itemsi
   const cudaError_t err = itemsize == 4 ? dispatch<float>(a, B, nullptr, &out[8])
                                         : dispatch<bf16>(a, B, nullptr, &out[8]);
   return static_cast<int>(err);
+}
+
+// kernel A
+extern "C" int ctrlora_group_norm(const void* x, const void* scale, const void* bias,
+                                  const void* row, void* y, int B, int HW, int C, int G,
+                                  long long row_stride, int row_f32, float eps, int silu,
+                                  int dtype, int sms, void* stream) {
+  return run(ctrlora::gn_plan, x, scale, bias, row, y, B, HW, C, G, row_stride, row_f32, eps,
+             silu, dtype, sms, stream);
+}
+
+extern "C" int ctrlora_group_norm_config(int B, int HW, int C, int G, int itemsize, int sms,
+                                         int* out) {
+  return config(ctrlora::gn_plan, B, HW, C, G, itemsize, sms, out);
+}
+
+// kernel A2: the same arguments; it raises (cudaErrorInvalidValue) where no
+// staged plan exists
+extern "C" int ctrlora_group_norm_onepass(const void* x, const void* scale, const void* bias,
+                                          const void* row, void* y, int B, int HW, int C,
+                                          int G, long long row_stride, int row_f32, float eps,
+                                          int silu, int dtype, int sms, void* stream) {
+  return run(ctrlora::gn_onepass_plan, x, scale, bias, row, y, B, HW, C, G, row_stride,
+             row_f32, eps, silu, dtype, sms, stream);
+}
+
+extern "C" int ctrlora_group_norm_onepass_config(int B, int HW, int C, int G, int itemsize,
+                                                 int sms, int* out) {
+  return config(ctrlora::gn_onepass_plan, B, HW, C, G, itemsize, sms, out);
 }

@@ -47,9 +47,15 @@ _ENTRIES = {
     # B, HW, C, G, itemsize, SMs, int[9] out: the plan (group_norm_plan's
     # mirror) and the launch's cudaOccupancyMaxActiveClusters
     "ctrlora_group_norm_config": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
-    # x, scale, bias, row (or null), y, B, HW, C, G, row stride, eps, silu,
-    # dtype (0 bf16, 1 fp32), dynamic shared memory bytes, stream
-    "ctrlora_group_norm_onepass": [_P] * 5 + [_I] * 4 + [_LL, _F, _I, _I, _I, _P],
+    # kernel A2 (the one-pass GroupNorm): kernel A's arguments and its own
+    # plan, reported by the config entry as A's is (group_norm_onepass_plan)
+    "ctrlora_group_norm_onepass": [_P] * 5 + [_I] * 4 + [_LL, _I, _F, _I, _I, _I, _P],
+    "ctrlora_group_norm_onepass_config": [_I] * 6 + [ctypes.POINTER(ctypes.c_int)],
+    # kernel D: block, out, row stride (bytes), int[n] row bytes, int[n]
+    # output offsets (bytes), n, stream; and the rows its layout holds
+    "ctrlora_unpack_rows": [_P, _P, _LL, ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_int), _I, _P],
+    "ctrlora_unpack_rows_capacity": [],
     # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides (b, s, h) of
     # q, k, v, dout, dq as one int64[15], scale, stream
     "ctrlora_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_STRIDES, _F, _P],

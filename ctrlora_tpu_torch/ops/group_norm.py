@@ -3,9 +3,10 @@
 Kernel A of the port (``csrc/group_norm.cu``, CUDA C++ for sm_90a, one
 launch per call) replaces the TPU kernel pair ``ctrlora_tpu/ops/group_norm.py``
 ``_stats_kernel`` + ``_apply_kernel`` (launched from ``fused_group_norm``).
-Kernel A2 (``csrc/group_norm_onepass.cu``, :func:`group_norm_onepass`)
-replaces the one-pass ``_onepass_kernel``; :func:`group_norm` routes to it
-under ``CTRLORA_KERNELS=gn1=1`` where the JAX admission rule holds
+Kernel A2 (:func:`group_norm_onepass`, the same kernel under its own plan,
+a second C entry of ``csrc/group_norm.cu``) replaces the one-pass
+``_onepass_kernel``; :func:`group_norm` routes to it under
+``CTRLORA_KERNELS=gn1=1`` where the JAX admission rule holds
 (``_onepass_ok``), and to kernel A everywhere else.
 
 What bounds it on the H100: no matrix product, a few flops per element, so
@@ -20,7 +21,9 @@ VAE's 512^2 sites). The ``add_row`` algebra of the JAX epilogue is kept
 exactly, so GN(x + row) never builds x + row. :func:`group_norm_plan` is the
 Python mirror of the kernel's own choice of cluster, slab and path (the
 source note says how it is chosen); the kernel's C entry
-``ctrlora_group_norm_config`` reports the same numbers.
+``ctrlora_group_norm_config`` reports the same numbers. A2's plan,
+:func:`group_norm_onepass_plan`, always stages (x read once) in clusters of
+up to 16 blocks (``ctrlora_group_norm_onepass_config`` reports it).
 
 :func:`group_norm` is a ``torch.autograd.Function``: kernel forward, and a
 backward that recomputes the plain math under autograd (the JAX
@@ -66,6 +69,8 @@ def group_norm_work(b: int, hw: int, c: int, itemsize: int = 2,
 
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_SM_SMEM = 233472  # an SM's shared memory, of which the system holds
+_BLOCK_RESERVE = 1024  # this much for each block
 
 # kernel A's plan (csrc/group_norm.cu gn_plan): 256 threads a block, rows
 # streamed in ~16 KB chunks, a ring of 4 chunk buffers on the re-read path,
@@ -111,6 +116,21 @@ def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
+def _fixed_bytes(slab: int, gps: int, itemsize: int) -> int:
+    """A block's bookkeeping after its rows (csrc/group_norm.cu
+    ``fixed_bytes``): per-thread partial sums, the block's channel sums, the
+    folded sums, the affine and the group statistics, fp32."""
+    return _round16(4 * (2 * GN_THREADS * (GN_VEC_BYTES // itemsize) + 6 * slab + 2 * gps))
+
+
+def _slab_groups(c: int, groups: int, itemsize: int) -> int:
+    """The fewest whole groups (a divisor of `groups`) whose channels make
+    >= 128 contiguous bytes of a row, or all of them."""
+    cpg = c // groups
+    return next((d for d in range(1, groups + 1)
+                 if groups % d == 0 and d * cpg * itemsize >= 128), groups)
+
+
 @functools.lru_cache(maxsize=None)
 def group_norm_plan(b: int, hw: int, c: int, groups: int, itemsize: int,
                     sms: int) -> GroupNormPlan:
@@ -129,14 +149,13 @@ def group_norm_plan(b: int, hw: int, c: int, groups: int, itemsize: int,
         raise ValueError(f"group_norm: no plan for [{b}, {hw}, {c}] in {groups} groups, "
                          f"{itemsize}-byte elements")
     cpg = c // groups
-    gps = next((d for d in range(1, groups + 1) if groups % d == 0 and d * cpg * itemsize >= 128),
-               groups)
+    gps = _slab_groups(c, groups, itemsize)
     slab = gps * cpg
     sb, rb = slab * itemsize, c * itemsize
     if sb % GN_VEC_BYTES or rb % GN_VEC_BYTES:
         raise ValueError(f"group_norm: a {sb}-byte slab of a {rb}-byte row is not a whole "
                          f"number of {GN_VEC_BYTES}-byte copies")
-    fixed = _round16(4 * (2 * GN_THREADS * (GN_VEC_BYTES // itemsize) + 6 * slab + 2 * gps))
+    fixed = _fixed_bytes(slab, gps, itemsize)
     target = sms - sms // 16
     slabs = groups // gps
     units = b * slabs
@@ -168,8 +187,7 @@ def _sms(index: int) -> int:
 _MAX_BLOCK_ELEMS = 1 << 17
 _ONEPASS_MAX_BYTES = 3 * 1024 * 1024
 _ONEPASS_MIN_ELEMS = 1 << 19
-# A2's CTA: 512 threads, one (sample, group) slice staged in shared memory
-_ONEPASS_THREADS = 512
+GN_ONEPASS_MAX_CLUSTER = 16  # kernel A2's clusters (a non-portable size)
 
 
 def _pick_hw_block(hw: int, c: int) -> Optional[int]:
@@ -190,53 +208,106 @@ def _onepass_ok(hw: int, c: int, dtype: torch.dtype, num_groups: int) -> bool:
             and _pick_hw_block(hw, c) is not None)
 
 
-def _onepass_smem(hw: int, cpg: int, itemsize: int) -> int:
-    """A2's dynamic shared memory: per-thread partial sums (two floats per
-    element of a pair), the group's per-channel sums and affine, and the
-    staged [hw, cpg] slice (the layout of csrc/group_norm_onepass.cu)."""
-    vec = 2 if cpg % 2 == 0 else 1
-    stats = (4 * cpg + 2) * 4
-    return 2 * _ONEPASS_THREADS * vec * 4 + (stats + 15) // 16 * 16 + hw * cpg * itemsize
+def _onepass_plan_k(b: int, hw: int, c: int, groups: int, itemsize: int, k: int,
+                    gps: int) -> Optional[GroupNormPlan]:
+    """Kernel A2's plan at cluster size k and a slab of gps groups
+    (csrc/group_norm.cu ``onepass_plan_k``): staged, or None where the
+    block's rows do not fit its shared memory or one block's threads cannot
+    cover the slab's 16-byte columns."""
+    slab = gps * (c // groups)
+    sb = slab * itemsize
+    if sb % GN_VEC_BYTES or c * itemsize % GN_VEC_BYTES or sb // GN_VEC_BYTES > GN_THREADS:
+        return None
+    rows = -(-hw // k)
+    smem = _fixed_bytes(slab, gps, itemsize) + _round16(rows * sb)
+    if smem > _SMEM_LIMIT:
+        return None
+    return GroupNormPlan(cluster=k, slab=slab, slabs=groups // gps, staged=True, smem=smem,
+                         chunk_rows=max(1, _GN_CHUNK_BYTES // sb), rows=rows, groups=gps)
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_onepass_plan(b: int, hw: int, c: int, groups: int, itemsize: int,
+                            sms: int) -> GroupNormPlan:
+    """Kernel A2's launch at x [b, hw, c] (the Python mirror of
+    ``gn_onepass_plan`` in csrc/group_norm.cu, which
+    ``ctrlora_group_norm_onepass_config`` reports). Always staged: every
+    block keeps its rows of the slab in shared memory, so x is read once.
+    The slab is kernel A's; the cluster size is the largest of 1..16 whose
+    grid runs in one wave: with two blocks a SM where the rows fit half an
+    SM's shared memory, else one, the grid's blocks within that many a SM
+    (7/8 of it for clusters of 3 or more blocks, which the GPCs cannot pack
+    without gaps). Where no cluster size does, the smallest that stages.
+    Raises ValueError for a sample over 3 MiB (the JAX kernel's resident
+    limit, ``_ONEPASS_MAX_BYTES``) or where no cluster size stages."""
+    if (b <= 0 or hw <= 0 or groups <= 0 or c % groups or itemsize not in (2, 4)
+            or hw * c * itemsize > _ONEPASS_MAX_BYTES):
+        raise ValueError(f"group_norm_onepass: no plan for [{b}, {hw}, {c}] in {groups} "
+                         f"groups, {itemsize}-byte elements (a sample holds at most "
+                         f"{_ONEPASS_MAX_BYTES} bytes)")
+    gps = _slab_groups(c, groups, itemsize)
+    staged = [p for p in (_onepass_plan_k(b, hw, c, groups, itemsize, k, gps)
+                          for k in range(1, GN_ONEPASS_MAX_CLUSTER + 1)) if p is not None]
+    if not staged:
+        raise ValueError(f"group_norm_onepass: a [{hw}, {c}] sample of {itemsize}-byte "
+                         f"elements has no staged plan in clusters of up to "
+                         f"{GN_ONEPASS_MAX_CLUSTER} blocks of {_SMEM_LIMIT} bytes")
+    for per_sm in (2, 1):
+        per_block = _SM_SMEM // per_sm - _BLOCK_RESERVE  # at most _SMEM_LIMIT
+        one_wave = [p for p in staged if p.smem <= per_block and p.blocks(b) <= (
+            per_sm * sms if p.cluster <= 2 else per_sm * sms * 7 // 8)]
+        if one_wave:
+            return one_wave[-1]
+    return staged[0]
+
+
+def _launch(entry, plan_fn, what, x, scale, bias, num_groups, eps, silu, add_row):
+    """Kernel A or A2 (C `entry`, planned by `plan_fn`) on a CUDA x: the
+    checks both share, then one launch."""
+    b, c = x.shape[0], x.shape[-1]
+    if (x.device.type != "cuda" or x.dtype not in _DTYPES or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise ValueError(f"{what}: needs a contiguous, 16-byte aligned bf16 or fp32 CUDA "
+                         "tensor [B, ..., C]")
+    if c % num_groups:
+        raise ValueError(f"{what}: {c} channels do not split into {num_groups} groups")
+    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise ValueError(f"{what}: scale and bias must be fp32")
+    hw, sms = x.numel() // (b * c), _sms(x.device.index)
+    plan_fn(b, hw, c, num_groups, x.element_size(), sms)  # raises where the kernel cannot
+    row, row_stride = None, 0
+    if add_row is not None:
+        row = add_row.reshape(-1, c)
+        if (row.shape[0] not in (1, b) or not row.is_contiguous()
+                or row.dtype not in (torch.bfloat16, torch.float32)):
+            raise ValueError(f"{what}: add_row {tuple(add_row.shape)} {add_row.dtype} is "
+                             "not a contiguous bf16 or fp32 [C], [1, C] or [B, C]")
+        row_stride = 0 if row.shape[0] == 1 else c
+    scale, bias = scale.contiguous(), bias.contiguous()  # held until the launch returns
+    y = torch.empty_like(x)
+    code = getattr(_build.cuda_lib(), entry)(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), None if row is None else row.data_ptr(),
+        y.data_ptr(), b, hw, c, num_groups, row_stride,
+        int(row is not None and row.dtype == torch.float32), float(eps), int(silu),
+        _DTYPES[x.dtype], sms, _build.stream_ptr(x.device))
+    _build.check(code, what)
+    return y
 
 
 def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                        num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
                        add_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel A2: the one-pass GroupNorm(x + add_row) (+SiLU) of x
-    [B, ..., C] contiguous, in one launch that reads x from device memory
-    once. Its plain version is :func:`group_norm_plain` (the same function),
-    which a CPU tensor takes; on a CUDA tensor the kernel runs or this
-    raises. Forward only: :func:`group_norm` gives it its backward."""
+    [B, ..., C] contiguous, in one launch of clusters that keeps every row
+    in shared memory and reads x from device memory once. Its plain version
+    is :func:`group_norm_plain` (the same function), which a CPU tensor
+    takes; on a CUDA tensor the kernel runs or this raises (also where
+    :func:`group_norm_onepass_plan` has no staged plan). Forward only:
+    :func:`group_norm` gives it its backward."""
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
-    if x.device.type != "cuda" or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError("group_norm_onepass: needs a contiguous bf16 or fp32 CUDA tensor")
-    b, c = x.shape[0], x.shape[-1]
-    hw = x.numel() // (b * c)
-    if c % num_groups:
-        raise ValueError(f"group_norm_onepass: {c} channels do not split into {num_groups} groups")
-    cpg = c // num_groups
-    smem = _onepass_smem(hw, cpg, x.element_size())
-    if smem > _SMEM_LIMIT or cpg > _ONEPASS_THREADS:
-        raise ValueError(f"group_norm_onepass: a [{hw}, {cpg}] group slice needs {smem} bytes "
-                         f"of shared memory (limit {_SMEM_LIMIT})")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise ValueError("group_norm_onepass: scale and bias must be fp32")
-    row, row_stride = None, 0
-    if add_row is not None:
-        row = add_row.float().reshape(-1, c).contiguous()
-        if row.shape[0] not in (1, b):
-            raise ValueError(f"group_norm_onepass: add_row {tuple(add_row.shape)} is not "
-                             f"[C], [1, C] or [B, C]")
-        row_stride = 0 if row.shape[0] == 1 else c
-    scale, bias = scale.contiguous(), bias.contiguous()  # held until the launch returns
-    y = torch.empty_like(x)
-    code = _build.cuda_lib().ctrlora_group_norm_onepass(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        None if row is None else row.data_ptr(), y.data_ptr(), b, hw, c, num_groups,
-        row_stride, float(eps), int(silu), _DTYPES[x.dtype], smem,
-        _build.stream_ptr(x.device))
-    _build.check(code, "group_norm_onepass")
+    y = _launch("ctrlora_group_norm_onepass", group_norm_onepass_plan, "group_norm_onepass",
+                x, scale, bias, num_groups, eps, silu, add_row)
     group_norm_onepass.launches += 1
     return y
 
@@ -252,30 +323,8 @@ def _forward(x, scale, bias, num_groups, eps, silu, add_row):
         return group_norm_onepass(x, scale, bias, num_groups, eps, silu, add_row)
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
-    if (x.device.type != "cuda" or x.dtype not in _DTYPES or not x.is_contiguous()
-            or x.data_ptr() % 16):
-        raise ValueError("group_norm: needs a contiguous, 16-byte aligned bf16 or fp32 CUDA "
-                         "tensor [B, ..., C]")
-    if c % num_groups:
-        raise ValueError(f"group_norm: {c} channels do not split into {num_groups} groups")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise ValueError("group_norm: scale and bias must be fp32")
-    row, row_stride = None, 0
-    if add_row is not None:
-        row = add_row.reshape(-1, c)
-        if (row.shape[0] not in (1, b) or not row.is_contiguous()
-                or row.dtype not in (torch.bfloat16, torch.float32)):
-            raise ValueError(f"group_norm: add_row {tuple(add_row.shape)} {add_row.dtype} is "
-                             "not a contiguous bf16 or fp32 [C], [1, C] or [B, C]")
-        row_stride = 0 if row.shape[0] == 1 else c
-    scale, bias = scale.contiguous(), bias.contiguous()  # held until the launch returns
-    y = torch.empty_like(x)
-    code = _build.cuda_lib().ctrlora_group_norm(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), None if row is None else row.data_ptr(),
-        y.data_ptr(), b, x.numel() // (b * c), c, num_groups, row_stride,
-        int(row is not None and row.dtype == torch.float32), float(eps), int(silu),
-        _DTYPES[x.dtype], _sms(x.device.index), _build.stream_ptr(x.device))
-    _build.check(code, "group_norm")
+    y = _launch("ctrlora_group_norm", group_norm_plan, "group_norm", x, scale, bias,
+                num_groups, eps, silu, add_row)
     group_norm.launches += 1
     return y
 

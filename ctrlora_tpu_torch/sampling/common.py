@@ -24,16 +24,16 @@ def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Sequence[Conditioning],
     for j, d in enumerate(tables["control"]):
         flat.update({f"c{j}.{k}": v for k, v in d.items()})
     packed, names, sizes = unpack_ops.pack_row_tables(flat)
+    # where each row goes, worked out once: (branch, key), branch -1 the UNet
+    # and j >= 0 condition j's control
+    places = tuple((-1, name[2:]) if name.startswith("u.") else
+                   (int(name[1:name.index(".")]), name[name.index(".") + 1:]) for name in names)
 
     def rows_of(block: torch.Tensor) -> dict:
         rows = unpack_ops.unpack_rows(block, sizes)
-        out = {"unet": {}, "control": tuple({} for _ in range(n_conds))}
-        for name, row in zip(names, rows):
-            scope, key = name.split(".", 1)
-            if scope == "u":
-                out["unet"][key] = row
-            else:
-                out["control"][int(scope[1:])][key] = row
-        return out
+        unet, control = {}, tuple({} for _ in range(n_conds))
+        for (j, key), row in zip(places, rows):
+            (unet if j < 0 else control[j])[key] = row
+        return {"unet": unet, "control": control}
 
     return packed, rows_of

@@ -1,7 +1,9 @@
 """Import hygiene of the PyTorch port: the package and chip_smoke.py import
 no JAX, no flax and nothing of ctrlora_tpu (the GPU host has none of them),
-and the kernel build directory is ignored by git."""
+no module imports triton (every kernel is CUDA C++ built with nvcc), and the
+kernel build directory is ignored by git."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -30,7 +32,9 @@ def test_port_modules_cover_the_slice():
                 "training.trainer", "api", "ops.kernel_flags", "utils.tokenizer",
                 "utils.image", "utils.ckpt_torch", "utils.loading", "tools.ablate_flash",
                 "tools.ablate_geglu", "tools.ablate_flash_bwd", "tools.time_flash_bwd",
-                "tools.ablate_hpack2", "tools.ablate_group_norm", "tools.time_gn_hpack2"):
+                "tools.ablate_hpack2", "tools.ablate_group_norm", "tools.time_gn_hpack2",
+                "tools.ablate_gn_onepass", "tools.time_gn_onepass_unpack",
+                "tools.time_sampling"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
@@ -47,6 +51,22 @@ def test_no_jax_in_port_or_chip_smoke():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_module_imports_triton():
+    """No import of triton anywhere in the port's sources or chip_smoke.py,
+    at module level or inside a function."""
+    pkg = os.path.dirname(ctrlora_tpu_torch.__file__)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    found = []
+    for path in files + [os.path.join(ROOT, "chip_smoke.py")]:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            found += [(path, n) for n in names if n.split(".")[0] == "triton"]
+    assert len(files) > 40 and found == []
 
 
 def test_build_dir_is_gitignored():
