@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths once on one NVIDIA GPU: controlled
-sampling, the rank-128 LoRA finetune step, and the switchable two-LoRA
-CtrLoRA API from reference-format checkpoints.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: controlled
+sampling, the sampler family (DDIM with eta, guess mode, ucg schedule and
+mask; PLMS; DPM-Solver; img2img; DDIM inversion; the sample CLI's batch),
+the rank-128 LoRA finetune step, and the switchable two-LoRA CtrLoRA API
+from reference-format checkpoints.
 
     python3 chip_smoke.py
 
@@ -33,9 +35,30 @@ the script exits non-zero:
    then one fp32 copy of the VAE decodes a 64x64 latent through the plain
    attention (the dispatch rules admit bf16 only) within relative L2 5e-2
    of the bf16 VAE's decode, which launches the kernel;
+9. (run right after phase 4, on its pipeline) the sampler family at SD1.5
+   width: batch 4, 512^2, CFG 7.5, 20 steps (the API's default), each run
+   timed (prep, sampler, decode) with its model evaluations, kernel
+   launches per evaluation and the calls in the sampler that made the host
+   wait for the card (sync debug mode), its image finite and [4, 512, 512,
+   3]: DDIM at eta 0.5 twice (the same seed gives the same bits) and at
+   eta 0 (they differ, relative L2 > 1e-3); DDIM in guess mode with the gradio app's
+   decayed scales, against the same scales without guess mode (they
+   differ); DDIM with a ucg_schedule; DDIM with a half-image mask and x0
+   the hint's latent; PLMS; DPM-Solver++ multistep order 2 with dynamic
+   thresholding; DPM-Solver multistep order 3; DPM-Solver++ singlestep
+   order 3; img2img (ddim_stochastic_encode to step 10, ddim_decode_from);
+   ddim_encode for 10 rungs and back. Then one UNet+ControlNet evaluation
+   in guess mode (control_batch_mask, decayed scales) with the kernels
+   against the plain versions (relative L2 <= 5e-2); then the sample CLI's
+   per-batch function (sample_batch) through its loader on
+   reference-format files (SD and Base ControlNet in fp16, one rank-128
+   LoRA, from a seeded ctrlora_finetune_config(128) model), DPM-Solver at
+   20 steps on 4 items; the files are deleted at the end;
 5. the tiny test configuration sampled on the GPU against the same run on
-   the CPU; then the tiny two-LoRA API path from tiny reference-format
-   files, GPU against CPU;
+   the CPU; then every run of phase 9's sampler family on the tiny
+   configuration (batch 2, 6 steps), GPU against CPU with the noise passed
+   in; then the tiny two-LoRA API path from tiny reference-format files,
+   GPU against CPU (all within rtol 2e-3 / atol 2e-4);
 6. the training slice at SD1.5 width: ctrlora_finetune_config(128) with
    seeded random weights (bf16 compute over fp32 parameters, rematerialised
    blocks), Trainer(trainable='lora') on seeded synthetic 512x512 batches of
@@ -86,6 +109,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -106,7 +130,14 @@ from ctrlora_tpu_torch.ops import kernel_flags
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling.common import make_emb_row_tables
-from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
+from ctrlora_tpu_torch.sampling.ddim import (
+    DDIMConfig, ddim_decode_from, ddim_encode, ddim_sample, ddim_stochastic_encode,
+)
+from ctrlora_tpu_torch.sampling.dpm_solver import (
+    dpm_solver_sample, dpm_solver_singlestep_sample,
+)
+from ctrlora_tpu_torch.sampling.plms import plms_sample
+from ctrlora_tpu_torch.scripts import sample as sample_cli
 from ctrlora_tpu_torch.training import train_state
 from ctrlora_tpu_torch.training.step import loss_for_batch
 from ctrlora_tpu_torch.training.trainer import Trainer
@@ -838,12 +869,13 @@ def slice_run(dev, cfg, profile_steps=0):
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"kernel path departs from the plain path: rel {rel}")
     fp32_vae_decode(pipe, cfg, x_T[:1])
-    return launches, total, phases
+    return launches, pipe, (ids, uncond, hint)
 
 
 def tiny_gpu_vs_cpu(dev):
     """The tiny configuration on the GPU (fp32: the GroupNorm and row-unpack
-    kernels run, the rest is plain at these widths) against the CPU."""
+    kernels run, the rest is plain at these widths) against the CPU: the
+    DDIM slice, then every run of phase 9's sampler family."""
     cfg = configs.tiny_test_config(n_loras=1, switchable_banks=True)
     gen = torch.Generator().manual_seed(SEED)
     cpu = build_pipeline(cfg, "cpu", gen)
@@ -862,6 +894,248 @@ def tiny_gpu_vs_cpu(dev):
         outs.append(pipe.decode_first_stage(z).cpu())
     err = compare(outs[1], outs[0], rtol=2e-3, atol=2e-4)
     log("tiny", gpu_vs_cpu_max_abs_err=err, tol="rtol=2e-3 atol=2e-4")
+
+    # every run of phase 9's sampler family (batch 2, 6 steps), the noise
+    # drawn once on the CPU and passed in
+    steps, shape = 6, (2, 8, 8, 4)
+    ids = torch.randint(1, cfg.clip.vocab_size, (2, cfg.clip.max_length), generator=gen)
+    hint = torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1
+    x_T = torch.randn(shape, generator=gen)
+    noise = {"eta": {"noise": torch.randn((steps, *shape), generator=gen)},
+             "mask": {"mask_noise": torch.randn((steps, *shape), generator=gen)},
+             "encode": {"noise": torch.randn(shape, generator=gen)}}
+    outs = {}
+    for pipe, d in ((cpu, "cpu"), (gpu, dev)):
+        ctx, unc = pipe.encode_text_cond_uncond(ids.to(d), torch.zeros_like(ids).to(d))
+        hz = pipe.encode_first_stage(hint.to(d))
+        for name, fn in family_cases(pipe, x_T.to(d), steps, noise.get).items():
+            outs.setdefault(name, []).append(fn(ctx, unc, hz).cpu())
+    errs = {name: compare(got, want, rtol=2e-3, atol=2e-4) for name, (want, got) in outs.items()}
+    log("tiny_samplers", gpu_vs_cpu_max_abs_err=errs, steps=steps, shape=list(shape),
+        tol="rtol=2e-3 atol=2e-4")
+
+
+# ---------------------------------------------------------------------------
+# phases 5 (tiny) and 9: the sampler family
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 20  # the API's default ddim_steps
+# the decayed control scales of guess mode (apps/logic.py: strength * 0.825**(taps-1-i))
+GUESS_DECAY = 0.825
+
+
+def family_cases(pipe, x_T, steps, draws):
+    """The sampler family's runs on one pipeline, in order: name -> fn(ctx,
+    unc, hz) -> final latents. `draws(kind)` gives a stochastic run's draws
+    as keyword arguments (kind 'eta', 'mask' or 'encode'): a generator
+    seeded with SEED (phase 9, the API's way) or the noise itself (phase 5).
+    The mask keeps the left half of the latent; img2img noises the hint
+    latent to step steps//2 and decodes from there; ddim_encode inverts it
+    for steps//2 rungs and ddim_decode_from takes it back."""
+    taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
+    decayed = [GUESS_DECAY ** float(taps - 1 - i) for i in range(taps)]
+    shape = tuple(x_T.shape)
+    mask = torch.zeros(shape, device=x_T.device)
+    mask[:, :, : shape[2] // 2] = 1.0
+    half = steps // 2
+    ucg = tuple(float(v) for v in np.linspace(9.0, 3.0, steps))
+    cfg = lambda **kw: DDIMConfig(steps=steps, guidance_scale=7.5, **kw)
+
+    def base(ctx, unc, hz):
+        return pipe, ctx, unc, [Conditioning(hz)], shape
+
+    def img2img(ctx, unc, hz):
+        xt = ddim_stochastic_encode(pipe, hz, half, steps, **draws("encode"))
+        return ddim_decode_from(pipe, xt, half, ctx, unc, [Conditioning(hz)], cfg())
+
+    def encode(ctx, unc, hz):
+        xe = ddim_encode(pipe, hz, half, ctx, None, [Conditioning(hz)], steps=steps)
+        return ddim_decode_from(pipe, xe, half, ctx, None, [Conditioning(hz)], cfg())
+
+    return {
+        "ddim_eta0.5": lambda *a: ddim_sample(*base(*a), cfg(eta=0.5), x_T=x_T, **draws("eta")),
+        "ddim_eta0": lambda *a: ddim_sample(*base(*a), cfg(), x_T=x_T),
+        "ddim_guess_mode": lambda *a: ddim_sample(*base(*a), cfg(guess_mode=True), x_T=x_T,
+                                                  control_scales=decayed),
+        "ddim_decayed_scales": lambda *a: ddim_sample(*base(*a), cfg(), x_T=x_T,
+                                                      control_scales=decayed),
+        "ddim_ucg_schedule": lambda *a: ddim_sample(*base(*a), cfg(ucg_schedule=ucg), x_T=x_T),
+        "ddim_mask_x0": lambda ctx, unc, hz: ddim_sample(
+            *base(ctx, unc, hz), cfg(), x_T=x_T, mask=mask, x0=hz, **draws("mask")),
+        "plms": lambda *a: plms_sample(*base(*a), cfg(), x_T=x_T),
+        "dpmsolver++_multistep_2_thresholding": lambda *a: dpm_solver_sample(
+            *base(*a), cfg(), x_T=x_T, order=2, algorithm="dpmsolver++", thresholding=True),
+        "dpmsolver_multistep_3": lambda *a: dpm_solver_sample(
+            *base(*a), cfg(), x_T=x_T, order=3, algorithm="dpmsolver"),
+        "dpmsolver++_singlestep_3": lambda *a: dpm_solver_singlestep_sample(
+            *base(*a), cfg(), x_T=x_T, order=3, algorithm="dpmsolver++"),
+        "img2img_stochastic_encode_decode_from": img2img,
+        "ddim_encode_then_decode_from": encode,
+    }
+
+
+def host_syncs(fn):
+    """fn() under torch.cuda's sync debug mode: (its result, the number of
+    calls in it that made the host wait for the card)."""
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def sampler_family(dev, pipe, ids, uncond, hint):
+    """Phase 9: the sampler family at SD1.5 width on phase 4's pipeline
+    (batch 4, 512^2, CFG 7.5, FAMILY_STEPS steps). Each run: prep (CLIP
+    pair, hint encode), the sampler, decode, timed apart; the model
+    evaluations, and the kernel launches per evaluation of the sampler
+    alone. Returns the launches of all runs."""
+    evals = [0]
+    apply_model = pipe.apply_model
+
+    def counting_apply(*a, **kw):
+        evals[0] += 1
+        return apply_model(*a, **kw)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lat = SIZE // 2 ** (len(pipe.cfg.vae.ch_mult) - 1)
+    x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    seeded = lambda kind: {"generator": torch.Generator().manual_seed(SEED)}
+    cases = family_cases(pipe, x_T, FAMILY_STEPS, seeded)
+    # the eta-0.5 run twice: the same seed must give the same bits
+    order = ["ddim_eta0.5", "ddim_eta0.5", *list(cases)[1:]]
+    counters = wrappers()
+    totals, images = {}, {}
+    for run, name in enumerate(order):
+        # singlestep DPM passes no hoisted rows, as in JAX: no row unpack
+        required = tuple(k for k in SAMPLING_KERNELS
+                         if not (k == "unpack_rows" and "singlestep" in name))
+        with mock.patch.object(pipe, "apply_model", counting_apply), \
+                counted(f"samplers {name}", required) as launches:
+            t0 = time.perf_counter()
+            ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+            hz = pipe.encode_first_stage(hint)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            before = {k: w.launches for k, w in counters.items()}
+            evals[0] = 0
+            z, syncs = host_syncs(lambda: cases[name](ctx, unc, hz))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            in_sampler = {k: w.launches - before[k] for k, w in counters.items()}
+            img = pipe.decode_first_stage(z)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        n = evals[0]
+        log("samplers", run=name, steps=FAMILY_STEPS, batch=BATCH, size=SIZE,
+            s_per_batch=t3 - t0, prep_s=t1 - t0, sampler_s=t2 - t1, decode_s=t3 - t2,
+            model_evaluations=n, sampler_s_per_evaluation=(t2 - t1) / n, host_syncs=syncs,
+            launches_per_evaluation={k: v / n for k, v in in_sampler.items() if v},
+            launches=launches, shape=list(img.shape), finite=bool(torch.isfinite(img).all()),
+            image_mean=img.float().mean().item(), image_std=img.float().std().item())
+        if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"{name}: bad image, shape {tuple(img.shape)}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        key = f"{name}#{run}" if name in images else name
+        images[key] = img
+    repeat = rel_l2(images["ddim_eta0.5#1"], images["ddim_eta0.5"])
+    checks = {"eta0.5_bit_equal_across_runs": torch.equal(images["ddim_eta0.5#1"],
+                                                          images["ddim_eta0.5"]),
+              "eta0.5_vs_eta0_rel_l2": rel_l2(images["ddim_eta0.5"], images["ddim_eta0"]),
+              "guess_vs_no_guess_rel_l2": rel_l2(images["ddim_guess_mode"],
+                                                 images["ddim_decayed_scales"])}
+    log("samplers", eta0_5_repeat_rel_l2=repeat, **checks, bound_differ=1e-3)
+    if not checks["eta0.5_bit_equal_across_runs"]:
+        raise AssertionError(f"eta 0.5 DDIM is not bit-equal across two runs (rel {repeat})")
+    for key in ("eta0.5_vs_eta0_rel_l2", "guess_vs_no_guess_rel_l2"):
+        if not checks[key] > 1e-3:
+            raise AssertionError(f"{key} = {checks[key]}: the runs do not differ")
+    del images
+
+    # one UNet + ControlNet evaluation in guess mode: kernels vs plain
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    hz = pipe.encode_first_stage(hint)
+    conds = [Conditioning(torch.cat([hz, hz]))]
+    taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
+    decayed = [GUESS_DECAY ** float(taps - 1 - i) for i in range(taps)]
+    cmask = torch.cat([torch.ones(BATCH), torch.zeros(BATCH)]).to(dev)
+    ts = torch.tensor([981], dtype=torch.int32, device=dev)
+    tvec = torch.full((2 * BATCH,), 981, dtype=torch.int32, device=dev)
+
+    def evaluate():
+        packed, rows_of = make_emb_row_tables(pipe, conds, ts)
+        return pipe.apply_model(torch.cat([x_T, x_T]), tvec, torch.cat([ctx, unc]), conds,
+                                emb_rows=rows_of(packed[0]), control_scales=decayed,
+                                control_batch_mask=cmask)
+
+    out_k = evaluate()
+    with plain_versions():
+        out_p = evaluate()
+    rel = rel_l2(out_k, out_p)
+    log("samplers", guess_mode_unet_controlnet_rel_l2_kernels_vs_plain=rel, bound=MODEL_REL_TOL)
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL:
+        raise AssertionError(f"guess-mode evaluation departs from the plain path: rel {rel}")
+    cli_launches = sample_cli_batch(dev)
+    for k, v in cli_launches.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def sample_cli_batch(dev):
+    """The sample CLI's per-batch function at SD1.5 width on
+    reference-format files written as phase 8 writes them (SD and Base
+    ControlNet in fp16, one rank-128 LoRA) from a seeded unfused
+    ctrlora_finetune_config(128) pipeline, the CLI's default model: the
+    pipeline through ``load_pipeline``, 4 items through ``sample_batch``
+    with --sampler dpm_solver at 20 steps. The files are deleted at the
+    end."""
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
+    outdir = os.path.join(ROOT, "runs", "chip_smoke_cli_ckpts")
+    shutil.rmtree(outdir, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    t0 = time.perf_counter()
+    src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+    for m in src.modules():
+        random_init_(m, gen)
+    paths, _ = write_reference_files(src, src.control.state_dict(), cfg, outdir, torch.float16)
+    del src
+    write_s = time.perf_counter() - t0
+    args = sample_cli.build_parser().parse_args([
+        "--dataroot", "unused", "--save_dir", "unused", "--sd_ckpt", paths["sd"],
+        "--cn_ckpt", paths["basecn"], "--lora_ckpt", paths["loras"][0],
+        "--sampler", "dpm_solver", "--ddim_steps", str(FAMILY_STEPS), "--bs", str(BATCH)])
+    t0 = time.perf_counter()
+    pipe = sample_cli.load_pipeline(cfg, dev, args.sd_ckpt, args.cn_ckpt, args.lora_ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(outdir, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+    hint = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8).astype(np.float32) / 255
+    tok = sample_cli.default_tokenizer()
+    ids = tok([PROMPT] * BATCH, max_length=cfg.clip.max_length)
+    nids = tok([""] * BATCH, max_length=cfg.clip.max_length)
+    opts = sample_cli.SampleOptions.from_args(args)
+    sample_cli.sample_batch(pipe, hint, ids, nids, opts, args.seed)  # warm-up
+    with counted("sample CLI batch", SAMPLING_KERNELS) as launches:
+        t0 = time.perf_counter()
+        out = sample_cli.sample_batch(pipe, hint, ids, nids, opts, args.seed)
+        total = time.perf_counter() - t0
+    log("sample_cli", sampler=opts.sampler, dpm_order=opts.dpm_order,
+        dpm_method=opts.dpm_method, steps=opts.steps, batch=BATCH, size=SIZE, write_s=write_s,
+        load_pipeline_s=load_s, s_per_batch=total, launches=launches, shape=list(out.shape),
+        dtype=str(out.dtype), image_mean=float(out.mean()), image_std=float(out.std()))
+    if out.shape != (BATCH, SIZE, SIZE, 3) or out.dtype != np.uint8 or not out.std() > 0:
+        raise AssertionError(f"sample CLI batch: {out.shape} {out.dtype} std {out.std()}")
+    del pipe
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1330,7 +1604,10 @@ def main(argv) -> int:
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)
     profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
-    sampling, _, _ = slice_run(dev, cfg, profile_steps)
+    sampling, pipe, inputs = slice_run(dev, cfg, profile_steps)
+    samplers = sampler_family(dev, pipe, *inputs)  # phase 9, on phase 4's pipeline
+    del pipe, inputs
+    torch.cuda.empty_cache()
     tiny_gpu_vs_cpu(dev)
     tiny_api_gpu_vs_cpu(dev)
     training, _ = train_slice(dev, profile=bool(profile_steps))
@@ -1339,7 +1616,8 @@ def main(argv) -> int:
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
-        by_path = {"sampling": sampling[name], "training": training[name],
+        by_path = {"sampling": sampling[name], "samplers": samplers[name],
+                   "training": training[name],
                    "api_2lora": sum(r[name] for r in api_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,

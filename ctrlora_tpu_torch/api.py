@@ -17,10 +17,11 @@ condition's ControlNet and blends their taps by ``lora_weights`` and
 ``control_scales``, then a VAE decode.
 
 Differences from the JAX API: there is no jit cache (PyTorch runs eagerly);
-DDIM is eta 0 without guess mode; the starting noise is drawn on the CPU
-from ``seed`` (so the same seed gives the same noise on any device, not the
-JAX package's). PIL is imported only to open image paths in ``sample`` and
-to return PIL images from it; ``_sample_images`` needs numpy only.
+the starting noise, and then the eta draws, come from a CPU generator
+seeded from ``seed`` (so the same seed gives the same image on any device,
+not the JAX package's). PIL is imported only to open image paths in
+``sample`` and to return PIL images from it; ``_sample_images`` needs numpy
+only.
 """
 
 from __future__ import annotations
@@ -145,11 +146,14 @@ class CtrLoRA:
         return conds
 
     def _sample_float(self, images, prompt, n_prompt, num_samples, ddim_steps, scale,
-                      lora_weights, seed, control_scales=None,
-                      timings: Optional[dict] = None) -> torch.Tensor:
+                      lora_weights, seed, eta: float = 0.0, guess_mode: bool = False,
+                      control_scales=None, timings: Optional[dict] = None) -> torch.Tensor:
         """The sampling call up to the decoded image [B, H, W, 3] in [-1, 1].
-        With a `timings` dict, the device is synchronised at the phase
-        boundaries and prep_s / ddim_s / decode_s are written into it."""
+        `eta` > 0 adds DDIM's noise; `guess_mode` runs the uncond half of
+        the guidance batch without control (pair it with decayed
+        control_scales, as the gradio app does). With a `timings` dict, the
+        device is synchronised at the phase boundaries and prep_s / ddim_s /
+        decode_s are written into it."""
         pipe = self.pipe
         sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
             else (lambda: None)
@@ -162,12 +166,14 @@ class CtrLoRA:
         if control_scales is not None and len(control_scales) != self.n_taps:
             raise ValueError(f"control_scales needs {self.n_taps} values")
         shape = (num_samples, h // f, w // f, 4)
-        x_T = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed)
+        x_T = torch.randn(shape, generator=gen)
         if timings is not None:
             sync()
             t1 = time.perf_counter()
         z = ddim_sample(pipe, ctx, unc, conds, shape,
-                        DDIMConfig(steps=ddim_steps, guidance_scale=scale), x_T=x_T,
+                        DDIMConfig(steps=ddim_steps, guidance_scale=scale, eta=eta,
+                                   guess_mode=guess_mode), x_T=x_T, generator=gen,
                         control_scales=control_scales)
         if timings is not None:
             sync()
@@ -179,10 +185,10 @@ class CtrLoRA:
         return img
 
     def _sample_images(self, images, prompt, n_prompt, num_samples, ddim_steps, scale,
-                       lora_weights, seed, control_scales=None,
-                       timings: Optional[dict] = None) -> np.ndarray:
+                       lora_weights, seed, eta: float = 0.0, guess_mode: bool = False,
+                       control_scales=None, timings: Optional[dict] = None) -> np.ndarray:
         """uint8 condition images [H, W, 3] (one per LoRA, same size) ->
         uint8 samples [num_samples, H, W, 3], deterministic under `seed`."""
         img = self._sample_float(images, prompt, n_prompt, num_samples, ddim_steps, scale,
-                                 lora_weights, seed, control_scales, timings)
+                                 lora_weights, seed, eta, guess_mode, control_scales, timings)
         return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8).cpu().numpy()

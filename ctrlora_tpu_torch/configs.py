@@ -1,11 +1,12 @@
 """Configuration dataclasses of the PyTorch port.
 
 The fields of ``ctrlora_tpu/configs.py`` that the ported path reads, with the
-same names and defaults, without JAX and without the YAML loaders.
+same names and defaults, without JAX and without YAML files.
 A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
-``torch.dtype``. Only the presets the controlled-sampling path needs are
-here: ``ctrlora_inference_config``, ``ctrlora_finetune_config`` and
-``tiny_test_config``, plus ``TrainConfig`` for the finetune step.
+``torch.dtype``. Only the presets of the ported paths are here:
+``ctrlora_inference_config``, ``ctrlora_finetune_config`` and
+``tiny_test_config`` (``load_model_config`` takes their names), plus
+``TrainConfig`` for the finetune step.
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ class DiffusionConfig:
     linear_start: float = 0.00085
     linear_end: float = 0.012
     scale_factor: float = 0.18215
-    parameterization: str = "eps"  # the port implements only 'eps'
+    parameterization: str = "eps"  # 'eps' | 'v' (the samplers read it)
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
     logvar_init: float = 0.0
@@ -202,3 +203,30 @@ def tiny_test_config(
             num_layers=2, num_heads=2, max_length=16,
         ),
     )
+
+
+_PRESETS = {
+    "ctrlora_finetune": ctrlora_finetune_config,
+    "ctrlora_inference": ctrlora_inference_config,
+    "tiny": tiny_test_config,
+}
+# the JAX package's other presets, and the ROADMAP queue 1 item that ports them
+_NOT_PORTED = {
+    "cldm_v15": "item 8 (image hint mode with HintBlock)",
+    "cnlite_sd15": "item 10 (baselines)",
+    "cnxs_sd15": "item 10 (baselines)",
+    "ctrlora_pretrain": "item 8 (the pretrain path, on the data layer of item 6)",
+}
+
+
+def load_model_config(path_or_preset: str, **overrides) -> ModelConfig:
+    """The ModelConfig of a preset name (``ctrlora_tpu/configs.py``
+    ``load_model_config``); keyword overrides go to the preset's function.
+    YAML files are not read yet."""
+    if path_or_preset in _PRESETS:
+        return _PRESETS[path_or_preset](**overrides)
+    if path_or_preset in _NOT_PORTED:
+        raise ValueError(f"preset {path_or_preset!r} is not ported yet: ROADMAP queue 1 "
+                         f"{_NOT_PORTED[path_or_preset]}")
+    raise ValueError(f"{path_or_preset!r} is not a preset of the port "
+                     f"({', '.join(_PRESETS)}); the port reads no YAML config files yet")

@@ -175,14 +175,20 @@ class CtrLoraPipeline:
 
     def apply_model(self, x_noisy, t, context, conds: Optional[Sequence[Conditioning]] = None,
                     emb_rows: Optional[Dict] = None,
-                    control_scales: Optional[Sequence[float]] = None) -> torch.Tensor:
-        """Predicted eps [B, h, w, 4] fp32 for noisy latents. emb_rows: one
-        step's rows of ``emb_proj_tables`` (t batch-uniform);
-        control_scales: one factor per control tap (13 at SD1.5 width)."""
+                    control_scales: Optional[Sequence[float]] = None,
+                    control_batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Predicted model output (eps, or v for a v-parameterized model)
+        [B, h, w, 4] fp32 for noisy latents. emb_rows: one step's rows of
+        ``emb_proj_tables`` (t batch-uniform); control_scales: one factor
+        per control tap (13 at SD1.5 width); control_batch_mask [B]: each
+        sample's control on (1) or off (0), guess mode's uncond half."""
         control = None
         if conds:
             control = self.apply_control(
                 x_noisy, t, context, conds, control_scales,
                 emb_rows=emb_rows["control"] if emb_rows is not None else None)
+            if control_batch_mask is not None:
+                m = control_batch_mask.reshape(-1, 1, 1, 1)
+                control = tuple(c * m.to(c.dtype) for c in control)
         return self.unet(x_noisy, t, context, control=control,
                          emb_rows=emb_rows["unet"] if emb_rows is not None else None)

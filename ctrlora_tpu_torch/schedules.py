@@ -1,5 +1,5 @@
-"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding and
-forward diffusion ``q_sample`` (torch).
+"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding,
+forward diffusion ``q_sample`` and the v-parameterization helpers (torch).
 
 The tables are computed in float64 and stored as float32, exactly as
 ``ctrlora_tpu/schedules.py`` does, so both packages sample and train with
@@ -52,10 +52,18 @@ def make_schedule(timesteps: int = 1000, linear_start: float = 0.00085,
     )
 
 
-def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
-    """Uniform DDIM sub-sequence of DDPM timesteps, shifted by one."""
-    c = num_ddpm_timesteps // num_ddim_timesteps
-    return np.arange(num_ddim_timesteps) * c + 1
+def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
+                        discr_method: str = "uniform") -> np.ndarray:
+    """DDIM sub-sequence of DDPM timesteps, shifted by one so the last step
+    maps back to the data: 'uniform' (S steps c = T // S apart) or 'quad'."""
+    if discr_method == "uniform":
+        ts = np.arange(num_ddim_timesteps) * (num_ddpm_timesteps // num_ddim_timesteps)
+    elif discr_method == "quad":
+        ts = (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8), num_ddim_timesteps) ** 2
+              ).astype(int)
+    else:
+        raise NotImplementedError(f"unknown ddim discretization {discr_method!r}")
+    return ts + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,23 +74,31 @@ class DDIMSchedule:
     alphas: np.ndarray  # float32 [S]
     alphas_prev: np.ndarray  # float32 [S]
     sqrt_one_minus_alphas: np.ndarray  # float32 [S]
+    sigmas: np.ndarray  # float32 [S], all 0 at eta 0
 
     @property
     def num_steps(self) -> int:
         return int(self.timesteps.shape[0])
 
+    def __getitem__(self, steps: slice) -> "DDIMSchedule":
+        """The tables of the steps `steps` (a sub-ladder)."""
+        return DDIMSchedule(*(getattr(self, f.name)[steps] for f in dataclasses.fields(self)))
 
-def make_ddim_schedule(schedule: DiffusionSchedule, num_ddim_steps: int) -> DDIMSchedule:
-    """Deterministic (eta 0) DDIM tables."""
-    ts = make_ddim_timesteps(num_ddim_steps, schedule.num_timesteps)
+
+def make_ddim_schedule(schedule: DiffusionSchedule, num_ddim_steps: int, eta: float = 0.0,
+                       discr_method: str = "uniform") -> DDIMSchedule:
+    """DDIM tables; sigma_t = eta sqrt((1 - a_prev) / (1 - a) (1 - a / a_prev))."""
+    ts = make_ddim_timesteps(num_ddim_steps, schedule.num_timesteps, discr_method)
     alphacums = schedule.alphas_cumprod.astype(np.float64)
     alphas = alphacums[ts]
     alphas_prev = np.asarray([alphacums[0]] + alphacums[ts[:-1]].tolist())
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
     return DDIMSchedule(
         timesteps=ts.astype(np.int32),
         alphas=alphas.astype(np.float32),
         alphas_prev=alphas_prev.astype(np.float32),
         sqrt_one_minus_alphas=np.sqrt(1.0 - alphas).astype(np.float32),
+        sigmas=sigmas.astype(np.float32),
     )
 
 
@@ -114,3 +130,25 @@ def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor
     n = x_start.ndim
     return (extract(schedule.sqrt_alphas_cumprod, t, n) * x_start
             + extract(schedule.sqrt_one_minus_alphas_cumprod, t, n) * noise)
+
+
+def get_v(schedule: DiffusionSchedule, x: torch.Tensor, noise: torch.Tensor,
+          t: torch.Tensor) -> torch.Tensor:
+    """The v-parameterization target sqrt(ac_t) noise - sqrt(1 - ac_t) x."""
+    n = x.ndim
+    return (extract(schedule.sqrt_alphas_cumprod, t, n) * noise
+            - extract(schedule.sqrt_one_minus_alphas_cumprod, t, n) * x)
+
+
+def predict_eps_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    n = x_t.ndim
+    return (extract(schedule.sqrt_alphas_cumprod, t, n) * v
+            + extract(schedule.sqrt_one_minus_alphas_cumprod, t, n) * x_t)
+
+
+def predict_start_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+    n = x_t.ndim
+    return (extract(schedule.sqrt_alphas_cumprod, t, n) * x_t
+            - extract(schedule.sqrt_one_minus_alphas_cumprod, t, n) * v)

@@ -1,0 +1,222 @@
+"""Batch sampling over a dataset with the PyTorch port (counterpart of
+``scripts/sample.py``).
+
+Writes sample/, control/ and img/ (PNG, one per dataset item) and
+prompt.txt under --save_dir, sampling each item of a CustomDataset
+directory with DDIM, PLMS or DPM-Solver and classifier-free guidance, on
+top of an SD checkpoint and a Base ControlNet, with a LoRA from a
+reference-format ``.ckpt`` or from the port trainer's ``ckpt_*.pt``:
+
+  python -m ctrlora_tpu_torch.scripts.sample --dataroot data/mycond \\
+      --sd_ckpt ckpts/sd15/v1-5-pruned.ckpt --cn_ckpt ckpts/basecn.ckpt \\
+      --lora_ckpt runs/mycond/ckpt_00001000.pt --save_dir out --n_samples 4
+
+The flags and defaults are the JAX script's, without --dp/--tp, and with
+--device (default cuda; the script never falls back to the CPU, ask for it
+with --device cpu). ``sample_batch`` is the per-batch work on arrays, and
+needs neither cv2 nor PIL; only reading the dataset and writing the PNGs
+do.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ctrlora_tpu_torch import lora_fuse
+from ctrlora_tpu_torch.configs import ModelConfig, ctrlora_finetune_config, load_model_config
+from ctrlora_tpu_torch.models.unet import encoder_plan
+from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
+from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
+from ctrlora_tpu_torch.sampling.dpm_solver import (
+    dpm_solver_sample, dpm_solver_singlestep_sample,
+)
+from ctrlora_tpu_torch.sampling.plms import plms_sample
+from ctrlora_tpu_torch.utils import ckpt_torch as bridge
+from ctrlora_tpu_torch.utils.loading import States, load_ctrlora, load_lora_slot_into
+from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dataroot", type=str, required=True)
+    p.add_argument("--save_dir", type=str, required=True)
+    p.add_argument("--sd_ckpt", type=str, default=None)
+    p.add_argument("--cn_ckpt", type=str, default=None)
+    p.add_argument("--lora_ckpt", type=str, default=None,
+                   help="a reference-format LoRA .ckpt, or the port trainer's ckpt_*.pt")
+    p.add_argument("--config", type=str, default=None,
+                   help="preset name (default: ctrlora_finetune)")
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--lora_rank", type=int, default=128)
+    p.add_argument("--n_samples", type=int, default=-1, help="-1 = all")
+    p.add_argument("--ddim_steps", type=int, default=50)
+    p.add_argument("--sampler", type=str, default="ddim", choices=["ddim", "plms", "dpm_solver"])
+    p.add_argument("--dpm_order", type=int, default=2, choices=[1, 2, 3])
+    p.add_argument("--dpm_method", type=str, default="multistep",
+                   choices=["multistep", "singlestep"])
+    p.add_argument("--dpm_algorithm", type=str, default="dpmsolver++",
+                   choices=["dpmsolver++", "dpmsolver"])
+    p.add_argument("--dpm_thresholding", action="store_true",
+                   help="dynamic thresholding (dpmsolver++ only)")
+    p.add_argument("--scale", type=float, default=7.5)
+    p.add_argument("--strength", type=float, default=1.0)
+    p.add_argument("--eta", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--bs", type=int, default=4)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to sample on (no fallback to the CPU)")
+    return p
+
+
+@dataclasses.dataclass(frozen=True)
+class SampleOptions:
+    """What the sampler flags select."""
+
+    sampler: str = "ddim"
+    steps: int = 50
+    scale: float = 7.5
+    eta: float = 0.0
+    strength: float = 1.0
+    dpm_order: int = 2
+    dpm_method: str = "multistep"
+    dpm_algorithm: str = "dpmsolver++"
+    dpm_thresholding: bool = False
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "SampleOptions":
+        return cls(args.sampler, args.ddim_steps, args.scale, args.eta, args.strength,
+                   args.dpm_order, args.dpm_method, args.dpm_algorithm, args.dpm_thresholding)
+
+
+def load_trainer_checkpoint(states: States, path: str) -> int:
+    """The trainable tensors of a port trainer checkpoint (``ckpt_*.pt``,
+    ``{'trainable': {'branch.name': tensor}}``) into the loaded states;
+    returns the count. The counterpart of restoring the JAX trainer's
+    orbax directory."""
+    trainable = torch.load(path, map_location="cpu", weights_only=True)["trainable"]
+    for key, value in trainable.items():
+        branch, name = key.split(".", 1)
+        dst = getattr(states, branch)
+        if name not in dst or dst[name].shape != value.shape:
+            raise KeyError(f"{path}: {key} {tuple(value.shape)} does not fit the model")
+        dst[name] = value.detach().to("cpu", torch.float32)
+    return len(trainable)
+
+
+def load_pipeline(cfg: ModelConfig, device, sd_ckpt: Optional[str] = None,
+                  cn_ckpt: Optional[str] = None,
+                  lora_ckpt: Optional[str] = None) -> CtrLoraPipeline:
+    """SD + Base ControlNet (every key but the LoRA's, as the JAX script
+    loads it), then the LoRA into slot 0, fused into the ControlNet; the
+    towers cast to their compute dtype once."""
+    pipe = CtrLoraPipeline(cfg, device)
+    states = load_ctrlora(pipe, sd_ckpt, cn_ckpt, basecn_skip="lora")
+    if lora_ckpt and lora_ckpt.endswith(".pt"):
+        load_trainer_checkpoint(states, lora_ckpt)
+    elif lora_ckpt:
+        if load_lora_slot_into(cfg, states, bridge.load_torch_state_dict(lora_ckpt), 0) == 0:
+            raise ValueError(f"no LoRA keys in {lora_ckpt}")
+    for module, sd in ((pipe.unet, states.unet), (pipe.vae, states.vae),
+                       (pipe.clip, states.clip)):
+        module.load_state_dict(sd, strict=True)
+    pipe.control.load_state_dict(lora_fuse.fuse_control_tree(
+        pipe.control, states.control, 0, cfg.control.lora), strict=True)
+    pipe.cast_for_inference()
+    return pipe
+
+
+def sample_batch(pipe: CtrLoraPipeline, hint: np.ndarray, ids: np.ndarray, nids: np.ndarray,
+                 opts: SampleOptions, seed: int) -> np.ndarray:
+    """One batch: hints [B, H, W, 3] float32 in [0, 1], prompt and negative
+    token ids [B, L] -> uint8 samples [B, H, W, 3], with the sampler the
+    options name. The starting noise, then any eta draws, come from a CPU
+    generator seeded with `seed`."""
+    dev = pipe.device
+    ctx, unc = pipe.encode_text_cond_uncond(torch.from_numpy(ids).to(dev),
+                                            torch.from_numpy(nids).to(dev))
+    hz = pipe.encode_first_stage(torch.from_numpy(hint).to(dev))
+    n_taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
+    b, h, w = hint.shape[:3]
+    f = 2 ** (len(pipe.cfg.vae.ch_mult) - 1)
+    shape = (b, h // f, w // f, 4)
+    gen = torch.Generator().manual_seed(seed)
+    args = (pipe, ctx, unc, [Conditioning(hz)], shape,
+            DDIMConfig(steps=opts.steps, guidance_scale=opts.scale, eta=opts.eta))
+    kw = dict(x_T=torch.randn(shape, generator=gen), generator=gen,
+              control_scales=[opts.strength] * n_taps)
+    if opts.sampler == "ddim":
+        z = ddim_sample(*args, **kw)
+    elif opts.sampler == "plms":
+        z = plms_sample(*args, **kw)
+    elif opts.sampler == "dpm_solver":
+        fn = (dpm_solver_singlestep_sample if opts.dpm_method == "singlestep" else
+              dpm_solver_sample)
+        z = fn(*args, **kw, order=opts.dpm_order, algorithm=opts.dpm_algorithm,
+               thresholding=opts.dpm_thresholding)
+    else:
+        raise ValueError(f"unknown sampler {opts.sampler!r}")
+    img = pipe.decode_first_stage(z)
+    return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8).cpu().numpy()
+
+
+def _write_png(path: str, rgb: np.ndarray) -> None:
+    try:
+        import cv2
+    except ImportError:  # pragma: no cover
+        from PIL import Image
+
+        Image.fromarray(rgb).save(path)
+        return
+    cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    from ctrlora_tpu_torch.data.datasets import CustomDataset
+
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda, but torch sees no CUDA device; pass --device cpu "
+                         "to sample on the CPU")
+    cfg = (load_model_config(args.config) if args.config else
+           ctrlora_finetune_config(lora_rank=args.lora_rank))
+    pipe = load_pipeline(cfg, device, args.sd_ckpt, args.cn_ckpt, args.lora_ckpt)
+    opts = SampleOptions.from_args(args)
+
+    ds = CustomDataset(args.dataroot, drop_rate=0.0, resolution=args.resolution)
+    n = len(ds) if args.n_samples < 0 else min(args.n_samples, len(ds))
+    for sub in ("sample", "control", "img"):
+        os.makedirs(os.path.join(args.save_dir, sub), exist_ok=True)
+    tok = default_tokenizer()
+    max_length = cfg.clip.max_length
+    prompts = []
+    rng = np.random.default_rng(args.seed)
+    for start in range(0, n, args.bs):
+        idxs = list(range(start, min(start + args.bs, n)))
+        items = [ds.get(i, rng) for i in idxs]
+        # the short final batch is padded to a full one, as the JAX script does
+        padded = items + [items[-1]] * (args.bs - len(items))
+        hint = np.stack([it["hint"] for it in padded])
+        ids = tok([it["txt"] for it in padded], max_length=max_length)
+        nids = tok([""] * len(padded), max_length=max_length)
+        out = sample_batch(pipe, hint, ids, nids, opts, args.seed + start)
+        for j, i in enumerate(idxs):
+            _write_png(os.path.join(args.save_dir, "sample", f"{i:06d}.png"), out[j])
+            _write_png(os.path.join(args.save_dir, "control", f"{i:06d}.png"),
+                       (hint[j] * 255).astype(np.uint8))
+            _write_png(os.path.join(args.save_dir, "img", f"{i:06d}.png"),
+                       ((items[j]["jpg"] + 1) * 127.5).clip(0, 255).astype(np.uint8))
+            prompts.append(f"{i:06d}: {items[j]['txt']}")
+        print(f"sampled {min(start + args.bs, n)}/{n}", flush=True)
+    with open(os.path.join(args.save_dir, "prompt.txt"), "w") as fp:
+        fp.write("\n".join(prompts) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -34,7 +34,8 @@ def test_port_modules_cover_the_slice():
                 "tools.ablate_geglu", "tools.ablate_flash_bwd", "tools.time_flash_bwd",
                 "tools.ablate_hpack2", "tools.ablate_group_norm", "tools.time_gn_hpack2",
                 "tools.ablate_gn_onepass", "tools.time_gn_onepass_unpack",
-                "tools.time_sampling"):
+                "tools.time_sampling", "sampling.plms", "sampling.dpm_solver",
+                "data.datasets", "scripts.sample"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
