@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: controlled
 sampling, the sampler family (DDIM with eta, guess mode, ucg schedule and
 mask; PLMS; DPM-Solver; img2img; DDIM inversion; the sample CLI's batch),
-the rank-128 LoRA finetune step, and the switchable two-LoRA CtrLoRA API
-from reference-format checkpoints.
+the rank-128 LoRA finetune step, the switchable two-LoRA CtrLoRA API from
+reference-format checkpoints, and the finetune and pretrain CLIs training
+from dataset files.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,27 @@ the script exits non-zero:
    then under CTRLORA_KERNELS-equivalent gn1=1,hpack=2,qkvpack=0 (kernels A2
    and B6); one UNet + two-ControlNet evaluation with the flagged kernels
    against the plain versions; lora weights (1, 0) against (0, 1) must
-   differ. The files are deleted at the end.
+   differ. The files are deleted at the end;
+10. the training CLIs at SD1.5 width from reference-format files (SD and
+   Base ControlNet in fp16 from a seeded ctrlora_finetune_config(128)
+   model) and PNG datasets of random pixels, with CTRLORA_NATIVE_DATA=1
+   (the C++ image prep, built with g++): (a) the finetune CLI's main on 16
+   pairs at 512^2, 640x480 and 480x640, batch 4 at 512^2, 2 warm-up and 6
+   timed steps with --use_ema, a checkpoint and the image log at the last
+   step: load s, the loader's wait, s/step beside phase 6's, the
+   launches a step, peak memory, the hook's s; frozen weights
+   bit-identical, every trainable one changed, the EMA shadow behind the
+   live weights and swapped in and out bit for bit, the image log's PNG
+   [48 + 3*512, 1024, 3] with finite rows; then --resume for 2 more steps
+   (the step count and the loader go on from step 8) and a
+   --cache_latents run of 8 steps (the pre-pass's s and images/s, cached
+   s/step); (b) the pretrain CLI's main with ctrlora_pretrain_config's nine
+   LoRA banks from the same files, MultiGen-20M over the nine tasks (4
+   items each, non-square both ways), batch 4, 2 warm-up and 9 timed
+   steps: trainable parameters, s/step, peak memory, the task of each
+   step; losses finite, after step 1 only that step's bank of each
+   lora_up non-zero, the UNet bit-identical. The files are deleted at the
+   end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -137,11 +158,17 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
     dpm_solver_sample, dpm_solver_singlestep_sample,
 )
 from ctrlora_tpu_torch.sampling.plms import plms_sample
+from ctrlora_tpu_torch.data import native as native_data
 from ctrlora_tpu_torch.scripts import sample as sample_cli
+from ctrlora_tpu_torch.scripts import train_common
+from ctrlora_tpu_torch.scripts import train_ctrlora_finetune as finetune_cli_mod
+from ctrlora_tpu_torch.scripts import train_ctrlora_pretrain as pretrain_cli_mod
 from ctrlora_tpu_torch.training import train_state
+from ctrlora_tpu_torch.training import trainer as trainer_mod
 from ctrlora_tpu_torch.training.step import loss_for_batch
 from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
+from ctrlora_tpu_torch.utils.image import png_writer, write_png
 from ctrlora_tpu_torch.utils.loading import check_key
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1484,6 +1511,297 @@ def api_slice(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the training CLIs from files
+# ---------------------------------------------------------------------------
+
+CLI_SHAPES = ((512, 512), (480, 640), (640, 480))  # the datasets' image (h, w)
+CLI_PAIRS, CLI_WARMUP, CLI_TIMED, CLI_RESUMED = 16, 2, 6, 2
+PRETRAIN_ITEMS, PRETRAIN_TIMED = 4, 9  # a task; one round of the nine tasks
+# the finetune run's kernels: the training steps', and D in the hook's DDIM
+FINETUNE_CLI_KERNELS = TRAINING_KERNELS + ("unpack_rows",)
+
+
+@contextlib.contextmanager
+def cli_spies(initial_branches):
+    """Watch a CLI run from outside: each train step's kernel launches and
+    task (and ``rec['after_first'](state)`` after the first step), a CPU
+    copy of `initial_branches`' weights as the CLI loaded them, and the
+    image log's arrays before their uint8 cast."""
+    rec = {"steps": [], "initial": {}, "rows": [], "after_first": None}
+    real_make, real_load = trainer_mod.make_train_step, train_common.load_training_pipeline
+    real_rows = trainer_mod.image_log_rows
+
+    def make(*args, **kw):
+        fn = real_make(*args, **kw)
+
+        def step(state, batch, *a, **k):
+            before = {n: w.launches for n, w in wrappers().items()}
+            out = fn(state, batch, *a, **k)
+            rec["steps"].append({"task": int(batch["task_idx"][0]), "launches": {
+                n: w.launches - before[n] for n, w in wrappers().items()}})
+            if len(rec["steps"]) == 1 and rec["after_first"] is not None:
+                rec["after_first"](state)
+            return out
+
+        return step
+
+    def load(*args, **kw):
+        pipe = real_load(*args, **kw)
+        rec["initial"] = {f"{b}.{n}": p.detach().to("cpu", copy=True)
+                          for b, m in train_state.branches(pipe).items() if b in initial_branches
+                          for n, p in m.named_parameters()}
+        return pipe
+
+    def rows(*args, **kw):
+        rec["rows"].append(real_rows(*args, **kw))
+        return rec["rows"][-1]
+
+    with mock.patch.object(trainer_mod, "make_train_step", make), \
+            mock.patch.object(train_common, "load_training_pipeline", load), \
+            mock.patch.object(trainer_mod, "image_log_rows", rows):
+        yield rec
+
+
+def png_shape(path):
+    """[height, width, channels] of an 8-bit PNG, from its IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    width, height = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+    return [height, width, {0: 1, 2: 3, 4: 2, 6: 4}[head[25]]]
+
+
+def cli_metrics(workdir, event):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [ln for ln in map(json.loads, f) if ln["event"] == event]
+
+
+def timed_steps(workdir, skip):
+    """Seconds a step of the train lines after the first `skip` (each
+    line's window is one step at --log_every 1: loader, copy, step and the
+    metrics read, which waits for the card)."""
+    lines = cli_metrics(workdir, "train")[skip:]
+    return sum(1 / ln["steps_per_sec"] for ln in lines) / len(lines), lines
+
+
+def per_step_launches(steps, names=TRAINING_KERNELS):
+    return {n: sum(s["launches"][n] for s in steps) / len(steps) for n in names}
+
+
+def write_cli_datasets(root, rng):
+    """A CustomDataset directory of CLI_PAIRS pairs and a MultiGen-20M
+    directory of PRETRAIN_ITEMS items for each of the nine tasks, PNG files
+    of random pixels at CLI_SHAPES, both orientations."""
+    img = lambda i: rng.integers(0, 256, (*CLI_SHAPES[i % len(CLI_SHAPES)], 3), dtype=np.uint8)
+    custom = os.path.join(root, "custom")
+    for sub in ("source", "target"):
+        os.makedirs(os.path.join(custom, sub))
+    with open(os.path.join(custom, "prompt.json"), "w") as f:
+        for i in range(CLI_PAIRS):
+            for sub in ("source", "target"):
+                write_png(os.path.join(custom, sub, f"{i}.png"), img(i))
+            f.write(json.dumps({"source": f"source/{i}.png", "target": f"target/{i}.png",
+                                "prompt": f"{PROMPT}, item {i}"}) + "\n")
+    mg = os.path.join(root, "multigen")
+    for sub in ("json_files", "images", "conditions"):
+        os.makedirs(os.path.join(mg, sub))
+    for t in configs.MULTIGEN_TASKS:
+        with open(os.path.join(mg, "json_files", f"aesthetics_plus_all_group_{t}_all.json"),
+                  "w") as f:
+            for i in range(PRETRAIN_ITEMS):
+                write_png(os.path.join(mg, "images", f"{t}{i}.png"), img(i + 1))
+                write_png(os.path.join(mg, "conditions", f"{t}{i}.png"), img(i + 1))
+                f.write(json.dumps({"source": f"./{t}{i}.png", f"control_{t}": f"{t}{i}.png",
+                                    "prompt": f"a {t} map of a house, item {i}"}) + "\n")
+    return custom, mg
+
+
+def check_weights(pipe, trainer, initial, frozen_only=False):
+    """(frozen weights that changed, trainable weights that did not) against
+    the CPU copies of the weights as loaded."""
+    named = {f"{b}.{n}": p for b, m in train_state.branches(pipe).items()
+             for n, p in m.named_parameters() if f"{b}.{n}" in initial}
+    trainable = trainer.state.trainable
+    changed = [k for k, p in named.items() if k not in trainable
+               and not torch.equal(p.detach().cpu(), initial[k])]
+    unchanged = [] if frozen_only else [k for k, p in trainable.items()
+                                        if torch.equal(p.detach().cpu(), initial[k])]
+    return changed, unchanged
+
+
+def finetune_cli(dev, paths, custom, root, phase6_s_step):
+    """Phase 10 (a): the finetune CLI from the files with the native image
+    prep, --use_ema, the image log and a checkpoint at the last step; then
+    --resume for two more steps, and a --cache_latents run. Returns the
+    launches of the three runs."""
+    base = ["--dataroot", custom, "--sd_ckpt", paths["sd"], "--cn_ckpt", paths["basecn"],
+            "--bs", str(BATCH), "--resolution", str(SIZE), "--log_every", "1",
+            "--num_workers", "8", "--device", str(dev)]
+    steps = CLI_WARMUP + CLI_TIMED
+    ft_dir = os.path.join(root, "finetune")
+    launches = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cli_spies(("unet", "vae", "clip", "control")) as rec, \
+            counted("finetune CLI", FINETUNE_CLI_KERNELS) as launches["finetune"]:
+        t0 = time.perf_counter()
+        run = finetune_cli_mod.main(base + [
+            "--max_steps", str(steps), "--use_ema", "--ckpt_logger_freq", str(steps),
+            "--img_logger_freq", str(steps), "--name", ft_dir])
+        total = time.perf_counter() - t0
+    s_step, lines = timed_steps(run.workdir, CLI_WARMUP)
+    hook = cli_metrics(run.workdir, "image_log")
+    log("train_cli", run="finetune", images="png files", native_image_prep=True, batch=BATCH,
+        size=SIZE, pairs=CLI_PAIRS, steps=steps, total_s=total, load_s=run.seconds["load"],
+        loader_wait_s=run.loader.wait_s, loader_wait_s_per_step=run.loader.wait_s / steps,
+        s_per_step=s_step, phase6_synthetic_s_per_step=phase6_s_step,
+        launches_per_step=per_step_launches(rec["steps"][CLI_WARMUP:]),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
+        grad_norm=[ln["grad_norm"] for ln in lines], launches=launches["finetune"])
+    train = cli_metrics(run.workdir, "train")
+    if len(train) != steps or not all(math.isfinite(ln["loss"]) and ln["grad_norm"] > 0
+                                      for ln in train):
+        raise AssertionError(f"bad finetune CLI metrics: {train}")
+    trainer, pipe = run.trainer, run.trainer.pipe
+    changed, unchanged = check_weights(pipe, trainer, rec["initial"])
+    live = {k: p.detach().clone() for k, p in trainer.state.trainable.items()}
+    shadow = trainer.state.ema.params
+    lagging = all(not torch.equal(live[k], shadow[k]) for k in live)
+    with trainer.eval_params():
+        swapped = all(torch.equal(p, shadow[k]) for k, p in trainer.state.trainable.items())
+    restored = all(torch.equal(p, live[k]) for k, p in trainer.state.trainable.items())
+    png = png_shape(hook[0]["path"]) if hook else None
+    rows_finite = bool(rec["rows"]) and all(np.isfinite(r).all() for r in rec["rows"][-1].values())
+    log("train_cli", run="finetune", frozen_bit_identical=not changed,
+        trainable_all_changed=not unchanged, n_trainable=len(live), ema_differs=lagging,
+        ema_swap_in=swapped, ema_swap_restores_bits=restored,
+        image_log_shape=png, image_log_rows_finite=rows_finite)
+    if changed or unchanged or not (lagging and swapped and restored) \
+            or png != [48 + 3 * SIZE, 2 * SIZE, 3] or not rows_finite:
+        raise AssertionError(f"finetune CLI: frozen changed {changed[:5]}, trainable unchanged "
+                             f"{unchanged[:5]}, ema {lagging}/{swapped}/{restored}, image log "
+                             f"{png} finite {rows_finite}")
+    ckpt = os.path.join(run.workdir, f"ckpt_{steps:08d}.pt")
+    del run, trainer, pipe, live, rec
+    torch.cuda.empty_cache()
+
+    # --resume: the step count and the loader's schedule go on from the checkpoint
+    with counted("finetune CLI --resume", TRAINING_KERNELS) as launches["resume"]:
+        run = finetune_cli_mod.main(base + [
+            "--max_steps", str(steps + CLI_RESUMED), "--use_ema", "--resume", ckpt,
+            "--ckpt_logger_freq", str(steps), "--name", os.path.join(root, "resumed")])
+    got = [ln["step"] for ln in cli_metrics(run.workdir, "train")]
+    log("train_cli", run="resume", from_step=steps, train_steps=got,
+        loader_last_step=run.loader.last_step, ema_updates=run.trainer.state.ema.updates,
+        launches=launches["resume"])
+    if got != list(range(steps + 1, steps + CLI_RESUMED + 1)) or \
+            run.loader.last_step != steps + CLI_RESUMED - 1 or \
+            run.trainer.state.ema.updates != steps + CLI_RESUMED:
+        raise AssertionError(f"resume: steps {got}, loader at {run.loader.last_step}")
+    del run
+    torch.cuda.empty_cache()
+
+    # --cache_latents: the pre-pass, then steps on the moments
+    with counted("finetune CLI --cache_latents", TRAINING_KERNELS) as launches["cached"]:
+        run = finetune_cli_mod.main(base + [
+            "--max_steps", str(steps), "--cache_latents", "--ckpt_logger_freq", str(steps),
+            "--name", os.path.join(root, "cached")])
+    s_cached, lines = timed_steps(run.workdir, CLI_WARMUP)
+    pre = run.seconds["precompute"]
+    log("train_cli", run="cache_latents", precompute_s=pre, precompute_pairs=CLI_PAIRS,
+        precompute_images_per_s=2 * CLI_PAIRS / pre, cached_s_per_step=s_cached,
+        pixel_s_per_step=s_step, loss=[ln["loss"] for ln in lines],
+        launches=launches["cached"])
+    if not all(math.isfinite(ln["loss"]) and ln["grad_norm"] > 0
+               for ln in cli_metrics(run.workdir, "train")):
+        raise AssertionError("cached finetune: bad metrics")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pretrain_cli(dev, paths, mg, root):
+    """Phase 10 (b): the pretrain CLI, nine LoRA banks from the same SD and
+    Base ControlNet files, MultiGen-20M over the nine tasks: 2 warm-up steps
+    and 9 timed ones (the first nine steps are one round of the tasks). The
+    last checkpoint (the AdamW moments of ~0.7B parameters) is not
+    written."""
+    n_tasks = len(configs.MULTIGEN_TASKS)
+    steps = CLI_WARMUP + PRETRAIN_TIMED
+    banks = {}
+
+    def after_first(state):  # the banks of each lora_up holding non-zeros
+        for k, p in state.trainable.items():
+            if k.endswith("lora_up"):
+                banks[k] = p.detach().flatten(1).any(1).tolist()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cli_spies(("unet",)) as rec, counted("pretrain CLI", TRAINING_KERNELS) as launches, \
+            mock.patch.object(Trainer, "save", lambda self, step: None):
+        rec["after_first"] = after_first
+        t0 = time.perf_counter()
+        run = pretrain_cli_mod.main([
+            "--json_dir", os.path.join(mg, "json_files"), "--meta_dir", mg,
+            "--sd_ckpt", paths["sd"], "--cn_ckpt", paths["basecn"], "--bs", str(BATCH),
+            "--resolution", str(SIZE), "--max_steps", str(steps), "--log_every", "1",
+            "--img_logger_freq", "1000", "--num_workers", "8", "--device", str(dev),
+            "--name", os.path.join(root, "pretrain")])
+        total = time.perf_counter() - t0
+    s_step, lines = timed_steps(run.workdir, CLI_WARMUP)
+    trainer = run.trainer
+    first = rec["steps"][0]["task"]
+    wrong = [k for k, nz in banks.items() if nz != [i == first for i in range(n_tasks)]]
+    changed, _ = check_weights(trainer.pipe, trainer, rec["initial"], frozen_only=True)
+    n_train = sum(p.numel() for p in trainer.state.trainable.values())
+    log("train_cli", run="pretrain", images="png files", tasks=list(trainer.pipe.cfg.tasks),
+        n_loras=trainer.pipe.cfg.control.lora.n_loras, batch=BATCH, size=SIZE, steps=steps,
+        total_s=total, load_s=run.seconds["load"], loader_wait_s=run.loader.wait_s,
+        trainable_params_m=n_train / 1e6, s_per_step=s_step,
+        task_of_step=[s["task"] for s in rec["steps"]],
+        launches_per_step=per_step_launches(rec["steps"][CLI_WARMUP:]),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        loss=[ln["loss"] for ln in lines], lora_up_checked=len(banks),
+        only_first_bank_nonzero_after_step_1=not wrong, unet_bit_identical=not changed,
+        launches=launches)
+    losses = [ln["loss"] for ln in cli_metrics(run.workdir, "train")]
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or not banks or wrong \
+            or changed or sorted({s["task"] for s in rec["steps"]}) != list(range(n_tasks)):
+        raise AssertionError(f"pretrain CLI: losses {losses}, banks wrong {wrong[:3]}, unet "
+                             f"changed {changed[:3]}")
+    del run, trainer, rec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_cli_slice(dev, phase6_s_step):
+    """Phase 10: the finetune and pretrain CLIs at SD1.5 width from
+    reference-format files (SD and Base ControlNet in fp16, written from a
+    seeded ctrlora_finetune_config(128) model) and PNG datasets, with
+    CTRLORA_NATIVE_DATA=1. The files are deleted at the end. Returns the
+    launches of each run."""
+    root = os.path.join(ROOT, "runs", "chip_smoke_train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+    for m in src.modules():
+        random_init_(m, gen)
+    paths, _ = write_reference_files(src, src.control.state_dict(), cfg,
+                                     os.path.join(root, "ckpts"), torch.float16)
+    del src
+    custom, mg = write_cli_datasets(root, np.random.default_rng(SEED))
+    log("train_cli", write_s=time.perf_counter() - t0, png_writer=png_writer(),
+        native_library=os.path.relpath(str(native_data.library_path()), ROOT))
+    try:
+        with mock.patch.dict(os.environ, {"CTRLORA_NATIVE_DATA": "1"}):
+            launches = finetune_cli(dev, paths, custom, root, phase6_s_step)
+            launches["pretrain"] = pretrain_cli(dev, paths, mg, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
@@ -1610,15 +1928,18 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     tiny_gpu_vs_cpu(dev)
     tiny_api_gpu_vs_cpu(dev)
-    training, _ = train_slice(dev, profile=bool(profile_steps))
+    training, phase6_s_step = train_slice(dev, profile=bool(profile_steps))
     tiny_train_gpu_vs_cpu(dev)
     api_runs = api_slice(dev)
+    torch.cuda.empty_cache()
+    cli_runs = train_cli_slice(dev, phase6_s_step)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         by_path = {"sampling": sampling[name], "samplers": samplers[name],
                    "training": training[name],
-                   "api_2lora": sum(r[name] for r in api_runs.values())}
+                   "api_2lora": sum(r[name] for r in api_runs.values()),
+                   "train_cli": sum(r[name] for r in cli_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

@@ -5,14 +5,14 @@ same names and defaults, without JAX and without YAML files.
 A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
 ``torch.dtype``. Only the presets of the ported paths are here:
 ``ctrlora_inference_config``, ``ctrlora_finetune_config`` and
-``tiny_test_config`` (``load_model_config`` takes their names), plus
-``TrainConfig`` for the finetune step.
+``ctrlora_pretrain_config`` and ``tiny_test_config`` (``load_model_config``
+takes their names), plus ``TrainConfig`` for the training step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -113,15 +113,18 @@ class ModelConfig:
     control: Optional[ControlNetConfig] = dataclasses.field(default_factory=ControlNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    # task names of pretrain-style stacked LoRAs; index order == lora index
+    tasks: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Finetune settings, the JAX ``TrainConfig``'s fields and defaults
+    """Training settings, the JAX ``TrainConfig``'s fields and defaults
     (AdamW as torch's: lr 1e-5, weight decay 1e-2, betas 0.9/0.999, eps
     1e-8). ``trainable``: 'all', 'lora' or 'full' (``training.train_state``);
-    ``use_ema`` and ``shard_opt_state`` are not ported (they must stay
-    False)."""
+    ``use_ema`` keeps an fp32 shadow of the trainable parameters
+    (``training.ema``); ``shard_opt_state`` needs several devices and is not
+    ported (it must stay False)."""
 
     learning_rate: float = 1e-5
     weight_decay: float = 1e-2
@@ -143,6 +146,28 @@ class TrainConfig:
     log_every: int = 100
     ckpt_every: int = 10_000
     image_log_every: int = 1000
+
+
+MULTIGEN_TASKS = (
+    "hed", "canny", "seg", "depth", "normal", "openpose", "hedsketch",
+    "bbox", "outpainting",
+)
+
+
+def ctrlora_pretrain_config(tasks: Sequence[str] = MULTIGEN_TASKS,
+                            lora_rank: int = 128) -> ModelConfig:
+    """Base ControlNet + per-task LoRA pretraining at SD1.5 width: one
+    rank-r LoRA bank per task in the latent-hint ControlNet, no switchable
+    banks, rematerialised blocks (the JAX package's preset of the same
+    name)."""
+    return ModelConfig(
+        name="ctrlora_pretrain",
+        control=ControlNetConfig(
+            hint_mode="latent",
+            lora=LoRAConfig(n_loras=len(tasks), rank=lora_rank),
+        ),
+        tasks=tuple(tasks),
+    )
 
 
 def ctrlora_finetune_config(lora_rank: int = 128, ft_with_lora: bool = True) -> ModelConfig:
@@ -202,12 +227,14 @@ def tiny_test_config(
             vocab_size=128, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=2, max_length=16,
         ),
+        tasks=tuple(f"task{i}" for i in range(n_loras)),
     )
 
 
 _PRESETS = {
     "ctrlora_finetune": ctrlora_finetune_config,
     "ctrlora_inference": ctrlora_inference_config,
+    "ctrlora_pretrain": ctrlora_pretrain_config,
     "tiny": tiny_test_config,
 }
 # the JAX package's other presets, and the ROADMAP queue 1 item that ports them
@@ -215,7 +242,6 @@ _NOT_PORTED = {
     "cldm_v15": "item 8 (image hint mode with HintBlock)",
     "cnlite_sd15": "item 10 (baselines)",
     "cnxs_sd15": "item 10 (baselines)",
-    "ctrlora_pretrain": "item 8 (the pretrain path, on the data layer of item 6)",
 }
 
 

@@ -38,6 +38,7 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
 )
 from ctrlora_tpu_torch.sampling.plms import plms_sample
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
+from ctrlora_tpu_torch.utils.image import write_png
 from ctrlora_tpu_torch.utils.loading import States, load_ctrlora, load_lora_slot_into
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
 
@@ -165,17 +166,6 @@ def sample_batch(pipe: CtrLoraPipeline, hint: np.ndarray, ids: np.ndarray, nids:
     return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8).cpu().numpy()
 
 
-def _write_png(path: str, rgb: np.ndarray) -> None:
-    try:
-        import cv2
-    except ImportError:  # pragma: no cover
-        from PIL import Image
-
-        Image.fromarray(rgb).save(path)
-        return
-    cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
-
-
 def main(argv: Optional[Sequence[str]] = None) -> None:
     from ctrlora_tpu_torch.data.datasets import CustomDataset
 
@@ -207,11 +197,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         nids = tok([""] * len(padded), max_length=max_length)
         out = sample_batch(pipe, hint, ids, nids, opts, args.seed + start)
         for j, i in enumerate(idxs):
-            _write_png(os.path.join(args.save_dir, "sample", f"{i:06d}.png"), out[j])
-            _write_png(os.path.join(args.save_dir, "control", f"{i:06d}.png"),
-                       (hint[j] * 255).astype(np.uint8))
-            _write_png(os.path.join(args.save_dir, "img", f"{i:06d}.png"),
-                       ((items[j]["jpg"] + 1) * 127.5).clip(0, 255).astype(np.uint8))
+            write_png(os.path.join(args.save_dir, "sample", f"{i:06d}.png"), out[j])
+            write_png(os.path.join(args.save_dir, "control", f"{i:06d}.png"),
+                      (hint[j] * 255).astype(np.uint8))
+            write_png(os.path.join(args.save_dir, "img", f"{i:06d}.png"),
+                      ((items[j]["jpg"] + 1) * 127.5).clip(0, 255).astype(np.uint8))
             prompts.append(f"{i:06d}: {items[j]['txt']}")
         print(f"sampled {min(start + args.bs, n)}/{n}", flush=True)
     with open(os.path.join(args.save_dir, "prompt.txt"), "w") as fp:

@@ -25,6 +25,7 @@ import torch
 
 from ctrlora_tpu_torch.configs import TrainConfig
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
+from ctrlora_tpu_torch.training.ema import ema_update
 from ctrlora_tpu_torch.training.losses import p_losses
 from ctrlora_tpu_torch.training.train_state import TrainState
 
@@ -73,24 +74,30 @@ def trainable_grad_norm(optimizer: torch.optim.Optimizer) -> torch.Tensor:
 
 def make_train_step(pipe: CtrLoraPipeline, optimizer: torch.optim.Optimizer,
                     cfg: TrainConfig) -> Callable:
-    """Returns step(state, batch, generator) -> (state, metrics): gradients
-    of the batch loss (micro-batch gradients averaged under grad_accum),
-    their global norm, one AdamW step."""
-    if cfg.use_ema or cfg.shard_opt_state:
-        raise NotImplementedError("EMA and optimizer-state sharding are not ported yet")
+    """Returns step(state, batch, generator, draws=None) -> (state, metrics):
+    gradients of the batch loss (micro-batch gradients averaged under
+    grad_accum), their global norm, one AdamW step, then the EMA update of
+    ``state.ema`` when ``cfg.use_ema``. `draws` (one batch's, see
+    ``loss_for_batch``) replace the generator's draws."""
+    if cfg.shard_opt_state:
+        raise NotImplementedError("shard_opt_state shards the AdamW moments over several "
+                                  "devices: not ported (ROADMAP queue 1 item 12)")
 
-    def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None):
+    def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
+             draws: Optional[Mapping[str, torch.Tensor]] = None):
         optimizer.zero_grad(set_to_none=True)
         micro = ([{k: v[i] for k, v in batch.items()} for i in range(cfg.grad_accum)]
                  if cfg.grad_accum > 1 else [batch])
         sums: Dict[str, torch.Tensor] = {}
         for mb in micro:
-            loss, metrics = loss_for_batch(pipe, mb, generator)
+            loss, metrics = loss_for_batch(pipe, mb, generator, draws)
             (loss / len(micro)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v / len(micro)
         sums["grad_norm"] = trainable_grad_norm(optimizer)
         optimizer.step()
+        if cfg.use_ema:
+            ema_update(state.ema, state.trainable, cfg.ema_decay)
         state.step += 1
         return state, sums
 

@@ -18,13 +18,14 @@ sees them, as in the reference; so no gradient is computed for them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ctrlora_tpu_torch.configs import TrainConfig
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+from ctrlora_tpu_torch.training.ema import EmaState
 
 # transformer norms are the modules literally named norm/norm1/norm2/norm3
 # (ResBlock norms are in_norm/out_norm and never match)
@@ -91,9 +92,12 @@ def make_optimizer(pipe: CtrLoraPipeline, cfg: TrainConfig, mask: Mask) -> torch
 
 @dataclasses.dataclass
 class TrainState:
-    """The step count, the modules (their parameters are the train state)
-    and the optimizer holding the AdamW moments."""
+    """The step count, the modules (their parameters are the train state),
+    the optimizer holding the AdamW moments, the trainable parameters by
+    'branch.name', and their EMA shadow when ``use_ema`` is set."""
 
     step: int
     modules: Dict[str, nn.Module]
     optimizer: torch.optim.Optimizer
+    trainable: Dict[str, nn.Parameter] = dataclasses.field(default_factory=dict)
+    ema: Optional[EmaState] = None

@@ -1,9 +1,11 @@
-"""Condition-image helpers of the API, numpy only: ``HWC3`` (counterpart of
+"""Image helpers, numpy only: the API's ``HWC3`` (counterpart of
 ``ctrlora_tpu/annotators/util.py``) and ``center_crop_to_common``
-(``ctrlora_tpu/api.py``)."""
+(``ctrlora_tpu/api.py``), and ``write_png`` of the CLIs and the image log
+(cv2 where it is installed, else PIL)."""
 
 from __future__ import annotations
 
+import importlib.util
 from typing import Tuple
 
 import numpy as np
@@ -43,3 +45,24 @@ def center_crop_to_common(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.
     else:
         a = a[:, (w - w2) // 2:(w + w2) // 2]
     return a, b
+
+
+def png_writer() -> str:
+    """The library ``write_png`` uses: 'cv2', else 'PIL'; raises
+    ImportError where the host has neither."""
+    for name in ("cv2", "PIL"):
+        if importlib.util.find_spec(name) is not None:
+            return name
+    raise ImportError("writing PNG files needs cv2 or PIL; the host has neither")
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """uint8 [H, W, 3] RGB to a PNG file."""
+    if png_writer() == "cv2":
+        import cv2
+
+        cv2.imwrite(path, cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+        return
+    from PIL import Image
+
+    Image.fromarray(rgb).save(path)

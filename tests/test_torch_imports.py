@@ -35,7 +35,10 @@ def test_port_modules_cover_the_slice():
                 "tools.ablate_hpack2", "tools.ablate_group_norm", "tools.time_gn_hpack2",
                 "tools.ablate_gn_onepass", "tools.time_gn_onepass_unpack",
                 "tools.time_sampling", "sampling.plms", "sampling.dpm_solver",
-                "data.datasets", "scripts.sample"):
+                "data.datasets", "scripts.sample", "data.scheduler", "data.native",
+                "data.loader", "training.ema", "training.latent_cache",
+                "scripts.train_common", "scripts.train_ctrlora_finetune",
+                "scripts.train_ctrlora_pretrain"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 

@@ -3,7 +3,8 @@
 * ``data.datasets.CustomDataset`` against the JAX package's on a directory
   in tmp_path (items skipped for missing files, up- and down-scaling, prompt
   dropout): the same items and the same arrays, exactly, from the same
-  numpy draws; ``CTRLORA_NATIVE_DATA`` raises rather than being ignored;
+  numpy draws; ``CTRLORA_NATIVE_DATA`` is honoured (the native image prep)
+  rather than ignored;
 * ``configs.load_model_config``: the port's presets, and a clear error for
   the JAX presets not ported yet and for YAML files;
 * ``python -m ctrlora_tpu_torch.scripts.sample`` (its ``main``) on the tiny
@@ -27,7 +28,7 @@ from ctrlora_tpu.data import datasets as jax_datasets
 
 from ctrlora_tpu_torch import configs, lora_fuse
 from ctrlora_tpu_torch.configs import TrainConfig
-from ctrlora_tpu_torch.data import datasets
+from ctrlora_tpu_torch.data import datasets, native
 from ctrlora_tpu_torch.models.unet import encoder_plan
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling import ddim, dpm_solver, plms
@@ -90,8 +91,11 @@ def test_custom_dataset_errors(dataset_dir, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         datasets.CustomDataset(str(tmp_path))
     monkeypatch.setenv("CTRLORA_NATIVE_DATA", "1")
-    with pytest.raises(NotImplementedError, match="CTRLORA_NATIVE_DATA"):
-        datasets.CustomDataset(dataset_dir, resolution=16).get(0, np.random.default_rng(0))
+    ds = datasets.CustomDataset(dataset_dir, resolution=16)
+    got = ds.get(0, np.random.default_rng(0))
+    src = datasets.imread_rgb(os.path.join(dataset_dir, ds.data[0]["source"]))
+    want = native.resize_norm(src, (0, 0, *src.shape[:2]), (16, 16), 1 / 255.0, 0.0)
+    np.testing.assert_array_equal(got["hint"], want)
 
 
 def test_load_model_config():
@@ -100,7 +104,8 @@ def test_load_model_config():
     assert configs.load_model_config("ctrlora_finetune") == configs.ctrlora_finetune_config()
     assert (configs.load_model_config("ctrlora_inference", lora_num=2)
             == configs.ctrlora_inference_config(lora_num=2))
-    for name in ("cldm_v15", "cnlite_sd15", "cnxs_sd15", "ctrlora_pretrain"):
+    assert configs.load_model_config("ctrlora_pretrain") == configs.ctrlora_pretrain_config()
+    for name in ("cldm_v15", "cnlite_sd15", "cnxs_sd15"):
         with pytest.raises(ValueError, match="ROADMAP queue 1 item"):
             configs.load_model_config(name)
     with pytest.raises(ValueError, match="YAML"):
