@@ -3,8 +3,9 @@
 sampling, the sampler family (DDIM with eta, guess mode, ucg schedule and
 mask; PLMS; DPM-Solver; img2img; DDIM inversion; the sample CLI's batch),
 the rank-128 LoRA finetune step, the switchable two-LoRA CtrLoRA API from
-reference-format checkpoints, and the finetune and pretrain CLIs training
-from dataset files.
+reference-format checkpoints, the finetune and pretrain CLIs training
+from dataset files, and the ControlNet baselines (vanilla image-hint
+ControlNet and ControlNet-Lite) sampling and training through train_cn.
 
     python3 chip_smoke.py
 
@@ -98,7 +99,29 @@ the script exits non-zero:
    steps: trainable parameters, s/step, peak memory, the task of each
    step; losses finite, after step 1 only that step's bank of each
    lora_up non-zero, the UNet bit-identical. The files are deleted at the
-   end.
+   end;
+11. the ControlNet baselines at SD1.5 width, seeded random weights (zero-init
+   layers too): (a) sd15_config (cldm_v15: image-hint ControlNet with its
+   HintBlock) and (b) cnlite_config (ControlNet-Lite, encoder-side taps),
+   each cast for inference, batch 4, 512^2, a seeded pixel hint in [0, 1],
+   token ids of ones against uncond zeros, 50 DDIM steps at CFG 7.5, eta 0:
+   s/batch with the prep / DDIM / decode split, launches per evaluation
+   by kernel (Lite: no row unpack), the HintBlock's ms a step (20 calls
+   queued back to back; beside it torch.profiler's device ms and per-call
+   events), finite [4, 512, 512, 3] images, one
+   UNet+control evaluation with the kernels within relative L2 5e-2 of
+   the plain versions; (c) train_cn.main --variant controlnet on 16 PNG
+   pairs (phase 10's writer) from an fp16 reference-format control file
+   with input_hint_block.* keys, --bs 2 --gradacc 2, --use_ema, 2 warm-up
+   and 4 timed steps, a checkpoint and the image log at the last step:
+   s/step, peak memory, launches a step by kernel; loaded tensors equal
+   to the file's, finite loss and grad_norm > 0, the frozen UNet
+   bit-identical, every control weight changed, one step's loss and
+   gradients with the kernels within 1e-2 / L2 5e-2 of plain; (d) the same
+   for --variant lite at --bs 4 from the seeded init (its unused
+   time_embed alone stays as it was); (e) each baseline's tiny
+   configuration: one evaluation and one train step, fp32, GPU against
+   CPU within rtol 2e-3 / atol 2e-4. The files are deleted at the end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -149,7 +172,7 @@ from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import group_norm as gn_ops
 from ctrlora_tpu_torch.ops import kernel_flags
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
-from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
+from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline, build_control
 from ctrlora_tpu_torch.sampling.common import make_emb_row_tables
 from ctrlora_tpu_torch.sampling.ddim import (
     DDIMConfig, ddim_decode_from, ddim_encode, ddim_sample, ddim_stochastic_encode,
@@ -160,6 +183,7 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
 from ctrlora_tpu_torch.sampling.plms import plms_sample
 from ctrlora_tpu_torch.data import native as native_data
 from ctrlora_tpu_torch.scripts import sample as sample_cli
+from ctrlora_tpu_torch.scripts import train_cn as train_cn_mod
 from ctrlora_tpu_torch.scripts import train_common
 from ctrlora_tpu_torch.scripts import train_ctrlora_finetune as finetune_cli_mod
 from ctrlora_tpu_torch.scripts import train_ctrlora_pretrain as pretrain_cli_mod
@@ -288,6 +312,15 @@ FLAGS = {"gn_onepass": True, "head_pack": 2, "attn_qkv_packed": False}
 API_FLAGGED_KERNELS = ("group_norm", "group_norm_onepass", "flash_attention",
                        "flash_attention_bshd", "flash_attention_hpack2", "geglu_ffn",
                        "unpack_rows")
+
+
+def counts_now():
+    return {n: w.launches for n, w in wrappers().items()}
+
+
+def counts_since(before):
+    """Each kernel's launches since `before` (a ``counts_now()``)."""
+    return {n: w.launches - before[n] for n, w in wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -1185,12 +1218,14 @@ def fixed_draws(gen, dev, n, lat):
 
 
 def step_grads(pipe, params, batch, draws):
-    """One step's loss and its concatenated trainable gradient (fp32)."""
+    """One step's loss and its concatenated trainable gradient (fp32); a
+    parameter the loss does not reach (Lite's time_embed) counts zeros."""
     for p in params:
         p.grad = None
     loss, _ = loss_for_batch(pipe, batch, draws=draws)
     loss.backward()
-    return loss.item(), torch.cat([p.grad.float().flatten() for p in params])
+    return loss.item(), torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                   .float().flatten() for p in params])
 
 
 def train_slice(dev, profile=False):
@@ -1536,10 +1571,10 @@ def cli_spies(initial_branches):
         fn = real_make(*args, **kw)
 
         def step(state, batch, *a, **k):
-            before = {n: w.launches for n, w in wrappers().items()}
+            before = counts_now()
             out = fn(state, batch, *a, **k)
-            rec["steps"].append({"task": int(batch["task_idx"][0]), "launches": {
-                n: w.launches - before[n] for n, w in wrappers().items()}})
+            rec["steps"].append({"task": int(batch["task_idx"].reshape(-1)[0]),
+                                 "launches": counts_since(before)})
             if len(rec["steps"]) == 1 and rec["after_first"] is not None:
                 rec["after_first"](state)
             return out
@@ -1802,6 +1837,283 @@ def train_cli_slice(dev, phase6_s_step):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the ControlNet baselines (vanilla image-hint ControlNet, Lite)
+# ---------------------------------------------------------------------------
+
+BASELINES = {"controlnet": configs.sd15_config, "lite": configs.cnlite_config}
+# the kernels each baseline's sampling launches: Lite builds no row tables (no D)
+BASELINE_SAMPLING_KERNELS = {
+    "controlnet": SAMPLING_KERNELS,
+    "lite": ("group_norm", "flash_attention_qkv", "flash_attention", "geglu_ffn")}
+# the baselines' training: no LoRA, so every transformer runs B's fused-qkv
+# entry (the BSHD entry serves the LoRA trees' separate projections)
+BASELINE_TRAINING_KERNELS = tuple(k for k in TRAINING_KERNELS if k != "flash_attention_bshd")
+CN_WARMUP, CN_TIMED = 2, 4
+CN_MICRO_BATCH, CN_GRADACC, LITE_BATCH = 2, 2, 4
+
+
+def device_ms(fn) -> float:
+    """Device ms of the kernels fn() launches, by torch.profiler (after a
+    warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    return sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def baseline_sample(pipe, ids, uncond, hint, x_T, steps):
+    """The baselines' serving path: CLIP pair, DDIM with CFG on the pixel
+    hint (no hint encode), VAE decode. Returns (image, per-phase seconds,
+    the launches of the DDIM loop)."""
+    t = [time.perf_counter()]
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    before = counts_now()
+    z = ddim_sample(pipe, ctx, unc, [Conditioning(hint)], x_T.shape,
+                    DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
+    torch.cuda.synchronize()
+    ddim_launches = counts_since(before)
+    t.append(time.perf_counter())
+    img = pipe.decode_first_stage(z)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    return img, {"prep_s": t[1] - t[0], "ddim_s": t[2] - t[1], "decode_s": t[3] - t[2]}, \
+        ddim_launches
+
+
+def baseline_sampling(dev, variant):
+    """Phase 11a/11b: one baseline at SD1.5 width, seeded random weights
+    (zero-init layers included), cast for inference; batch 4, 512^2, a
+    seeded pixel hint in [0, 1], token ids of ones against uncond zeros, 50
+    DDIM steps at CFG 7.5, eta 0. Returns the launches of the run."""
+    cfg = BASELINES[variant]()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+    pipe = CtrLoraPipeline(cfg, dev)
+    for m in pipe.modules():
+        random_init_(m, gen)
+    pipe.cast_for_inference()
+    torch.cuda.synchronize()
+    phase = f"baseline_{variant}"
+    log(phase, setup_s=time.perf_counter() - t0, control=type(pipe.control).__name__,
+        control_params_m=sum(p.numel() for p in pipe.control.parameters()) / 1e6,
+        hint_block_params=sum(p.numel() for p in pipe.control.hint_block.parameters()))
+    lat = SIZE // 8
+    ids = torch.ones((BATCH, cfg.clip.max_length), dtype=torch.long, device=dev)
+    uncond = torch.zeros_like(ids)
+    hint = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+    x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    baseline_sample(pipe, ids, uncond, hint, x_T, steps=2)  # warm-up
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted(f"{variant} sampling", BASELINE_SAMPLING_KERNELS[variant]) as launches:
+        t0 = time.perf_counter()
+        img, phases, ddim_launches = baseline_sample(pipe, ids, uncond, hint, x_T, STEPS)
+        total = time.perf_counter() - t0
+    per_eval = {n: ddim_launches[n] / STEPS for n in wrappers()}
+    hint2 = torch.cat([hint, hint])  # the CFG batch the control call takes
+    dt = cfg.control.unet.compute_dtype
+    hint_block = lambda: pipe.control.hint_block(hint2, dt)
+    hint_ms = time_b2b(hint_block)  # once a step: the device's time, not the host's
+    log(phase, steps=STEPS, batch=BATCH, size=SIZE, s_per_batch=total,
+        s_per_step=phases["ddim_s"] / STEPS, **phases, launches=launches,
+        launches_per_evaluation=per_eval, hint_block_b2b_ms_per_step=hint_ms,
+        hint_block_profiler_device_ms=device_ms(hint_block),
+        hint_block_events_ms=time_ms(hint_block),
+        hint_block_share_of_step=hint_ms / (phases["ddim_s"] / STEPS * 1e3),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"{variant}: bad image, shape {tuple(img.shape)}")
+    if variant == "lite" and launches["unpack_rows"]:
+        raise AssertionError(f"Lite launched the row unpack {launches['unpack_rows']} times")
+
+    # one UNet+control evaluation: kernels vs plain versions
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    full_ctx, conds = torch.cat([ctx, unc]), [Conditioning(hint2)]
+    ts = torch.tensor([981], dtype=torch.int32, device=dev)
+    tvec = torch.full((2 * BATCH,), 981, dtype=torch.int32, device=dev)
+    x2 = torch.cat([x_T, x_T])
+
+    def evaluate():
+        packed, rows_of = make_emb_row_tables(pipe, conds, ts)
+        return pipe.apply_model(x2, tvec, full_ctx, conds, emb_rows=rows_of(packed[0]))
+
+    out_k = evaluate()
+    with plain_versions():
+        out_p = evaluate()
+    rel = rel_l2(out_k, out_p)
+    log(phase, image_mean=img.mean().item(), image_std=img.std().item(),
+        unet_control_rel_l2_kernels_vs_plain=rel, bound=MODEL_REL_TOL)
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL:
+        raise AssertionError(f"{variant}: kernel path departs from the plain path: rel {rel}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_control_file(cfg, dev, path, gen):
+    """The control model of a seeded `cfg` (zero-init layers included) as a
+    reference-format fp16 file; returns the written arrays."""
+    with torch.device(dev):
+        control = build_control(cfg.control, fuse_lora=False)
+    random_init_(control, gen)
+    written = {k: torch.from_numpy(v).half() for k, v in
+               ckpt_torch.export_control_base(control.state_dict(), cfg.control).items()}
+    torch.save(written, path)
+    return written
+
+
+def baseline_train(dev, variant, custom, root, cn_file=None, written=None):
+    """Phase 11c/11d: train_cn.main on the PNG pairs: 2 warm-up and 4 timed
+    steps with --use_ema, a checkpoint and the image log at the last step;
+    then one step's loss and gradients with the kernels against the plain
+    versions. Returns the run's launches."""
+    phase = f"train_cn_{variant}"
+    steps = CN_WARMUP + CN_TIMED
+    bs, gradacc = (CN_MICRO_BATCH, CN_GRADACC) if variant == "controlnet" else (LITE_BATCH, 1)
+    argv = ["--variant", variant, "--dataroot", custom, "--bs", str(bs), "--gradacc",
+            str(gradacc), "--max_steps", str(steps), "--use_ema", "--log_every", "1",
+            "--ckpt_logger_freq", str(steps), "--img_logger_freq", str(steps),
+            "--num_workers", "8", "--device", str(dev), "-n", os.path.join(root, variant)]
+    if cn_file:
+        argv += ["--cn_ckpt", cn_file]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cli_spies(("unet", "control")) as rec, \
+            counted(f"train_cn {variant}", BASELINE_TRAINING_KERNELS) as launches:
+        t0 = time.perf_counter()
+        run = train_cn_mod.main(argv)
+        total = time.perf_counter() - t0
+    s_step, lines = timed_steps(run.workdir, CN_WARMUP)
+    trainer, pipe = run.trainer, run.trainer.pipe
+    hook = cli_metrics(run.workdir, "image_log")
+    log(phase, batch=bs * gradacc, micro_batch=bs, gradacc=gradacc, size=SIZE, steps=steps,
+        total_s=total, load_s=run.seconds["load"], loader_wait_s=run.loader.wait_s,
+        trainable_params_m=sum(p.numel() for p in trainer.state.trainable.values()) / 1e6,
+        s_per_step=s_step, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        launches_per_step=per_step_launches(rec["steps"][CN_WARMUP:], wrappers()),
+        hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
+        grad_norm=[ln["grad_norm"] for ln in lines], launches=launches)
+    train = cli_metrics(run.workdir, "train")
+    if len(train) != steps or not all(math.isfinite(ln["loss"]) and ln["grad_norm"] > 0
+                                      for ln in train):
+        raise AssertionError(f"{phase}: bad metrics {train}")
+    loaded = None
+    if written is not None:  # every control tensor as the file holds it
+        initial = {k[len("control."):]: v for k, v in rec["initial"].items()
+                   if k.startswith("control.")}
+        got = ckpt_torch.export_control_base(initial, pipe.cfg.control)
+        bad = [k for k in written if not np.array_equal(got[k], written[k].float().numpy())]
+        if bad or sorted(got) != sorted(written):
+            raise AssertionError(f"{phase}: loaded tensors differ from the file: {bad[:5]}")
+        loaded = len(written)
+    changed, unchanged = check_weights(pipe, trainer, rec["initial"])
+    # Lite's time_embed is read by no block: no gradient, and AdamW skips it
+    idle = [k for k in unchanged if not k.startswith("control.time_embed.")]
+    png = png_shape(hook[0]["path"]) if hook else None
+    log(phase, loaded_tensors_equal_file=loaded, frozen_bit_identical=not changed,
+        trainable_changed=len(trainer.state.trainable) - len(unchanged),
+        trainable_unchanged=unchanged, image_log_shape=png)
+    if changed or idle or png != [48 + 3 * SIZE, 2 * SIZE, 3]:
+        raise AssertionError(f"{phase}: frozen changed {changed[:5]}, trainable unchanged "
+                             f"{idle[:5]}, image log {png}")
+    del rec
+    shutil.rmtree(os.path.join(root, variant), ignore_errors=True)  # the checkpoint
+
+    # one step's loss and gradients: kernels vs plain versions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    batch = synthetic_batch(gen, dev, bs, SIZE, pipe.cfg.clip.max_length,
+                            pipe.cfg.clip.vocab_size)
+    draws = fixed_draws(gen, dev, bs, SIZE // 8)
+    params = [p for p in trainer.state.trainable.values()]
+    loss_k, grad_k = step_grads(pipe, params, batch, draws)
+    with plain_versions():
+        loss_p, grad_p = step_grads(pipe, params, batch, draws)
+    loss_rel, grad_rel = abs(loss_k - loss_p) / abs(loss_p), rel_l2(grad_k, grad_p)
+    log(phase, loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+        loss_bound=LOSS_REL_TOL, grad_rel_l2_kernels_vs_plain=grad_rel,
+        grad_bound=MODEL_REL_TOL)
+    if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL_TOL and grad_rel <= MODEL_REL_TOL
+            and torch.isfinite(grad_k).all()):
+        raise AssertionError(f"{phase}: step departs from the plain path: loss {loss_rel}, "
+                             f"grad {grad_rel}")
+    del run, trainer, pipe, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tiny_baselines_gpu_vs_cpu(dev):
+    """Phase 11e: each baseline's tiny configuration (image hint, 4x the
+    target's size) in fp32: one evaluation and one train step's loss and
+    gradients on the GPU against the CPU, same weights and draws."""
+    errs = {}
+    for variant in BASELINES:
+        base = configs.tiny_test_config(hint_mode="image")
+        cfg = dataclasses.replace(base, control=dataclasses.replace(base.control,
+                                                                    variant=variant))
+        gen = torch.Generator().manual_seed(SEED)
+        cpu = CtrLoraPipeline(cfg, "cpu", fuse_lora=False)
+        for m in cpu.modules():
+            random_init_(m, gen)
+        gpu = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+        for a, b in zip(gpu.modules(), cpu.modules()):
+            a.load_state_dict(b.state_dict(), strict=True)
+        x = torch.randn((2, 8, 8, 4), generator=gen)
+        ctx = torch.randn((2, cfg.clip.max_length, cfg.clip.hidden_size), generator=gen)
+        hint = torch.rand((2, 64, 64, 3), generator=gen)
+        t = torch.tensor([17, 901])
+        batch = {"jpg": torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1, "hint": hint,
+                 "token_ids": torch.randint(1, cfg.clip.vocab_size, (2, cfg.clip.max_length),
+                                            generator=gen)}
+        draws = fixed_draws(gen, "cpu", 2, 8)
+        outs = []
+        for pipe, d in ((cpu, "cpu"), (gpu, dev)):
+            with torch.no_grad():
+                out = pipe.apply_model(x.to(d), t.to(d), ctx.to(d), [Conditioning(hint.to(d))])
+            tcfg = configs.TrainConfig(trainable="all")
+            mask = train_state.trainable_mask(pipe, tcfg)
+            train_state.make_optimizer(pipe, tcfg, mask)
+            params = list(train_state.trainable_parameters(pipe, mask).values())
+            loss, grad = step_grads(pipe, params, {k: v.to(d) for k, v in batch.items()},
+                                        {k: v.to(d) for k, v in draws.items()})
+            outs.append((out.cpu(), torch.tensor([loss]), grad.cpu()))
+        errs[variant] = max(compare(g, c, rtol=2e-3, atol=2e-4) for g, c in zip(outs[1], outs[0]))
+    log("tiny_baselines", gpu_vs_cpu_max_abs_err=errs, tol="rtol=2e-3 atol=2e-4")
+
+
+def baselines_slice(dev):
+    """Phase 11: vanilla and Lite sampling (11a, 11b), train_cn for both
+    from PNG files (11c from an fp16 control file, 11d from the seeded
+    init), and the tiny GPU-vs-CPU checks (11e). The files are deleted at
+    the end. Returns the launches of each run."""
+    launches = {f"sample_{v}": baseline_sampling(dev, v) for v in BASELINES}
+    root = os.path.join(ROOT, "runs", "chip_smoke_baselines")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        custom, _ = write_cli_datasets(root, np.random.default_rng(SEED + 11))
+        cn_file = os.path.join(root, "control_sd15.ckpt")
+        written = write_control_file(configs.sd15_config(), dev, cn_file,
+                                     torch.Generator(device=dev).manual_seed(SEED + 13))
+        log("train_cn", write_s=time.perf_counter() - t0, control_file_keys=len(written),
+            hint_block_keys=sum(".input_hint_block." in k for k in written))
+        launches["train_controlnet"] = baseline_train(dev, "controlnet", custom, root, cn_file,
+                                                      written)
+        launches["train_lite"] = baseline_train(dev, "lite", custom, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tiny_baselines_gpu_vs_cpu(dev)
+    return launches
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
@@ -1933,13 +2245,15 @@ def main(argv) -> int:
     api_runs = api_slice(dev)
     torch.cuda.empty_cache()
     cli_runs = train_cli_slice(dev, phase6_s_step)
+    baseline_runs = baselines_slice(dev)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         by_path = {"sampling": sampling[name], "samplers": samplers[name],
                    "training": training[name],
                    "api_2lora": sum(r[name] for r in api_runs.values()),
-                   "train_cli": sum(r[name] for r in cli_runs.values())}
+                   "train_cli": sum(r[name] for r in cli_runs.values()),
+                   "baselines": sum(r[name] for r in baseline_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

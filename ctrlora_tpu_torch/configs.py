@@ -4,9 +4,11 @@ The fields of ``ctrlora_tpu/configs.py`` that the ported path reads, with the
 same names and defaults, without JAX and without YAML files.
 A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
 ``torch.dtype``. Only the presets of the ported paths are here:
-``ctrlora_inference_config``, ``ctrlora_finetune_config`` and
-``ctrlora_pretrain_config`` and ``tiny_test_config`` (``load_model_config``
-takes their names), plus ``TrainConfig`` for the training step.
+``ctrlora_inference_config``, ``ctrlora_finetune_config``,
+``ctrlora_pretrain_config``, the baselines ``sd15_config`` (vanilla
+image-hint ControlNet) and ``cnlite_config`` (ControlNet-Lite), and
+``tiny_test_config`` (``load_model_config`` takes their names), plus
+``TrainConfig`` for the training step.
 """
 
 from __future__ import annotations
@@ -53,9 +55,22 @@ class UNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ControlNetConfig:
+    """hint_mode 'latent' (CtrLoRA: the VAE-encoded hint is the branch's
+    input stream) or 'image' (vanilla ControlNet: the noisy latent is the
+    input, the pixel hint enters through ``HintBlock``). variant
+    'controlnet' (decoder-side taps), 'lite' (ControlNet-Lite: conv-only
+    branch, encoder-side taps) or 'xs' (ControlNet-XS, not ported: its
+    knobs are here so that its preset can be named)."""
+
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
-    hint_mode: str = "latent"  # the port implements only 'latent'
+    hint_channels: int = 3
+    hint_mode: str = "latent"
     lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
+    variant: str = "controlnet"
+    control_model_ratio: float = 0.2
+    infusion2control: Optional[str] = "cat"
+    guiding: str = "encoder_double"
+    learn_embedding: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +98,14 @@ class CLIPTextConfig:
     num_layers: int = 12
     num_heads: int = 12
     max_length: int = 77
-    layer: str = "last"  # the port implements only 'last'
+    # 'last' final_layer_norm(hidden); 'penultimate' the same one layer
+    # early; 'hidden' the raw state entering layer `layer_idx` (clip-skip);
+    # 'pooled' the EOT position of 'last'; 'projected' pooled @
+    # text_projection [hidden, projection_dim]
+    layer: str = "last"
+    layer_idx: Optional[int] = None
     hidden_act: str = "quick_gelu"
+    projection_dim: Optional[int] = None
     dtype: str = "float32"
 
     @property
@@ -102,6 +123,8 @@ class DiffusionConfig:
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
     logvar_init: float = 0.0
+    only_mid_control: bool = False  # control taps add onto the middle only
+    global_average_pooling: bool = False  # each tap averaged over H and W
     sd_locked: bool = True
 
 
@@ -152,6 +175,26 @@ MULTIGEN_TASKS = (
     "hed", "canny", "seg", "depth", "normal", "openpose", "hedsketch",
     "bbox", "outpainting",
 )
+
+
+def sd15_config() -> ModelConfig:
+    """Vanilla SD1.5 + image-hint ControlNet, no LoRA (the JAX package's
+    preset for configs/cldm_v15.yaml)."""
+    return ModelConfig(
+        name="cldm_v15",
+        control=ControlNetConfig(hint_mode="image", lora=LoRAConfig(n_loras=0)),
+    )
+
+
+def cnlite_config() -> ModelConfig:
+    """ControlNet-Lite baseline: the conv-only image-hint branch with
+    encoder-side taps (the JAX package's preset for
+    configs/cnlite_sd15.yaml)."""
+    return ModelConfig(
+        name="cnlite_sd15",
+        control=ControlNetConfig(hint_mode="image", lora=LoRAConfig(n_loras=0),
+                                 variant="lite"),
+    )
 
 
 def ctrlora_pretrain_config(tasks: Sequence[str] = MULTIGEN_TASKS,
@@ -232,17 +275,16 @@ def tiny_test_config(
 
 
 _PRESETS = {
+    "cldm_v15": sd15_config,
+    "cnlite_sd15": cnlite_config,
     "ctrlora_finetune": ctrlora_finetune_config,
     "ctrlora_inference": ctrlora_inference_config,
     "ctrlora_pretrain": ctrlora_pretrain_config,
     "tiny": tiny_test_config,
 }
 # the JAX package's other presets, and the ROADMAP queue 1 item that ports them
-_NOT_PORTED = {
-    "cldm_v15": "item 8 (image hint mode with HintBlock)",
-    "cnlite_sd15": "item 10 (baselines)",
-    "cnxs_sd15": "item 10 (baselines)",
-}
+XS_ITEM = "item 10b (ControlNet-XS)"
+_NOT_PORTED = {"cnxs_sd15": XS_ITEM}
 
 
 def load_model_config(path_or_preset: str, **overrides) -> ModelConfig:

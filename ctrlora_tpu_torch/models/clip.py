@@ -1,5 +1,13 @@
-"""CLIP ViT-L/14 text encoder, layer 'last' (counterpart of
-``ctrlora_tpu/models/clip.py``). fp32 and plain: no TPU kernel runs here.
+"""CLIP ViT-L/14 text encoder (counterpart of ``ctrlora_tpu/models/clip.py``;
+reference ldm/modules/encoders/modules.py:88-131). fp32 and plain: no TPU
+kernel runs here.
+
+``CLIPTextConfig.layer`` picks the output: 'last' (final_layer_norm of the
+last hidden state), 'penultimate' (the same one layer early), 'hidden' (the
+raw state entering layer ``layer_idx``, clip-skip), 'pooled' (the 'last'
+row at the EOT token, the largest id of the row) or 'projected' (pooled @
+``text_projection``). ``encode_windowed`` is the reference's 3x77-token
+"clip hack" (cldm/hack.py:32-68).
 """
 
 from __future__ import annotations
@@ -48,25 +56,59 @@ class CLIPLayer(nn.Module):
         return x + self.fc2(h)
 
 
+LAYERS = ("last", "penultimate", "hidden", "pooled", "projected")
+
+
 class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        if cfg.layer != "last":
-            raise ValueError("the port's CLIP implements layer='last' only")
+        if cfg.layer not in LAYERS:
+            raise ValueError(f"unknown layer {cfg.layer!r}; one of {LAYERS}")
+        if cfg.layer == "hidden" and cfg.layer_idx is None:
+            raise ValueError("layer='hidden' requires layer_idx")
+        if cfg.layer == "projected" and not cfg.projection_dim:
+            raise ValueError("layer='projected' needs projection_dim")
         self.cfg = cfg
         self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_size))
         self.position_embedding = nn.Parameter(torch.zeros(cfg.max_length, cfg.hidden_size))
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", CLIPLayer(cfg))
         self.final_layer_norm = LayerNorm32(cfg.hidden_size)
+        if cfg.layer == "projected":
+            self.text_projection = Dense(cfg.hidden_size, cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """input_ids [B, S] -> final_layer_norm(hidden) [B, S, hidden] fp32."""
+        """input_ids [B, S] -> [B, S, hidden] fp32 ('last', 'penultimate',
+        'hidden'), [B, hidden] ('pooled') or [B, projection_dim]
+        ('projected')."""
         cfg = self.cfg
         s = input_ids.shape[1]
         ids = input_ids.long().clamp(0, cfg.vocab_size - 1)  # out-of-vocab ids clamp
         x = (self.token_embedding[ids] + self.position_embedding[None, :s]).to(cfg.compute_dtype)
         mask = torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
-        for i in range(cfg.num_layers):
+        if cfg.layer == "hidden":
+            stop = cfg.num_layers + cfg.layer_idx if cfg.layer_idx < 0 else cfg.layer_idx
+            if not 0 <= stop < cfg.num_layers:
+                raise ValueError(f"layer_idx {cfg.layer_idx} is outside the "
+                                 f"{cfg.num_layers} layers")
+            for i in range(stop):
+                x = getattr(self, f"layer_{i}")(x, mask)
+            return x.float()
+        for i in range(cfg.num_layers - (cfg.layer == "penultimate")):
             x = getattr(self, f"layer_{i}")(x, mask)
-        return self.final_layer_norm(x).float()
+        final = self.final_layer_norm(x).float()
+        if cfg.layer in ("last", "penultimate"):
+            return final
+        pooled = final[torch.arange(final.shape[0], device=final.device),
+                       input_ids.long().argmax(dim=-1)]
+        return pooled if cfg.layer == "pooled" else self.text_projection(pooled)
+
+
+def encode_windowed(model: CLIPTextModel, input_ids: torch.Tensor,
+                    window: int = 77) -> torch.Tensor:
+    """Encode each `window`-token slice of input_ids [B, n*window] and
+    concatenate the outputs on the sequence axis: [B, n*window, hidden]."""
+    s = input_ids.shape[1]
+    if s % window:
+        raise ValueError(f"windowed encoding expects a multiple of {window} tokens, got {s}")
+    return torch.cat([model(input_ids[:, i:i + window]) for i in range(0, s, window)], dim=1)

@@ -107,12 +107,15 @@ def _affine(channels: int, n_banks: int):
 
 
 class ZeroConv(Conv):
-    """A control tap's 1x1 conv; with ``n_banks`` its weight [n, co, ci, 1, 1]
-    and bias [n, co] are a switchable bank selected per call by
+    """A control tap's 1x1 conv, zero-initialised as JAX's (so a fresh
+    control branch adds nothing); with ``n_banks`` its weight [n, co, ci,
+    1, 1] and bias [n, co] are a switchable bank selected per call by
     ``bank_idx`` (the JAX ``ZeroConv``)."""
 
     def __init__(self, channels: int, n_banks: int = 0):
         super().__init__(channels, channels, kernel_size=1)
+        nn.init.zeros_(self.weight)
+        nn.init.zeros_(self.bias)
         self.n_banks = n_banks
         if n_banks:
             self.weight = nn.Parameter(self.weight.detach()[None].repeat(n_banks, 1, 1, 1, 1))

@@ -1,5 +1,7 @@
-"""SD1.5 UNet with control-residual injection, and the latent-hint
-ControlNet (counterpart of ``ctrlora_tpu/models/unet.py``).
+"""SD1.5 UNet with control-residual injection, the ControlNet branch
+(latent hint, as CtrLoRA, or pixel hint through ``HintBlock``, as the
+vanilla ControlNet) and the hint encoder (counterpart of
+``ctrlora_tpu/models/unet.py``).
 
 Public tensors keep the JAX layout: latents, hints and control taps are
 NHWC, contexts [B, S, D]. Inside, activations are NCHW channels-last, so
@@ -16,6 +18,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -118,8 +121,12 @@ def _nchw(x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class UNet(nn.Module):
-    """Controlled SD UNet: `control` holds 13 NHWC residuals; 0..11 add onto
-    the encoder skips (consumed in reverse), 12 onto the middle output."""
+    """Controlled SD UNet: `control` holds 13 NHWC residuals. With
+    control_mode 'decoder' (ControlNet, CtrLoRA) 0..11 add onto the encoder
+    skips (consumed in reverse) and 12 onto the middle output; with
+    'encoder' (ControlNet-Lite) 0..11 add onto the encoder blocks' outputs
+    as they are made, and 12 onto the middle. ``only_mid_control`` keeps
+    the middle tap only (decoder mode)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -138,7 +145,8 @@ class UNet(nn.Module):
         self.conv_out = Conv(ch, cfg.out_channels)
 
     def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
-                emb_rows: Optional[dict] = None):
+                emb_rows: Optional[dict] = None, only_mid_control: bool = False,
+                control_mode: str = "decoder"):
         """x [B, H, W, C] noisy latent -> [B, H, W, C] fp32 model output.
         emb_rows: {res_block_name: [1, C]} precomputed emb_proj rows."""
         cfg = self.cfg
@@ -146,28 +154,31 @@ class UNet(nn.Module):
         emb = self.time_embed(timesteps, dt) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
         context = context.to(dt)
+        steps = encoder_plan(cfg)[0]
+        n_enc = len(steps)
+        if control is not None and len(control) != n_enc + 1:
+            raise ValueError(f"expected {n_enc + 1} control residuals, got {len(control)}")
+        enc_side = control is not None and control_mode == "encoder"
         hs = []
         h = self.in_conv(_nchw(x, dt))
-        hs.append(h)
-        for i, step in enumerate(encoder_plan(cfg)[0][1:], start=1):
+        for i, step in enumerate(steps):
             if step.kind == "res":
                 h = _block(cfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"))
                 if step.attn:
                     h = _block(cfg, getattr(self, f"in_{i}_attn"), h, context)
-            else:
+            elif step.kind == "down":
                 h = getattr(self, f"in_{i}_down")(h)
+            if enc_side:
+                h = h + _nchw(control[i], dt)
             hs.append(h)
         h = _block(cfg, self.mid_res0, h, emb, row("mid_res0"))
         h = _block(cfg, self.mid_attn, h, context)
         h = _block(cfg, self.mid_res1, h, emb, row("mid_res1"))
-        n_enc = len(hs)
         if control is not None:
-            if len(control) != n_enc + 1:
-                raise ValueError(f"expected {n_enc + 1} control residuals, got {len(control)}")
             h = h + _nchw(control[n_enc], dt)
         for i, step in enumerate(decoder_plan(cfg)):
             skip = hs.pop()
-            if control is not None:
+            if control is not None and not only_mid_control and not enc_side:
                 skip = skip + _nchw(control[n_enc - 1 - i], dt)
             h = torch.cat([h, skip], dim=1)
             h = _block(cfg, getattr(self, f"out_{i}_res"), h, emb, row(f"out_{i}_res"))
@@ -179,9 +190,39 @@ class UNet(nn.Module):
         return h.permute(0, 2, 3, 1).float()
 
 
+# the hint encoder's 3x3 convs: (width, stride), each followed by SiLU
+HINT_WIDTHS = ((16, 1), (16, 1), (32, 2), (32, 1), (96, 2), (96, 1), (256, 2))
+
+
+class HintBlock(nn.Module):
+    """Pixel hint -> ``model_channels`` features at 1/8 of its size: seven
+    3x3 convs with SiLU, then the zero-initialised 3x3 conv ``conv_out``
+    (reference cldm/cldm.py:147-163; JAX ``HintBlock``)."""
+
+    def __init__(self, model_channels: int, hint_channels: int = 3):
+        super().__init__()
+        cin = hint_channels
+        for i, (width, stride) in enumerate(HINT_WIDTHS):
+            self.add_module(f"conv_{i}", Conv(cin, width, stride=stride))
+            cin = width
+        self.conv_out = Conv(cin, model_channels)
+        nn.init.zeros_(self.conv_out.weight)
+        nn.init.zeros_(self.conv_out.bias)
+
+    def forward(self, hint: torch.Tensor, dtype) -> torch.Tensor:
+        """hint [B, H, W, c] -> NCHW channels-last [B, model_channels, H/8, W/8]."""
+        h = _nchw(hint, dtype)
+        for i in range(len(HINT_WIDTHS)):
+            h = F.silu(getattr(self, f"conv_{i}")(h))
+        return self.conv_out(h)
+
+
 class ControlNet(nn.Module):
-    """Latent-hint control branch (CtrLoRA): the VAE-encoded hint is the
-    input stream; zero-conv taps after every input block and the middle.
+    """Control branch: the UNet's encoder and middle with a zero-conv tap
+    after every input block and after the middle. hint_mode 'latent'
+    (CtrLoRA): the VAE-encoded hint is the input stream. hint_mode 'image'
+    (vanilla ControlNet): the noisy latent is, and the pixel hint, through
+    ``hint_block``, is added after ``in_conv``.
     Either the fused tree (no LoRA parameters: serving) or the unfused tree
     with ``cfg.lora.n_loras`` stacked adapters on every Dense (training, and
     the loader's output); with ``switchable_banks`` its zero convs and
@@ -189,27 +230,36 @@ class ControlNet(nn.Module):
 
     def __init__(self, cfg: ControlNetConfig):
         super().__init__()
-        if cfg.hint_mode != "latent":
-            raise ValueError("the port's ControlNet is the latent-hint branch")
+        if cfg.hint_mode not in ("latent", "image"):
+            raise ValueError(f"unknown hint_mode {cfg.hint_mode!r}")
         ucfg = cfg.unet
         self.cfg = cfg
         self.time_embed = TimestepEmbed(ucfg.model_channels, cfg.lora)
+        if cfg.hint_mode == "image":
+            self.hint_block = HintBlock(ucfg.model_channels, cfg.hint_channels)
         ch = _build_encoder(self, ucfg, ucfg.in_channels, cfg.lora)
         banks = n_banks(cfg.lora)
         for i, step in enumerate(encoder_plan(ucfg)[0]):
             self.add_module(f"zero_{i}", ZeroConv(step.out_ch, banks))
         self.zero_mid = ZeroConv(ch, banks)
 
-    def forward(self, hint, timesteps, context, emb_rows: Optional[dict] = None,
-                lora_idx: LoraIdx = None) -> Tuple[torch.Tensor, ...]:
-        """hint [B, h, w, 4] latent -> 13 NHWC taps in the compute dtype."""
+    def forward(self, x, timesteps, context, emb_rows: Optional[dict] = None,
+                lora_idx: LoraIdx = None, hint: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
+        """x [B, h, w, 4]: the latent hint ('latent') or the noisy latent
+        ('image', with the pixel hint [B, 8h, 8w, c] as `hint`) -> 13 NHWC
+        taps in the compute dtype."""
         ucfg = self.cfg.unet
         dt = ucfg.compute_dtype
         emb = self.time_embed(timesteps, dt, lora_idx) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
         context = context.to(dt)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
-        h = self.in_conv(_nchw(hint, dt))
+        h = self.in_conv(_nchw(x, dt))
+        if self.cfg.hint_mode == "image":
+            if hint is None:
+                raise ValueError("hint_mode='image' needs the pixel hint")
+            h = h + self.hint_block(hint, dt)
         outs = [nhwc(self.zero_0(h, lora_idx))]
         for i, step in enumerate(encoder_plan(ucfg)[0][1:], start=1):
             if step.kind == "res":

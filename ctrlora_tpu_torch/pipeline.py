@@ -1,15 +1,19 @@
 """CtrLoRA pipeline of the port: the four towers and the denoiser call
 (counterpart of ``ctrlora_tpu/pipeline.py``).
 
-The control branch is the fused ControlNet for serving (``lora_fuse``), or,
-with ``fuse_lora=False``, the unfused tree with its stacked LoRA adapters
-(and switchable banks), which training updates. A condition may carry its
-own control module (``Conditioning.control``: the fused tree of its LoRA,
-the counterpart of JAX ``control_params``), so N LoRAs are served side by
-side. Text comes in as token ids (``utils.tokenizer`` makes them). Images
-and latents are NHWC. The frozen towers run without
-autograd; ``apply_control``/``apply_model`` record it when grad is enabled
-(the training step), and the samplers call them under ``torch.no_grad``.
+The control branch is built by ``cfg.control.variant`` (``build_control``):
+'controlnet' is the ControlNet, latent-hint (CtrLoRA) or image-hint
+(vanilla ControlNet); 'lite' is ControlNet-Lite, whose taps add onto the
+UNet's encoder side. A LoRA ControlNet is the fused tree for serving
+(``lora_fuse``), or, with ``fuse_lora=False``, the unfused tree with its
+stacked LoRA adapters (and switchable banks), which training updates. A
+condition may carry its own control module (``Conditioning.control``: the
+fused tree of its LoRA, the counterpart of JAX ``control_params``), so N
+LoRAs are served side by side. Text comes in as token ids
+(``utils.tokenizer`` makes them; ``encode_text`` tokenizes prompts).
+Images and latents are NHWC. The frozen towers run without autograd;
+``apply_control``/``apply_model`` record it when grad is enabled (the
+training step), and the samplers call them under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -21,21 +25,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctrlora_tpu_torch.configs import ModelConfig
+from ctrlora_tpu_torch.configs import XS_ITEM, ControlNetConfig, ModelConfig
 from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control_config
-from ctrlora_tpu_torch.models.clip import CLIPTextModel
+from ctrlora_tpu_torch.models.clip import CLIPTextModel, encode_windowed
 from ctrlora_tpu_torch.models.layers import ResBlock, to_channels_last
+from ctrlora_tpu_torch.models.lite import ControlNetLite
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
 from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
+from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
+
+
+def build_control(cfg: ControlNetConfig, fuse_lora: bool = True) -> nn.Module:
+    """The control module of `cfg`'s variant, on the current default
+    device: ControlNet-Lite, or the ControlNet (its fused tree, without
+    LoRA parameters, unless ``fuse_lora`` is False)."""
+    if cfg.variant == "lite":
+        return ControlNetLite(cfg.unet, cfg.hint_channels)
+    if cfg.variant == "xs":
+        raise NotImplementedError(f"ControlNet-XS is not ported yet: ROADMAP queue 1 {XS_ITEM}")
+    if cfg.variant != "controlnet":
+        raise ValueError(f"unknown control variant {cfg.variant!r}")
+    return ControlNet(fused_control_config(cfg) if fuse_lora else cfg)
 
 
 @dataclasses.dataclass(frozen=True)
 class Conditioning:
-    """One control condition: a VAE-encoded latent hint [B, h, w, 4], the
-    adapter index of an unfused control tree, its blend weight, and
-    optionally its own control module (a fused ControlNet holding its
-    LoRA's tree) instead of the pipeline's."""
+    """One control condition: the hint (a VAE-encoded latent [B, h, w, 4]
+    for a latent-hint ControlNet, pixels [B, 8h, 8w, 3] in [0, 1] for an
+    image-hint one), the adapter index of an unfused control tree, its
+    blend weight, and optionally its own control module (a fused
+    ControlNet holding its LoRA's tree) instead of the pipeline's."""
 
     hint: torch.Tensor
     lora_idx: Optional[Union[int, torch.Tensor]] = None
@@ -47,15 +67,17 @@ class CtrLoraPipeline:
     """Module bundle + schedule. The modules are built on `device`, in eval
     mode, without gradients, in channels-last memory. ``fuse_lora=False``
     holds the unfused LoRA control tree (training) instead of the fused one
-    (serving)."""
+    (serving). ``control_mode`` is where the taps add onto the UNet:
+    'encoder' for ControlNet-Lite, else 'decoder'."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", fuse_lora: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.fuse_lora = fuse_lora
+        self.control_mode = "encoder" if cfg.control.variant == "lite" else "decoder"
         with self.device:
             self.unet = UNet(cfg.unet)
-            self.control = ControlNet(fused_control_config(cfg.control) if fuse_lora
-                                      else cfg.control)
+            self.control = build_control(cfg.control, fuse_lora)
             self.vae = AutoencoderKL(cfg.vae)
             self.clip = CLIPTextModel(cfg.clip)
         for m in self.modules():
@@ -68,7 +90,7 @@ class CtrLoraPipeline:
         """Another control module of the pipeline's kind (fused or not),
         built as the pipeline builds its own: a condition's own tree."""
         with self.device:
-            control = ControlNet(self.control.cfg)
+            control = build_control(self.cfg.control, self.fuse_lora)
         return to_channels_last(control.eval().requires_grad_(False))
 
     def modules(self) -> List[nn.Module]:
@@ -119,8 +141,22 @@ class CtrLoraPipeline:
 
     @torch.no_grad()
     def encode_text_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
-        """token_ids [B, 77] -> context [B, 77, 768] fp32."""
-        return self.clip(token_ids)
+        """token_ids [B, 77] -> context [B, 77, 768] fp32; [B, n*77] ids are
+        encoded a 77-token window at a time and concatenated (the clip
+        hack)."""
+        window = self.cfg.clip.max_length
+        if token_ids.shape[1] == window:
+            return self.clip(token_ids)
+        return encode_windowed(self.clip, token_ids, window)
+
+    def encode_text(self, prompts: Sequence[str], windows: int = 1) -> torch.Tensor:
+        """Tokenize `prompts` (``windows`` 77-token windows each) on the host
+        and encode them; raises on an id outside the model's vocabulary."""
+        ids = default_tokenizer()(prompts, windows=windows)
+        if int(ids.max()) >= self.cfg.clip.vocab_size:
+            raise ValueError(f"tokenizer produced id {int(ids.max())} >= model vocab "
+                             f"{self.cfg.clip.vocab_size}; config/tokenizer mismatch")
+        return self.encode_text_tokens(torch.from_numpy(ids).to(self.device))
 
     def encode_text_cond_uncond(self, token_ids, uncond_ids):
         """The CFG pair as ONE batched CLIP call."""
@@ -137,13 +173,16 @@ class CtrLoraPipeline:
 
     @torch.no_grad()
     def emb_proj_tables(self, timesteps: torch.Tensor,
-                        conds: Sequence[Conditioning] = ()) -> dict:
+                        conds: Sequence[Conditioning] = ()) -> Optional[dict]:
         """Every t-dependent projection for the S sampling steps at once:
         {'unet': {res_block: [S, C]}, 'control': (one dict per cond, ...)}.
         The timestep MLP and the per-ResBlock emb_proj Linears depend only on
         the step, so the sampler computes them once, not per step. Each
         condition's rows come from its own control module and its
-        ``lora_idx`` (both are LoRA sites), as in JAX."""
+        ``lora_idx`` (both are LoRA sites), as in JAX. None for
+        ControlNet-Lite, as in JAX: the UNet then embeds t in each call."""
+        if self.control_mode == "encoder":
+            return None
 
         def branch(module, dtype, lora_idx=None):
             x = F.silu(module.time_embed(timesteps, dtype, lora_idx))
@@ -158,18 +197,30 @@ class CtrLoraPipeline:
                       control_scales: Optional[Sequence[float]] = None,
                       emb_rows: Optional[Sequence[dict]] = None):
         """The control branch for each condition; each tap i scaled by
-        ``control_scales[i]`` and the condition's weight, and the conditions
+        ``control_scales[i]`` and the condition's weight (then averaged over
+        H and W under ``global_average_pooling``), and the conditions
         summed, in fp32 as JAX does (a single condition at weight 1 and no
-        scales keeps the compute dtype)."""
+        scales keeps the compute dtype). A latent-hint ControlNet takes the
+        condition's latent as its input stream; an image-hint one (and
+        ControlNet-Lite) takes x_noisy, with the pixel hint beside it."""
+        ccfg = self.cfg.control
         total = None
         for j, cond in enumerate(conds):
             rows = emb_rows[j] if emb_rows is not None else None
-            taps = self.control_of(cond)(cond.hint, t, context, emb_rows=rows,
-                                         lora_idx=cond.lora_idx)
+            control = self.control_of(cond)
+            if ccfg.variant == "lite":
+                taps = control(x_noisy, t, context, hint=cond.hint)
+            elif ccfg.hint_mode == "image":
+                taps = control(x_noisy, t, context, emb_rows=rows, lora_idx=cond.lora_idx,
+                               hint=cond.hint)
+            else:
+                taps = control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx)
             if control_scales is not None:
                 taps = [c.float() * float(s) * cond.weight for c, s in zip(taps, control_scales)]
             elif len(conds) > 1 or cond.weight != 1.0:
                 taps = [c.float() * cond.weight for c in taps]
+            if self.cfg.diffusion.global_average_pooling:
+                taps = [c.mean(dim=(1, 2), keepdim=True) for c in taps]
             total = list(taps) if total is None else [a + b for a, b in zip(total, taps)]
         return tuple(total)
 
@@ -191,4 +242,6 @@ class CtrLoraPipeline:
                 m = control_batch_mask.reshape(-1, 1, 1, 1)
                 control = tuple(c * m.to(c.dtype) for c in control)
         return self.unet(x_noisy, t, context, control=control,
-                         emb_rows=emb_rows["unet"] if emb_rows is not None else None)
+                         emb_rows=emb_rows["unet"] if emb_rows is not None else None,
+                         only_mid_control=self.cfg.diffusion.only_mid_control,
+                         control_mode=self.control_mode)

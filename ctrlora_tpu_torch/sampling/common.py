@@ -92,14 +92,18 @@ def make_guided_eps_fn(pipe: CtrLoraPipeline, context: torch.Tensor,
 
 def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Optional[Sequence[Conditioning]],
                         timesteps: torch.Tensor
-                        ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Optional[dict]]]:
+                        ) -> Tuple[Sequence, Callable[[Optional[torch.Tensor]], Optional[dict]]]:
     """Packs every branch's emb_proj table (the UNet's, then each
     condition's own) into one [S, n, Cmax] tensor and returns (packed,
     rows_of): rows_of(packed[i]) rebuilds step i's per-branch rows dict for
-    ``pipe.apply_model`` with ONE kernel-D launch."""
+    ``pipe.apply_model`` with ONE kernel-D launch. Where the pipeline has
+    no tables (ControlNet-Lite) packed is S Nones and rows_of(None) is
+    None: the samplers thread it the same way, and no D launch happens."""
     conds = list(conds or [])
     n_conds = len(conds)
     tables = pipe.emb_proj_tables(timesteps, conds)
+    if tables is None:
+        return [None] * len(timesteps), lambda block: None
     flat = {f"u.{k}": v for k, v in tables["unet"].items()}
     for j, d in enumerate(tables["control"]):
         flat.update({f"c{j}.{k}": v for k, v in d.items()})

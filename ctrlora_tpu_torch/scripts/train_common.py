@@ -1,6 +1,12 @@
-"""What the finetune and pretrain CLIs share: their common flags, the
-device check, the training pipeline from reference-format checkpoints, and
-the run from a loader to the last checkpoint."""
+"""What the training CLIs (finetune, pretrain and the baselines' train_cn)
+share: their common flags, the device check, the training pipeline from
+reference-format checkpoints, the global batch, and the run from a loader
+to the last checkpoint.
+
+--gradacc N: the loader's global batch is N x --bs examples of one task,
+split into N micro-batches of --bs for the step, whose gradient is their
+mean (the JAX CLIs hand the step a --bs batch with no micro-batch axis and
+fail there)."""
 
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 from ctrlora_tpu_torch.configs import ModelConfig, TrainConfig
 from ctrlora_tpu_torch.data.loader import Loader, to_device
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+from ctrlora_tpu_torch.training.step import split_micro_batches
 from ctrlora_tpu_torch.training.trainer import Trainer, make_image_log_hook
 from ctrlora_tpu_torch.utils.loading import load_ctrlora
 
@@ -24,23 +31,26 @@ MULTI_DEVICE = "ROADMAP queue 1 item 12 (data and tensor parallelism over severa
 
 
 def add_common_flags(p: argparse.ArgumentParser, bs: int, max_steps: int, log_freq: int,
-                     num_workers: int) -> None:
-    """The flags both JAX training scripts take (their defaults differ),
-    and the port's --device and --log_every."""
+                     num_workers: int, baseline: bool = False) -> None:
+    """The flags the JAX training scripts take (their defaults differ; the
+    baselines' script, `baseline`, has no --resolution or --lora_rank and
+    takes -n for --name), and the port's --device and --log_every."""
     p.add_argument("--sd_ckpt", type=str, default=None)
     p.add_argument("--cn_ckpt", type=str, default=None)
     p.add_argument("--resume", type=str, default=None,
                    help="a ckpt_*.pt of an earlier run (Trainer.save)")
-    p.add_argument("--resolution", type=int, default=512)
-    p.add_argument("--lora_rank", type=int, default=128)
+    if not baseline:
+        p.add_argument("--resolution", type=int, default=512)
+        p.add_argument("--lora_rank", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--bs", type=int, default=bs)
-    p.add_argument("--gradacc", type=int, default=1)
+    p.add_argument("--gradacc", type=int, default=1,
+                   help="micro-batches of --bs a step (their gradients averaged)")
     p.add_argument("--max_steps", type=int, default=max_steps)
     p.add_argument("--drop_rate", type=float, default=0.3)
     p.add_argument("--img_logger_freq", type=int, default=log_freq)
     p.add_argument("--ckpt_logger_freq", type=int, default=log_freq)
-    p.add_argument("--name", type=str, default=None,
+    p.add_argument(*(("-n", "--name") if baseline else ("--name",)), type=str, default=None,
                    help="the run's directory under runs/ (an absolute path is used as it is)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tp", type=int, default=1, help=f"tensor parallelism: {MULTI_DEVICE}")
@@ -58,6 +68,8 @@ def check_args(args: argparse.Namespace) -> torch.device:
     if args.tp > 1 or args.shard_opt_state:
         raise NotImplementedError(f"--tp > 1 and --shard_opt_state need several devices: "
                                   f"{MULTI_DEVICE}")
+    if args.gradacc < 1:
+        raise ValueError(f"--gradacc must be >= 1, got {args.gradacc}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; pass --device cpu "
@@ -74,6 +86,11 @@ def load_training_pipeline(cfg: ModelConfig, device, sd_ckpt, cn_ckpt,
     pipe = CtrLoraPipeline(cfg, device, fuse_lora=False)
     pipe.load_state_dicts(*load_ctrlora(pipe, sd_ckpt, cn_ckpt, basecn_skip="lora"))
     return pipe
+
+
+def global_batch(args: argparse.Namespace) -> int:
+    """Examples a step: --bs for each of --gradacc micro-batches."""
+    return args.bs * args.gradacc
 
 
 def train_config(args: argparse.Namespace, trainable: str, **kw) -> TrainConfig:
@@ -98,8 +115,10 @@ class TrainRun:
 
 def run(args: argparse.Namespace, pipe: CtrLoraPipeline, tcfg: TrainConfig,
         datasets: Sequence, schedule, seconds: Dict[str, float]) -> TrainRun:
-    """Trainer (restored from --resume), loader from the train state's step,
-    image-log hook, fit to --max_steps, and a checkpoint of the last step."""
+    """Trainer (restored from --resume), loader from the train state's step
+    (`schedule` gives ``global_batch(args)`` examples a step), split into
+    micro-batches under --gradacc, image-log hook, fit to --max_steps, and
+    a checkpoint of the last step."""
     name = args.name or datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
     workdir = os.path.join("runs", name)
     trainer = Trainer(pipe, tcfg, workdir)
@@ -109,7 +128,10 @@ def run(args: argparse.Namespace, pipe: CtrLoraPipeline, tcfg: TrainConfig,
                     max_length=pipe.cfg.clip.max_length)
     hook = make_image_log_hook(pipe, workdir)
     batches = loader.iterate(trainer.state.step)
-    trainer.fit((to_device(b, pipe.device) for b in batches), sample_hook=hook)
+    on_device = (to_device(b, pipe.device) for b in batches)
+    if tcfg.grad_accum > 1:
+        on_device = (split_micro_batches(b, tcfg.grad_accum) for b in on_device)
+    trainer.fit(on_device, sample_hook=hook)
     batches.close()
     if trainer.state.step % tcfg.ckpt_every:
         trainer.save(trainer.state.step)

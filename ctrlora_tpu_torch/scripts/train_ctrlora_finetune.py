@@ -86,7 +86,8 @@ def train(args: argparse.Namespace, datasets: Sequence) -> common.TrainRun:
         ds = LatentCachedDataset(ds, jm, hm)
     tcfg = common.train_config(args, "lora" if args.ft_with_lora else "full",
                                norm_trainable=args.norm_trainable)
-    schedule = SingleTaskSchedule(size=len(ds), batch_size=args.bs, seed=args.seed)
+    schedule = SingleTaskSchedule(size=len(ds), batch_size=common.global_batch(args),
+                                  seed=args.seed)
     return common.run(args, pipe, tcfg, [ds], schedule, seconds)
 
 

@@ -73,8 +73,8 @@ def train(args: argparse.Namespace, datasets: Sequence) -> common.TrainRun:
     cfg = model_config(args)
     pipe, load_s = common.timed(lambda: common.load_training_pipeline(
         cfg, device, args.sd_ckpt, args.cn_ckpt, args.seed), device)
-    schedule = MultiTaskSchedule(sizes=tuple(len(d) for d in datasets), batch_size=args.bs,
-                                 seed=args.seed)
+    schedule = MultiTaskSchedule(sizes=tuple(len(d) for d in datasets),
+                                 batch_size=common.global_batch(args), seed=args.seed)
     return common.run(args, pipe, common.train_config(args, "all"), datasets, schedule,
                       {"load": load_s})
 

@@ -4,12 +4,15 @@ set (counterpart of ``ctrlora_tpu/training/step.py``).
 Batches are dicts of tensors on the pipeline's device:
   jpg       [B, H, W, 3] float32 in [-1, 1]  (target image)
   hint      [B, H, W, 3] float32 in [0, 1]   (condition; the latent-hint
-            branch feeds the [0, 1] hint to the VAE, as the reference does)
+            branch feeds the [0, 1] hint to the VAE, as the reference does;
+            an image-hint branch takes the pixels as they are, at 8x the
+            latent's size)
   token_ids [B, 77] int                      (tokenized prompt)
   task_idx  optional int or [B] int          (LoRA index; batches are single-task)
 Latent-cached batches carry jpg_moments / hint_moments (posterior mean |
-logvar) instead of jpg / hint. With grad_accum > 1 every tensor has a
-leading [accum] axis of micro-batches.
+logvar) instead of jpg / hint (latent-hint models only). With grad_accum >
+1 every tensor has a leading [accum] axis of micro-batches
+(``split_micro_batches`` makes it from a loader's batch).
 
 The frozen towers (VAE, CLIP) run under ``torch.no_grad``; the UNet's
 parameters are frozen by the trainable mask (sd_locked), so autograd
@@ -42,21 +45,26 @@ def loss_for_batch(pipe: CtrLoraPipeline, batch: Batch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss of one batch. The random draws (posterior noise of jpg and hint,
-    t, the diffusion noise) come from `generator` in that order, or from
-    `draws` ('z_eps', 'hint_eps', 't', 'noise') where given, so two runs can
-    share them exactly."""
+    """Loss of one batch. The random draws (posterior noise of jpg and, for
+    a latent-hint model, of the hint; t; the diffusion noise) come from
+    `generator` in that order, or from `draws` ('z_eps', 'hint_eps', 't',
+    'noise') where given, so two runs can share them exactly. An
+    image-hint model takes the pixel hint as its condition: no encode, no
+    'hint_eps'."""
     draws = draws or {}
-    if pipe.cfg.control is None or pipe.cfg.control.hint_mode != "latent":
-        raise ValueError("the port's training step is the latent-hint CtrLoRA branch")
+    latent_hint = pipe.cfg.control.hint_mode == "latent"
+    if "hint" not in batch and not latent_hint:
+        raise ValueError("latent-cached batches (hint_moments) require hint_mode='latent'; "
+                         "image-hint models consume raw pixels")
     with torch.no_grad():
         z = _latent(pipe, batch, "jpg", generator, draws.get("z_eps"))
         context = pipe.encode_text_tokens(batch["token_ids"])
-        hint_z = _latent(pipe, batch, "hint", generator, draws.get("hint_eps"))
+        hint = (_latent(pipe, batch, "hint", generator, draws.get("hint_eps")) if latent_hint
+                else batch["hint"])
     task_idx = batch.get("task_idx")
     if isinstance(task_idx, torch.Tensor) and task_idx.ndim > 0:
         task_idx = task_idx[0]  # batches are single-task
-    conds = [Conditioning(hint_z, lora_idx=task_idx)]
+    conds = [Conditioning(hint, lora_idx=task_idx)]
     return p_losses(pipe, z, context, conds, t=draws.get("t"), noise=draws.get("noise"),
                     generator=generator)
 
@@ -72,13 +80,21 @@ def trainable_grad_norm(optimizer: torch.optim.Optimizer) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
 
+def split_micro_batches(batch: Batch, accum: int) -> Dict[str, torch.Tensor]:
+    """A loader's batch of accum * B examples -> [accum, B, ...] tensors:
+    micro-batch i holds examples i*B .. (i+1)*B - 1."""
+    return {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
+
+
 def make_train_step(pipe: CtrLoraPipeline, optimizer: torch.optim.Optimizer,
                     cfg: TrainConfig) -> Callable:
     """Returns step(state, batch, generator, draws=None) -> (state, metrics):
     gradients of the batch loss (micro-batch gradients averaged under
-    grad_accum), their global norm, one AdamW step, then the EMA update of
-    ``state.ema`` when ``cfg.use_ema``. `draws` (one batch's, see
-    ``loss_for_batch``) replace the generator's draws."""
+    grad_accum, micro-batch i drawing from `generator` after micro-batch
+    i - 1), their global norm, one AdamW step, then the EMA update of
+    ``state.ema`` when ``cfg.use_ema``. `draws` (see ``loss_for_batch``)
+    replace the generator's draws: one dict, or under grad_accum a
+    sequence of one dict per micro-batch."""
     if cfg.shard_opt_state:
         raise NotImplementedError("shard_opt_state shards the AdamW moments over several "
                                   "devices: not ported (ROADMAP queue 1 item 12)")
@@ -88,9 +104,13 @@ def make_train_step(pipe: CtrLoraPipeline, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         micro = ([{k: v[i] for k, v in batch.items()} for i in range(cfg.grad_accum)]
                  if cfg.grad_accum > 1 else [batch])
+        if draws is None or cfg.grad_accum == 1:
+            draws = [draws] * len(micro)
+        elif len(draws) != len(micro):
+            raise ValueError(f"{len(draws)} draws for {len(micro)} micro-batches")
         sums: Dict[str, torch.Tensor] = {}
-        for mb in micro:
-            loss, metrics = loss_for_batch(pipe, mb, generator, draws)
+        for mb, mb_draws in zip(micro, draws):
+            loss, metrics = loss_for_batch(pipe, mb, generator, mb_draws)
             (loss / len(micro)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v / len(micro)

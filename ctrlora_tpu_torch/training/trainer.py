@@ -77,7 +77,8 @@ class Trainer:
             ) -> TrainState:
         """Step through `batches` until the state reaches max_steps (a batch
         is taken only for a step that runs); ``sample_hook(state, step,
-        batch)`` runs after every ``image_log_every``-th step."""
+        batch)`` runs after every ``image_log_every``-th step, on the step's
+        first micro-batch under grad_accum."""
         cfg = self.cfg
         max_steps = max_steps or cfg.max_steps
         batches = iter(batches)
@@ -102,6 +103,8 @@ class Trainer:
                 self.save(step)
             if sample_hook is not None and step % cfg.image_log_every == 0:
                 t_hook = time.perf_counter()
+                if cfg.grad_accum > 1:
+                    batch = {k: v[0] for k, v in batch.items()}
                 path = sample_hook(self.state, step, batch)
                 self._log({"event": "image_log", "step": step, "path": path,
                            "seconds": round(time.perf_counter() - t_hook, 3)})
@@ -198,20 +201,24 @@ def image_log_rows(pipe: CtrLoraPipeline, batch: dict, step: int, ddim_steps: in
     'samples' (DDIM at CFG 9.0 against all-zero uncond token ids) in
     [-1, 1]. A latent-cached batch is decoded from its moments: the
     control from the hint's posterior mean, the reconstruction from the
-    target's. The starting noise is `x_T`, else a CPU generator seeded with
+    target's. A latent-hint model samples from the control's latent, an
+    image-hint one from its pixels (with ControlNet-Lite, no row tables).
+    The starting noise is `x_T`, else a CPU generator seeded with
     `step`."""
     cached = "jpg_moments" in batch
+    latent_hint = pipe.cfg.control.hint_mode == "latent"
     ids = batch["token_ids"]
     b = min(2, ids.shape[0])
     ids = ids[:b]
     ctx, unc = pipe.encode_text_cond_uncond(ids, torch.zeros_like(ids))
     if cached:
-        hint_in = pipe.first_stage_from_moments(batch["hint_moments"][:b])
-        control = pipe.decode_first_stage(hint_in) * 0.5 + 0.5
+        hint_z = pipe.first_stage_from_moments(batch["hint_moments"][:b])
+        control = pipe.decode_first_stage(hint_z) * 0.5 + 0.5
+        hint_in = hint_z if latent_hint else control
         recon = pipe.decode_first_stage(pipe.first_stage_from_moments(batch["jpg_moments"][:b]))
     else:
         control = batch["hint"][:b].float()
-        hint_in = pipe.encode_first_stage(control)
+        hint_in = pipe.encode_first_stage(control) if latent_hint else control
         recon = pipe.decode_first_stage(pipe.encode_first_stage(batch["jpg"][:b]))
     task = batch.get("task_idx")
     conds = [Conditioning(hint_in, lora_idx=None if task is None else int(task.reshape(-1)[0]))]

@@ -147,14 +147,54 @@ def unet_entries(cfg: UNetConfig, decoder: bool = True) -> List[Entry]:
     return e
 
 
+def _hint_block() -> List[Entry]:
+    """The hint encoder: input_hint_block.{0,2,...,12} are its seven convs
+    (SiLUs between them), .14 its output conv."""
+    e: List[Entry] = []
+    for j, idx in enumerate(range(0, 14, 2)):
+        e += _conv(f"input_hint_block.{idx}", ("hint_block", f"conv_{j}"))
+    return e + _conv("input_hint_block.14", ("hint_block", "conv_out"))
+
+
 def controlnet_entries(cfg: ControlNetConfig) -> List[Entry]:
-    """Control branch table (reference names: control_model.*)."""
+    """Control branch table (reference names: control_model.*); an
+    image-hint ControlNet adds its hint encoder."""
     e = unet_entries(cfg.unet, decoder=False)
     steps, _, _ = encoder_plan(cfg.unet)
     for i in range(len(steps)):
         e += _conv(f"zero_convs.{i}.0", (f"zero_{i}",))
     e += _conv("middle_block_out.0", ("zero_mid",))
+    if cfg.hint_mode == "image":
+        e += _hint_block()
     return e
+
+
+def lite_entries(cfg: UNetConfig) -> List[Entry]:
+    """ControlNet-Lite table (reference names: control_model.*; the port's
+    copy of JAX ``models/lite.py`` ``lite_entries``): each res step is
+    input_blocks.{i}.0 (GroupNorm) and .2 (conv), the middle is
+    middle_block.0 and .2."""
+    e: List[Entry] = []
+    e += _linear("time_embed.0", ("time_embed", "dense0"))
+    e += _linear("time_embed.2", ("time_embed", "dense1"))
+    for i, step in enumerate(encoder_plan(cfg)[0]):
+        if step.kind == "conv":
+            e += _conv(f"input_blocks.{i}.0", ("in_conv",))
+        elif step.kind == "res":
+            e += _norm(f"input_blocks.{i}.0", (f"in_{i}_norm",))
+            e += _conv(f"input_blocks.{i}.2", (f"in_{i}_conv",))
+        else:
+            e += _conv(f"input_blocks.{i}.0.op", (f"in_{i}_down", "conv"))
+        e += _conv(f"zero_convs.{i}.0", (f"zero_{i}",))
+    e += _norm("middle_block.0", ("mid_norm",))
+    e += _conv("middle_block.2", ("mid_conv",))
+    e += _conv("middle_block_out.0", ("zero_mid",))
+    return e + _hint_block()
+
+
+def control_entries(cfg: ControlNetConfig) -> List[Entry]:
+    """The control branch's table for its variant."""
+    return lite_entries(cfg.unet) if cfg.variant == "lite" else controlnet_entries(cfg)
 
 
 def lora_site_entries(cfg: ControlNetConfig) -> List[Tuple[str, Tuple[str, ...]]]:
@@ -466,5 +506,5 @@ def export_control_base(state: StateDict, cfg: ControlNetConfig,
                         prefix: str = "control_model.") -> Dict[str, np.ndarray]:
     """The control branch's base weights (zero convs included, LoRA
     matrices excluded) in the reference's key format: a Base-ControlNet
-    file."""
-    return export_tree(state, controlnet_entries(cfg), prefix=prefix)
+    file, or the whole control model of a vanilla or Lite ControlNet."""
+    return export_tree(state, control_entries(cfg), prefix=prefix)

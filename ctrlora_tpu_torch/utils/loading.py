@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from ctrlora_tpu_torch import convert
-from ctrlora_tpu_torch.models.unet import ControlNet
-from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+from ctrlora_tpu_torch.pipeline import CtrLoraPipeline, build_control
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
 
 StateDict = Dict[str, torch.Tensor]
@@ -75,7 +74,7 @@ def load_basecn_into(cfg, states: States, sd: Dict[str, np.ndarray], skip: str =
     else:
         raise ValueError(f"skip must be 'slots' or 'lora', got {skip!r}")
     sd = {k: v for k, v in sd.items() if k.startswith(pfx) and keep(k[len(pfx):])}
-    tree, _ = bridge.convert_tree(sd, bridge.controlnet_entries(cfg.control), prefix=pfx,
+    tree, _ = bridge.convert_tree(sd, bridge.control_entries(cfg.control), prefix=pfx,
                                   strict=False)
     _merge(states.control, tree)
 
@@ -101,13 +100,14 @@ def load_ctrlora(pipe: CtrLoraPipeline, sd_file: Optional[str] = None,
                  tasks: Optional[Sequence[str]] = None, basecn_skip: str = "slots") -> States:
     """The four state dicts from reference checkpoint files. A stage given as
     None keeps the modules' own initialisation: the pipeline's UNet, VAE and
-    CLIP, and its control tree if it is unfused, else a freshly initialised
-    unfused ``ControlNet(pipe.cfg.control)``. The result lives on the CPU."""
+    CLIP, and its control tree unless that is a fused LoRA tree, which is
+    replaced by a freshly initialised unfused one of the same variant
+    (``build_control(fuse_lora=False)``). The result lives on the CPU."""
     cfg = pipe.cfg
     control = pipe.control
-    if not any(k.endswith(".lora_down") for k in control.state_dict()):
+    if pipe.fuse_lora and cfg.control.lora.n_loras > 0:
         with pipe.device:  # initialised where the pipeline lives (fast on a card)
-            control = ControlNet(cfg.control)
+            control = build_control(cfg.control, fuse_lora=False)
     states = States(_cpu_state(pipe.unet), _cpu_state(control), _cpu_state(pipe.vae),
                     _cpu_state(pipe.clip))
     if sd_file:

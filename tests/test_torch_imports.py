@@ -38,7 +38,7 @@ def test_port_modules_cover_the_slice():
                 "data.datasets", "scripts.sample", "data.scheduler", "data.native",
                 "data.loader", "training.ema", "training.latent_cache",
                 "scripts.train_common", "scripts.train_ctrlora_finetune",
-                "scripts.train_ctrlora_pretrain"):
+                "scripts.train_ctrlora_pretrain", "models.lite", "scripts.train_cn"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 

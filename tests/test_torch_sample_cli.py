@@ -6,7 +6,7 @@
   numpy draws; ``CTRLORA_NATIVE_DATA`` is honoured (the native image prep)
   rather than ignored;
 * ``configs.load_model_config``: the port's presets, and a clear error for
-  the JAX presets not ported yet and for YAML files;
+  the JAX preset not ported yet (cnxs_sd15) and for YAML files;
 * ``python -m ctrlora_tpu_torch.scripts.sample`` (its ``main``) on the tiny
   preset with ``--device cpu``, for each sampler: it writes sample/,
   control/, img/ and prompt.txt, pads the short last batch, and its samples
@@ -105,9 +105,10 @@ def test_load_model_config():
     assert (configs.load_model_config("ctrlora_inference", lora_num=2)
             == configs.ctrlora_inference_config(lora_num=2))
     assert configs.load_model_config("ctrlora_pretrain") == configs.ctrlora_pretrain_config()
-    for name in ("cldm_v15", "cnlite_sd15", "cnxs_sd15"):
-        with pytest.raises(ValueError, match="ROADMAP queue 1 item"):
-            configs.load_model_config(name)
+    assert configs.load_model_config("cldm_v15") == configs.sd15_config()
+    assert configs.load_model_config("cnlite_sd15") == configs.cnlite_config()
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 10b"):
+        configs.load_model_config("cnxs_sd15")
     with pytest.raises(ValueError, match="YAML"):
         configs.load_model_config("configs/ctrlora_finetune_sd15_rank128.yaml")
 
