@@ -4,8 +4,10 @@ sampling, the sampler family (DDIM with eta, guess mode, ucg schedule and
 mask; PLMS; DPM-Solver; img2img; DDIM inversion; the sample CLI's batch),
 the rank-128 LoRA finetune step, the switchable two-LoRA CtrLoRA API from
 reference-format checkpoints, the finetune and pretrain CLIs training
-from dataset files, and the ControlNet baselines (vanilla image-hint
-ControlNet and ControlNet-Lite) sampling and training through train_cn.
+from dataset files, the ControlNet baselines (vanilla image-hint
+ControlNet and ControlNet-Lite) sampling and training through train_cn,
+and ControlNet-XS sampling from configs/cnxs_sd15.yaml and training
+through train_cn --variant xs.
 
     python3 chip_smoke.py
 
@@ -21,7 +23,9 @@ the script exits non-zero:
    group_norm_onepass_plan, hpack2_plan, flash_bwd_plan) say, with the
    waves A2's plan makes, and D's layout capacity as UNPACK_MAX_ROWS;
 3. each hand-written kernel against its plain PyTorch version at the
-   paths' shapes, in bf16 (A and A2 also in fp32): max error (relative L2
+   paths' shapes (ControlNet-XS's control stream's among them: A at
+   64-1536 channels, B's fused-qkv entry and B4/B5 at D = 8/16/32, C at
+   C = 64/128/256), in bf16 (A and A2 also in fp32): max error (relative L2
    for gradients) and median time of both (for A2 and B6 also of the
    kernel each stands beside: A, and B's BSHD and fused-qkv entries; for C
    also its two launches alone, up_ms and down_ms; for A, A2, B6, B4/B5
@@ -111,17 +115,40 @@ the script exits non-zero:
    events), finite [4, 512, 512, 3] images, one
    UNet+control evaluation with the kernels within relative L2 5e-2 of
    the plain versions; (c) train_cn.main --variant controlnet on 16 PNG
-   pairs (phase 10's writer) from an fp16 reference-format control file
+   pairs (phase 10's writer) from an fp16 SD file of seeded weights (a
+   fresh UNet outputs 0) and an fp16 reference-format control file
    with input_hint_block.* keys, --bs 2 --gradacc 2, --use_ema, 2 warm-up
    and 4 timed steps, a checkpoint and the image log at the last step:
    s/step, peak memory, launches a step by kernel; loaded tensors equal
    to the file's, finite loss and grad_norm > 0, the frozen UNet
    bit-identical, every control weight changed, one step's loss and
    gradients with the kernels within 1e-2 / L2 5e-2 of plain; (d) the same
-   for --variant lite at --bs 4 from the seeded init (its unused
+   for --variant lite at --bs 4, its branch from the seeded init (its unused
    time_embed alone stays as it was); (e) each baseline's tiny
    configuration: one evaluation and one train step, fp32, GPU against
-   CPU within rtol 2e-3 / atol 2e-4. The files are deleted at the end.
+   CPU within rtol 2e-3 / atol 2e-4 (and ControlNet-XS's at control ratio
+   0.5). The files are deleted at the end;
+12. ControlNet-XS at SD1.5 width, its config read from
+   configs/cnxs_sd15.yaml by the port's YAML reader: (a) seeded random
+   weights, the base stream (and VAE, CLIP) written as an fp16 SD-format
+   file and loaded back through the SD loader (every loaded tensor equal
+   to the file's), cast for inference, batch 4, 512^2, a pixel hint in
+   [0, 1], ids of ones against zeros, 50 DDIM steps at CFG 7.5: s/batch
+   with the prep / DDIM / decode split beside phase 4's, launches per
+   evaluation by kernel and by the width each launch ran at (A, B's
+   fused-qkv entry and C must run at the control stream's widths: D =
+   8/16/32, C = 64/128/256 and the GroupNorms at 64-1536 channels; D not
+   at all), finite [4, 512, 512, 3] images, one XS evaluation with the
+   kernels within relative L2 5e-2 of the plain versions; (b)
+   train_cn.main --variant xs --config configs/cnxs_sd15.yaml from that SD
+   file and an fp16 XS control file (TwoStreamControlNet's keys) on phase
+   10's PNG pairs, --bs 4, --use_ema, 2 warm-up and 4 timed steps, a
+   checkpoint and the image log at the last step: s/step beside phase
+   6's, peak memory, launches a step by kernel and by width (B4/B5 at D =
+   8/16/32 too); loaded tensors equal to the files', the frozen base
+   stream bit-identical, every trainable weight changed, one step's loss
+   and gradients with the kernels within 1e-2 / L2 5e-2 of plain. The
+   files are deleted at the end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -193,7 +220,7 @@ from ctrlora_tpu_torch.training.step import loss_for_batch
 from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
 from ctrlora_tpu_torch.utils.image import png_writer, write_png
-from ctrlora_tpu_torch.utils.loading import check_key
+from ctrlora_tpu_torch.utils.loading import check_key, load_ctrlora
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -286,7 +313,30 @@ GN_CASES = (
     ((4, 512, 512, 128), torch.bfloat16, 1e-6, True, False),
     ((4, 64, 64, 512), torch.bfloat16, 1e-6, False, False),
     ((4, 512, 512, 128), torch.float32, 1e-6, True, False),
+) + (
+    # ControlNet-XS's control stream at the CFG batch of 8: its ResBlocks'
+    # out_norms (row, SiLU) at 64/128/256 channels, the in_norms over the
+    # `cat` infusion's 64 + 320, 128 + 640 and 256 + 1280 channels, a
+    # transformer norm; and the training batch of 4 at 64^2
+    ((8, 64, 64, 64), torch.bfloat16, 1e-5, True, True),
+    ((8, 64, 64, 384), torch.bfloat16, 1e-5, True, False),
+    ((8, 64, 64, 64), torch.bfloat16, 1e-6, False, False),
+    ((8, 32, 32, 128), torch.bfloat16, 1e-5, True, True),
+    ((8, 32, 32, 384), torch.bfloat16, 1e-5, True, False),
+    ((8, 32, 32, 768), torch.bfloat16, 1e-5, True, False),
+    ((8, 16, 16, 256), torch.bfloat16, 1e-5, True, True),
+    ((8, 16, 16, 1536), torch.bfloat16, 1e-5, True, False),
+    ((8, 8, 8, 256), torch.bfloat16, 1e-5, True, True),
+    ((8, 8, 8, 1536), torch.bfloat16, 1e-5, True, False),
+    ((4, 64, 64, 64), torch.bfloat16, 1e-5, True, True),
+    ((4, 64, 64, 384), torch.bfloat16, 1e-5, True, False),
 )
+# ControlNet-XS's self-attention sites: (S, heads, D) at 64^2, 32^2, 16^2
+XS_ATTN_SITES = ((4096, 8, 8), (1024, 8, 16), (256, 8, 32))
+# ... and its GEGLU sites: (rows, C) at the CFG batch of 8 (the 8^2 mid block
+# too) and the training batch of 4 at 64^2
+XS_GEGLU_SITES = ((8 * 4096, 64), (8 * 1024, 128), (8 * 256, 256), (8 * 64, 256),
+                  (4 * 4096, 64))
 # kernel A2's [HW, C] samples (batch 8 in phase 3): the five sampling-path
 # shapes gn1=1 admits in bf16, and the two of them it admits in fp32
 ONEPASS_SHAPES = ((64 * 64, 320), (32 * 32, 640), (32 * 32, 960), (32 * 32, 1280),
@@ -608,16 +658,20 @@ def kernel_checks(dev, cfg):
                plan=dataclasses.asdict(fa_ops.hpack2_plan(d)), **beside)
         del out, lse, pout, plse, qkv, views, ops
 
-    for s, h, d in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160)):
+    for s, h, d in ((4096, 8, 40), (1024, 8, 80), (256, 8, 160)) + XS_ATTN_SITES:
         qkv = rn(8, s, 3 * h * d)
         out, lse = fa_ops.flash_attention_qkv(qkv, h, d)
         pout, plse = fa_ops.flash_attention_qkv_plain(qkv, h, d)
-        record("flash_attention_qkv", f"[8, {s}, 3*{h}*{d}]", out, pout,
-               lambda: fa_ops.flash_attention_qkv(qkv, h, d),
+        # the XS sites take a few µs: their back-to-back times, beside SDPA's
+        fn = lambda: fa_ops.flash_attention_qkv(qkv, h, d)
+        library = sdpa(*(t.unflatten(-1, (h, d)).transpose(1, 2)
+                         for t in qkv.split(h * d, dim=-1)))
+        b2b = ({"b2b_ms": time_b2b(fn), "library_b2b_ms": time_b2b(library[1])}
+               if d < 40 else {})
+        record("flash_attention_qkv", f"[8, {s}, 3*{h}*{d}]", out, pout, fn,
                lambda: fa_ops.flash_attention_qkv_plain(qkv, h, d),
-               fa_ops.flash_forward_work(8, h, s, s, d),
-               library=sdpa(*(t.unflatten(-1, (h, d)).transpose(1, 2)
-                              for t in qkv.split(h * d, dim=-1))), extra=(lse, plse))
+               fa_ops.flash_forward_work(8, h, s, s, d), library=library, extra=(lse, plse),
+               **b2b)
 
     q, k, v = (rn(4, 1, 4096, 512) for _ in range(3))
     out, lse = fa_ops.flash_attention(q, k, v)
@@ -680,22 +734,29 @@ def kernel_checks(dev, cfg):
     qkv = rn(4, s, 3 * h * d)
     views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
     bwd_case(f"qkv [4, {s}, 3*{h}*{d}]", *views, rn(4, s, h, d).transpose(1, 2))
+    # ControlNet-XS's control stream trains through the fused-qkv entry: its
+    # gradients are written into the [4, S, 3*8*D] projection's gradient
+    for s, h, d in XS_ATTN_SITES:
+        qkv = rn(4, s, 3 * h * d)
+        views = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, dim=-1)]
+        bwd_case(f"qkv [4, {s}, 3*{h}*{d}]", *views, rn(4, s, h, d).transpose(1, 2))
 
     # C at the four sampling sites (the CFG batch of 8), then the finetune
     # step's 64^2 site (batch 4); beside each, its two launches alone
     for rows, c in ((8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280),
-                    (4 * 4096, 320)):
+                    (4 * 4096, 320)) + XS_GEGLU_SITES:
         f = 4 * c
         x, w1, b1, w2, b2 = args = (rn(rows, c), rn(2 * f, c, std=c ** -0.5), rn(2 * f, std=0.1),
                                     rn(c, f, std=f ** -0.5), rn(c, std=0.1))
         plan = geglu_ops.geglu_plan(rows, c, f, sms)
         h, y = torch.empty((rows, f), dtype=torch.bfloat16, device=dev), torch.empty_like(x)
+        fn = lambda: geglu_ops.geglu_ffn(*args)
         record("geglu_ffn", f"rows={rows} C={c} F={f}", geglu_ops.geglu_ffn(*args),
-               geglu_ops.geglu_ffn_plain(*args), lambda: geglu_ops.geglu_ffn(*args),
+               geglu_ops.geglu_ffn_plain(*args), fn,
                lambda: geglu_ops.geglu_ffn_plain(*args), geglu_ops.geglu_ffn_work(rows, c, f),
                up_ms=time_ms(lambda: geglu_ops.launch_up(x, w1, b1, h, plan)),
                down_ms=time_ms(lambda: geglu_ops.launch_down(h, w2, b2, y, plan)),
-               plan=dataclasses.asdict(plan))
+               b2b_ms=time_b2b(fn), plan=dataclasses.asdict(plan))
         del x, w1, b1, w2, b2, args, h, y
     # the wrapper's host time per call (128 rows: the launches take longer
     # to issue than to run), kernels and plain version
@@ -746,7 +807,7 @@ def random_init_(module: nn.Module, gen: torch.Generator) -> None:
     for name, m in module.named_modules():
         leaf = name.rsplit(".", 1)[-1]
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            bumped = leaf in ZERO_INIT or leaf.startswith("zero_")
+            bumped = leaf in ZERO_INIT or "zero_" in leaf  # XS: {enc,dec,mid}_zero_*
             randn(m.weight, 0.05 if bumped else m.weight[0].numel() ** -0.5)
             if m.bias is not None:
                 m.bias.data.zero_()
@@ -929,7 +990,7 @@ def slice_run(dev, cfg, profile_steps=0):
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"kernel path departs from the plain path: rel {rel}")
     fp32_vae_decode(pipe, cfg, x_T[:1])
-    return launches, pipe, (ids, uncond, hint)
+    return launches, pipe, (ids, uncond, hint), total
 
 
 def tiny_gpu_vs_cpu(dev):
@@ -1352,27 +1413,58 @@ def two_lora_state(control: nn.Module, lora: configs.LoRAConfig, gen: torch.Gene
     return state
 
 
+def as_file(arrays: dict, dtype: torch.dtype = torch.float16) -> dict:
+    """Exported numpy arrays as the tensors a reference file holds."""
+    return {k: torch.from_numpy(v).to(dtype) for k, v in arrays.items()}
+
+
+def sd_parts(cfg):
+    """(key prefix, pipeline module name, key table) of each part of an SD
+    file; an XS pipeline's UNet exports its base stream."""
+    return (("model.diffusion_model.", "unet", ckpt_torch.unet_entries(cfg.unet)),
+            ("first_stage_model.", "vae", ckpt_torch.vae_entries(cfg.vae)),
+            ("cond_stage_model.transformer.text_model.", "clip",
+             ckpt_torch.clip_entries(cfg.clip)))
+
+
+def write_sd_file(cfg, pipe, path, dtype: torch.dtype = torch.float16) -> dict:
+    """The pipeline's UNet, VAE and CLIP as an SD-format file in `dtype`;
+    returns what was written."""
+    sd = {}
+    for prefix, name, entries in sd_parts(cfg):
+        sd.update(as_file(ckpt_torch.export_tree(getattr(pipe, name).state_dict(), entries,
+                                                 prefix), dtype))
+    torch.save({"state_dict": sd}, path)
+    return sd
+
+
+def sd_pairs(trees: dict, sd: dict, cfg) -> list:
+    """(key, loaded array, file tensor) for every SD-file tensor of the parts
+    in `trees` ({module name: loaded state dict})."""
+    return [(k, v, sd[k]) for prefix, name, entries in sd_parts(cfg) if name in trees
+            for k, v in ckpt_torch.export_tree(trees[name], entries, prefix).items()]
+
+
+def differing(pairs) -> list:
+    """The keys of `pairs` whose loaded array is not the file's tensor (fp16
+    widened to fp32 exactly)."""
+    return [k for k, got, want in pairs if not np.array_equal(got, want.float().numpy())]
+
+
 def write_reference_files(src: CtrLoraPipeline, control_state: dict, cfg, outdir: str,
                           dtype: torch.dtype):
     """The SD checkpoint (UNet, VAE, CLIP under the reference prefixes), the
     Base ControlNet and one file per LoRA slot, in `dtype`, through the
     port's exporters. Returns (paths, the written state dicts)."""
     os.makedirs(outdir, exist_ok=True)
-    as_file = lambda d: {k: torch.from_numpy(v).to(dtype) for k, v in d.items()}
-    sd = {}
-    for prefix, module, entries in (
-            ("model.diffusion_model.", src.unet, ckpt_torch.unet_entries(cfg.unet)),
-            ("first_stage_model.", src.vae, ckpt_torch.vae_entries(cfg.vae)),
-            ("cond_stage_model.transformer.text_model.", src.clip,
-             ckpt_torch.clip_entries(cfg.clip))):
-        sd.update(as_file(ckpt_torch.export_tree(module.state_dict(), entries, prefix)))
-    written = {"sd": sd, "basecn": as_file(ckpt_torch.export_control_base(control_state,
-                                                                         cfg.control)),
-               "loras": [as_file(ckpt_torch.export_lora_slot(control_state, cfg.control, i))
-                         for i in range(cfg.control.lora.n_loras)]}
     paths = {"sd": os.path.join(outdir, "sd15.ckpt"), "basecn": os.path.join(outdir, "basecn.ckpt"),
-             "loras": [os.path.join(outdir, f"lora{i}.ckpt") for i in range(len(written["loras"]))]}
-    torch.save({"state_dict": sd}, paths["sd"])
+             "loras": [os.path.join(outdir, f"lora{i}.ckpt")
+                       for i in range(cfg.control.lora.n_loras)]}
+    written = {"sd": write_sd_file(cfg, src, paths["sd"], dtype),
+               "basecn": as_file(ckpt_torch.export_control_base(control_state, cfg.control),
+                                 dtype),
+               "loras": [as_file(ckpt_torch.export_lora_slot(control_state, cfg.control, i),
+                                 dtype) for i in range(cfg.control.lora.n_loras)]}
     torch.save(written["basecn"], paths["basecn"])
     for path, lsd in zip(paths["loras"], written["loras"]):
         torch.save(lsd, path)
@@ -1382,14 +1474,8 @@ def write_reference_files(src: CtrLoraPipeline, control_state: dict, cfg, outdir
 def loaded_matches_written(states, written, cfg) -> int:
     """Every tensor the loader produced equals the file's (fp16 widened to
     fp32 exactly), read back through the exporters; returns the count."""
-    pairs = []
-    for prefix, sd, entries in (
-            ("model.diffusion_model.", states.unet, ckpt_torch.unet_entries(cfg.unet)),
-            ("first_stage_model.", states.vae, ckpt_torch.vae_entries(cfg.vae)),
-            ("cond_stage_model.transformer.text_model.", states.clip,
-             ckpt_torch.clip_entries(cfg.clip))):
-        pairs += [(k, v, written["sd"][k]) for k, v in
-                  ckpt_torch.export_tree(sd, entries, prefix).items()]
+    pairs = sd_pairs({"unet": states.unet, "vae": states.vae, "clip": states.clip},
+                     written["sd"], cfg)
     pfx = "control_model."
     pairs += [(k, v, written["basecn"][k]) for k, v in
               ckpt_torch.export_control_base(states.control, cfg.control).items()
@@ -1397,7 +1483,7 @@ def loaded_matches_written(states, written, cfg) -> int:
     for i, lsd in enumerate(written["loras"]):
         pairs += [(k, v, lsd[k]) for k, v in
                   ckpt_torch.export_lora_slot(states.control, cfg.control, i).items()]
-    bad = [k for k, got, want in pairs if not np.array_equal(got, want.float().numpy())]
+    bad = differing(pairs)
     if bad or len(pairs) != len(written["sd"]) + sum(map(len, written["loras"])) + sum(
             not check_key(k[len(pfx):]) for k in written["basecn"]):
         raise AssertionError(f"loaded tensors differ from the files: {bad[:5]} "
@@ -1965,24 +2051,26 @@ def write_control_file(cfg, dev, path, gen):
     with torch.device(dev):
         control = build_control(cfg.control, fuse_lora=False)
     random_init_(control, gen)
-    written = {k: torch.from_numpy(v).half() for k, v in
-               ckpt_torch.export_control_base(control.state_dict(), cfg.control).items()}
+    written = as_file(ckpt_torch.export_control_base(control.state_dict(), cfg.control))
     torch.save(written, path)
     return written
 
 
-def baseline_train(dev, variant, custom, root, cn_file=None, written=None):
-    """Phase 11c/11d: train_cn.main on the PNG pairs: 2 warm-up and 4 timed
-    steps with --use_ema, a checkpoint and the image log at the last step;
-    then one step's loss and gradients with the kernels against the plain
-    versions. Returns the run's launches."""
+def baseline_train(dev, variant, custom, root, sd_file, cn_file=None, written=None):
+    """Phase 11c/11d: train_cn.main on the PNG pairs, the UNet from the fp16
+    SD file `sd_file` (a fresh UNet outputs 0, so a run from the seeded init
+    alone would have no gradient): 2 warm-up and 4 timed steps with
+    --use_ema, a checkpoint and the image log at the last step; then one
+    step's loss and gradients with the kernels against the plain versions.
+    Returns the run's launches."""
     phase = f"train_cn_{variant}"
     steps = CN_WARMUP + CN_TIMED
     bs, gradacc = (CN_MICRO_BATCH, CN_GRADACC) if variant == "controlnet" else (LITE_BATCH, 1)
     argv = ["--variant", variant, "--dataroot", custom, "--bs", str(bs), "--gradacc",
             str(gradacc), "--max_steps", str(steps), "--use_ema", "--log_every", "1",
             "--ckpt_logger_freq", str(steps), "--img_logger_freq", str(steps),
-            "--num_workers", "8", "--device", str(dev), "-n", os.path.join(root, variant)]
+            "--num_workers", "8", "--device", str(dev), "-n", os.path.join(root, variant),
+            "--sd_ckpt", sd_file]
     if cn_file:
         argv += ["--cn_ckpt", cn_file]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2051,13 +2139,15 @@ def baseline_train(dev, variant, custom, root, cn_file=None, written=None):
 
 def tiny_baselines_gpu_vs_cpu(dev):
     """Phase 11e: each baseline's tiny configuration (image hint, 4x the
-    target's size) in fp32: one evaluation and one train step's loss and
-    gradients on the GPU against the CPU, same weights and draws."""
+    target's size; ControlNet-XS at control ratio 0.5) in fp32: one
+    evaluation and one train step's loss and gradients on the GPU against
+    the CPU, same weights and draws."""
     errs = {}
-    for variant in BASELINES:
+    for variant in (*BASELINES, "xs"):
         base = configs.tiny_test_config(hint_mode="image")
+        ratio = {"control_model_ratio": 0.5} if variant == "xs" else {}  # 16 channels, D = 8
         cfg = dataclasses.replace(base, control=dataclasses.replace(base.control,
-                                                                    variant=variant))
+                                                                    variant=variant, **ratio))
         gen = torch.Generator().manual_seed(SEED)
         cpu = CtrLoraPipeline(cfg, "cpu", fuse_lora=False)
         for m in cpu.modules():
@@ -2103,15 +2193,262 @@ def baselines_slice(dev):
         cn_file = os.path.join(root, "control_sd15.ckpt")
         written = write_control_file(configs.sd15_config(), dev, cn_file,
                                      torch.Generator(device=dev).manual_seed(SEED + 13))
+        sd_file = os.path.join(root, "sd15.ckpt")
+        src = CtrLoraPipeline(configs.sd15_config(), dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        for m in (src.unet, src.vae, src.clip):
+            random_init_(m, gen)
+        sd_keys = len(write_sd_file(configs.sd15_config(), src, sd_file))
+        del src
         log("train_cn", write_s=time.perf_counter() - t0, control_file_keys=len(written),
-            hint_block_keys=sum(".input_hint_block." in k for k in written))
-        launches["train_controlnet"] = baseline_train(dev, "controlnet", custom, root, cn_file,
-                                                      written)
-        launches["train_lite"] = baseline_train(dev, "lite", custom, root)
+            hint_block_keys=sum(".input_hint_block." in k for k in written), sd_file_keys=sd_keys)
+        launches["train_controlnet"] = baseline_train(dev, "controlnet", custom, root, sd_file,
+                                                      cn_file, written)
+        launches["train_lite"] = baseline_train(dev, "lite", custom, root, sd_file)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     tiny_baselines_gpu_vs_cpu(dev)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: ControlNet-XS (sampling, train_cn --variant xs)
+# ---------------------------------------------------------------------------
+
+XS_CONFIG = os.path.join("configs", "cnxs_sd15.yaml")
+XS_SAMPLING_KERNELS = ("group_norm", "flash_attention_qkv", "flash_attention", "geglu_ffn")
+# the widths each kernel must run at on the XS path: the control stream's
+# (0.2x: 64/128/256 channels, 8 heads of 8/16/32, and the `cat` infusion's
+# 384/768/1536-channel GroupNorms)
+XS_WIDTHS = {"group_norm": {64, 128, 256, 384, 768, 1536},
+             "flash_attention_qkv": {8, 16, 32}, "geglu_ffn": {64, 128, 256}}
+XS_TRAIN_WIDTHS = {**XS_WIDTHS, "flash_attention_bwd_dq": {8, 16, 32},
+                   "flash_attention_bwd_dkv": {8, 16, 32}}
+
+
+@contextlib.contextmanager
+def launch_widths():
+    """Count the kernel launches of the block by kernel and the width each
+    ran at (A: channels, B and B4/B5: head dim, C: C), read off the
+    wrappers' launch helpers (which run only where a kernel launches);
+    yields {kernel: {width: launches}}."""
+    seen: dict = {}
+
+    def note(name, width):
+        seen.setdefault(name, {}).setdefault(int(width), 0)
+        seen[name][int(width)] += 1
+
+    real_gn, real_fwd = gn_ops._launch, fa_ops._launch_forward
+    real_bwd, real_up = fa_ops._check_bwd, geglu_ops.launch_up
+
+    def gn_launch(entry, plan_fn, what, x, *a):
+        note(what, x.shape[-1])
+        return real_gn(entry, plan_fn, what, x, *a)
+
+    def fwd_launch(what, ptrs, shape, *a):
+        note(what, shape[4])
+        return real_fwd(what, ptrs, shape, *a)
+
+    def bwd_check(what, tensors, *a):
+        note(what, tensors[0].shape[-1])
+        return real_bwd(what, tensors, *a)
+
+    def up_launch(x, *a):
+        note("geglu_ffn", x.shape[-1])
+        return real_up(x, *a)
+
+    with mock.patch.object(gn_ops, "_launch", gn_launch), \
+            mock.patch.object(fa_ops, "_launch_forward", fwd_launch), \
+            mock.patch.object(fa_ops, "_check_bwd", bwd_check), \
+            mock.patch.object(geglu_ops, "launch_up", up_launch):
+        yield seen
+
+
+def missing_widths(seen, required) -> dict:
+    """{kernel: widths of `required` that `seen` (``launch_widths``) lacks}."""
+    out = {k: sorted(ws - set(seen.get(k, {}))) for k, ws in required.items()}
+    return {k: ws for k, ws in out.items() if ws}
+
+
+def write_xs_files(cfg, pipe, root):
+    """The XS pipeline's base stream, VAE and CLIP as an fp16 SD-format file,
+    and its control stream, zero convs and hint encoder as an fp16 control
+    file (TwoStreamControlNet's keys). Returns (paths, written)."""
+    paths = {"sd": os.path.join(root, "sd15.ckpt"), "cn": os.path.join(root, "cnxs_sd15.ckpt")}
+    sd = write_sd_file(cfg, pipe, paths["sd"])
+    cn = as_file(ckpt_torch.export_tree(pipe.unet.state_dict(),
+                                        ckpt_torch.xs_control_entries(cfg)))
+    torch.save(cn, paths["cn"])
+    return paths, {"sd": sd, "cn": cn}
+
+
+def xs_loaded_equal(unet_state, written, cfg) -> int:
+    """Every base and control tensor of an XS UNet state equals the files'
+    (fp16 widened exactly); returns the count, or raises."""
+    pairs = sd_pairs({"unet": unet_state}, written["sd"], cfg)
+    if written.get("cn") is not None:
+        pairs += [(k, v, written["cn"][k]) for k, v in ckpt_torch.export_tree(
+            unet_state, ckpt_torch.xs_control_entries(cfg)).items()]
+    bad = differing(pairs)
+    if bad:
+        raise AssertionError(f"XS: loaded tensors differ from the files: {bad[:5]}")
+    return len(pairs)
+
+
+def xs_sampling(dev, root, phase4_s_batch):
+    """Phase 12a. Returns (launches, the config, the files' paths and
+    contents)."""
+    cfg = configs.load_model_config(os.path.join(ROOT, XS_CONFIG))
+    if cfg != configs.cnxs_config():
+        raise AssertionError(f"{XS_CONFIG} reads as {cfg}, not the cnxs_sd15 preset")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    t0 = time.perf_counter()
+    pipe = CtrLoraPipeline(cfg, dev)
+    for m in pipe.modules():
+        random_init_(m, gen)
+    paths, written = write_xs_files(cfg, pipe, root)
+    written_s = time.perf_counter() - t0
+    states = load_ctrlora(pipe, paths["sd"])  # the base stream, VAE and CLIP from the file
+    loaded = xs_loaded_equal(states.unet, {"sd": written["sd"]}, cfg)
+    pipe.load_state_dicts(*states)
+    pipe.cast_for_inference()
+    torch.cuda.synchronize()
+    n_ctrl = sum(p.numel() for n, p in pipe.unet.named_parameters()
+                 if n.split(".")[0].startswith(train_state.XS_TRAINABLE_PREFIXES))
+    log("xs_sampling", config=XS_CONFIG, config_equals_preset=True, setup_s=time.perf_counter()
+        - t0, files_written_s=written_s, sd_tensors_loaded_equal_file=loaded,
+        xs_unet_params_m=sum(p.numel() for p in pipe.unet.parameters()) / 1e6,
+        control_stream_params_m=n_ctrl / 1e6)
+    lat = SIZE // 8
+    ids = torch.ones((BATCH, cfg.clip.max_length), dtype=torch.long, device=dev)
+    uncond = torch.zeros_like(ids)
+    hint = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device=dev)
+    x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    baseline_sample(pipe, ids, uncond, hint, x_T, steps=2)  # warm-up
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted("XS sampling", XS_SAMPLING_KERNELS) as launches, launch_widths() as widths:
+        t0 = time.perf_counter()
+        img, phases, ddim_launches = baseline_sample(pipe, ids, uncond, hint, x_T, STEPS)
+        total = time.perf_counter() - t0
+    lacking = missing_widths(widths, XS_WIDTHS)
+    log("xs_sampling", steps=STEPS, batch=BATCH, size=SIZE, s_per_batch=total,
+        phase4_s_per_batch=phase4_s_batch, ratio_to_phase4=total / phase4_s_batch,
+        s_per_step=phases["ddim_s"] / STEPS, **phases, launches=launches,
+        launches_per_evaluation={n: ddim_launches[n] / STEPS for n in wrappers()},
+        launches_by_width=widths, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if lacking or launches["unpack_rows"]:
+        raise AssertionError(f"XS sampling: no launch at widths {lacking}; row unpack "
+                             f"{launches['unpack_rows']} times (none expected)")
+    if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"XS: bad image, shape {tuple(img.shape)}")
+
+    # one XS evaluation (the CFG batch): kernels vs plain versions
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    full_ctx, conds = torch.cat([ctx, unc]), [Conditioning(torch.cat([hint, hint]))]
+    tvec = torch.full((2 * BATCH,), 981, dtype=torch.int32, device=dev)
+    x2 = torch.cat([x_T, x_T])
+    with launch_widths() as per_eval:
+        out_k = pipe.apply_model(x2, tvec, full_ctx, conds)
+    with plain_versions():
+        out_p = pipe.apply_model(x2, tvec, full_ctx, conds)
+    rel = rel_l2(out_k, out_p)
+    log("xs_sampling", image_mean=img.mean().item(), image_std=img.std().item(),
+        launches_by_width_per_evaluation=per_eval, xs_rel_l2_kernels_vs_plain=rel,
+        bound=MODEL_REL_TOL)
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL:
+        raise AssertionError(f"XS: kernel path departs from the plain path: rel {rel}")
+    del pipe, states
+    torch.cuda.empty_cache()
+    return launches, cfg, paths, written
+
+
+def xs_train(dev, cfg, custom, root, paths, written, phase6_s_step):
+    """Phase 12b: train_cn --variant xs from the SD and XS control files.
+    Returns the run's launches."""
+    phase = "train_cn_xs"
+    steps = CN_WARMUP + CN_TIMED
+    argv = ["--variant", "xs", "--config", os.path.join(ROOT, XS_CONFIG), "--dataroot", custom,
+            "--sd_ckpt", paths["sd"], "--cn_ckpt", paths["cn"], "--bs", str(BATCH),
+            "--max_steps", str(steps), "--use_ema", "--log_every", "1", "--ckpt_logger_freq",
+            str(steps), "--img_logger_freq", str(steps), "--num_workers", "8", "--device",
+            str(dev), "-n", os.path.join(root, "xs")]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cli_spies(("unet",)) as rec, \
+            counted("train_cn xs", BASELINE_TRAINING_KERNELS) as launches, \
+            launch_widths() as widths:
+        t0 = time.perf_counter()
+        run = train_cn_mod.main(argv)
+        total = time.perf_counter() - t0
+    s_step, lines = timed_steps(run.workdir, CN_WARMUP)
+    trainer, pipe = run.trainer, run.trainer.pipe
+    hook = cli_metrics(run.workdir, "image_log")
+    bwd = {k: {d: n / steps for d, n in widths.get(k, {}).items()}
+           for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    initial = {k[len("unet."):]: v for k, v in rec["initial"].items()}
+    loaded = xs_loaded_equal(initial, written, pipe.cfg)
+    log(phase, batch=BATCH, size=SIZE, steps=steps, total_s=total, load_s=run.seconds["load"],
+        loader_wait_s=run.loader.wait_s,
+        trainable_params_m=sum(p.numel() for p in trainer.state.trainable.values()) / 1e6,
+        s_per_step=s_step, phase6_s_per_step=phase6_s_step, ratio_to_phase6=s_step / phase6_s_step,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        launches_per_step=per_step_launches(rec["steps"][CN_WARMUP:], wrappers()),
+        flash_bwd_launches_per_step_by_head_dim=bwd, launches_by_width=widths,
+        hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
+        grad_norm=[ln["grad_norm"] for ln in lines], launches=launches)
+    train = cli_metrics(run.workdir, "train")
+    lacking = missing_widths(widths, XS_TRAIN_WIDTHS)
+    if len(train) != steps or not all(math.isfinite(ln["loss"]) and ln["grad_norm"] > 0
+                                      for ln in train) or lacking:
+        raise AssertionError(f"{phase}: bad metrics {train}, no launch at widths {lacking}")
+    changed, unchanged = check_weights(pipe, trainer, rec["initial"])
+    png = png_shape(hook[0]["path"]) if hook else None
+    log(phase, loaded_tensors_equal_files=loaded, frozen_base_bit_identical=not changed,
+        trainable_changed=len(trainer.state.trainable) - len(unchanged),
+        trainable_unchanged=unchanged, image_log_shape=png)
+    if changed or unchanged or png != [48 + 3 * SIZE, 2 * SIZE, 3]:
+        raise AssertionError(f"{phase}: frozen changed {changed[:5]}, trainable unchanged "
+                             f"{unchanged[:5]}, image log {png}")
+    del rec
+    shutil.rmtree(os.path.join(root, "xs"), ignore_errors=True)  # the checkpoint
+
+    # one step's loss and gradients: kernels vs plain versions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    batch = synthetic_batch(gen, dev, BATCH, SIZE, pipe.cfg.clip.max_length,
+                            pipe.cfg.clip.vocab_size)
+    draws = fixed_draws(gen, dev, BATCH, SIZE // 8)
+    params = list(trainer.state.trainable.values())
+    loss_k, grad_k = step_grads(pipe, params, batch, draws)
+    with plain_versions():
+        loss_p, grad_p = step_grads(pipe, params, batch, draws)
+    loss_rel, grad_rel = abs(loss_k - loss_p) / abs(loss_p), rel_l2(grad_k, grad_p)
+    log(phase, loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+        loss_bound=LOSS_REL_TOL, grad_rel_l2_kernels_vs_plain=grad_rel,
+        grad_bound=MODEL_REL_TOL)
+    if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL_TOL and grad_rel <= MODEL_REL_TOL
+            and torch.isfinite(grad_k).all()):
+        raise AssertionError(f"{phase}: step departs from the plain path: loss {loss_rel}, "
+                             f"grad {grad_rel}")
+    del run, trainer, pipe, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def xs_slice(dev, phase4_s_batch, phase6_s_step):
+    """Phase 12: XS sampling (12a) and train_cn --variant xs (12b) from the
+    files 12a writes. The files are deleted at the end. Returns the
+    launches of each run."""
+    root = os.path.join(ROOT, "runs", "chip_smoke_xs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        launches, cfg, paths, written = xs_sampling(dev, root, phase4_s_batch)
+        runs = {"sample_xs": launches}
+        custom, _ = write_cli_datasets(root, np.random.default_rng(SEED + 20))
+        runs["train_xs"] = xs_train(dev, cfg, custom, root, paths, written, phase6_s_step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
 
 
 def build_gates(dev) -> None:
@@ -2234,7 +2571,7 @@ def main(argv) -> int:
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)
     profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
-    sampling, pipe, inputs = slice_run(dev, cfg, profile_steps)
+    sampling, pipe, inputs, phase4_s_batch = slice_run(dev, cfg, profile_steps)
     samplers = sampler_family(dev, pipe, *inputs)  # phase 9, on phase 4's pipeline
     del pipe, inputs
     torch.cuda.empty_cache()
@@ -2246,6 +2583,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     cli_runs = train_cli_slice(dev, phase6_s_step)
     baseline_runs = baselines_slice(dev)
+    xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2253,7 +2591,8 @@ def main(argv) -> int:
                    "training": training[name],
                    "api_2lora": sum(r[name] for r in api_runs.values()),
                    "train_cli": sum(r[name] for r in cli_runs.values()),
-                   "baselines": sum(r[name] for r in baseline_runs.values())}
+                   "baselines": sum(r[name] for r in baseline_runs.values()),
+                   "xs": sum(r[name] for r in xs_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

@@ -1,20 +1,26 @@
 """Configuration dataclasses of the PyTorch port.
 
-The fields of ``ctrlora_tpu/configs.py`` that the ported path reads, with the
-same names and defaults, without JAX and without YAML files.
-A dtype is stored as a string, as there, and ``compute_dtype`` maps it to a
-``torch.dtype``. Only the presets of the ported paths are here:
+The fields of ``ctrlora_tpu/configs.py``, with the same names and
+defaults, without JAX. A dtype is stored as a string, as there, and
+``compute_dtype`` maps it to a ``torch.dtype``. The presets:
 ``ctrlora_inference_config``, ``ctrlora_finetune_config``,
 ``ctrlora_pretrain_config``, the baselines ``sd15_config`` (vanilla
-image-hint ControlNet) and ``cnlite_config`` (ControlNet-Lite), and
-``tiny_test_config`` (``load_model_config`` takes their names), plus
+image-hint ControlNet), ``cnlite_config`` (ControlNet-Lite) and
+``cnxs_config`` (ControlNet-XS), and ``tiny_test_config``, plus
 ``TrainConfig`` for the training step.
+
+``load_model_config`` takes a preset's name or a YAML file (the files under
+``configs/``: a ``model:`` tree, or ``preset:`` plus overrides), read by the
+port's own reader of the YAML subset that ``yaml.safe_dump`` writes
+(:func:`parse_yaml`): the port needs no PyYAML. A file whose model needs a
+part the port does not have raises, naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import re
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,9 +50,11 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: Optional[int] = 768
+    dropout: float = 0.0  # the port has no dropout: only 0 is taken
     use_checkpoint: bool = True  # rematerialise ResBlocks and transformers in training
     dtype: str = "bfloat16"
     use_flash_attention: bool = True
+    ip_tokens: int = 0  # IP-Adapter image tokens: not ported (ROADMAP queue 1 item 9)
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -59,8 +67,8 @@ class ControlNetConfig:
     input stream) or 'image' (vanilla ControlNet: the noisy latent is the
     input, the pixel hint enters through ``HintBlock``). variant
     'controlnet' (decoder-side taps), 'lite' (ControlNet-Lite: conv-only
-    branch, encoder-side taps) or 'xs' (ControlNet-XS, not ported: its
-    knobs are here so that its preset can be named)."""
+    branch, encoder-side taps) or 'xs' (ControlNet-XS: a slim control
+    stream beside the UNet, ``models/xs.py``, with the knobs below)."""
 
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     hint_channels: int = 3
@@ -116,10 +124,13 @@ class CLIPTextConfig:
 @dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
     timesteps: int = 1000
+    beta_schedule: str = "linear"  # the port's schedule is SD's linear one only
     linear_start: float = 0.00085
     linear_end: float = 0.012
+    cosine_s: float = 8e-3
     scale_factor: float = 0.18215
     parameterization: str = "eps"  # 'eps' | 'v' (the samplers read it)
+    v_posterior: float = 0.0  # only 0 is taken
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
     logvar_init: float = 0.0
@@ -183,6 +194,17 @@ def sd15_config() -> ModelConfig:
     return ModelConfig(
         name="cldm_v15",
         control=ControlNetConfig(hint_mode="image", lora=LoRAConfig(n_loras=0)),
+    )
+
+
+def cnxs_config() -> ModelConfig:
+    """ControlNet-XS baseline: the base UNet with a 0.2x control stream,
+    cross infusion both ways (the JAX package's preset for
+    configs/cnxs_sd15.yaml)."""
+    return ModelConfig(
+        name="cnxs_sd15",
+        control=ControlNetConfig(hint_mode="image", lora=LoRAConfig(n_loras=0),
+                                 variant="xs"),
     )
 
 
@@ -277,24 +299,228 @@ def tiny_test_config(
 _PRESETS = {
     "cldm_v15": sd15_config,
     "cnlite_sd15": cnlite_config,
+    "cnxs_sd15": cnxs_config,
     "ctrlora_finetune": ctrlora_finetune_config,
     "ctrlora_inference": ctrlora_inference_config,
     "ctrlora_pretrain": ctrlora_pretrain_config,
     "tiny": tiny_test_config,
 }
-# the JAX package's other presets, and the ROADMAP queue 1 item that ports them
-XS_ITEM = "item 10b (ControlNet-XS)"
-_NOT_PORTED = {"cnxs_sd15": XS_ITEM}
+# the ROADMAP queue 1 item that ports the image-prompt branch
+IP_ITEM = "item 9 (style / IP-Adapter)"
+
+
+# ---------------------------------------------------------------------------
+# YAML files
+# ---------------------------------------------------------------------------
+
+# PyYAML's implicit resolvers (YAML 1.1) for the scalars safe_dump writes
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
+                   r"|on|On|ON|off|Off|OFF)$")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_KEY = re.compile(r"^('(?:[^']|'')*'|\"[^\"]*\"|[^'\"#\s][^:]*?):(?:\s+(.*))?$")
+
+
+def _plain(text: str) -> Any:
+    """One plain scalar, resolved as PyYAML's safe loader does."""
+    if _NULL.match(text):
+        return None
+    if _BOOL.match(text):
+        return text.lower() in ("yes", "true", "on")
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        low = text.replace("_", "").lower()
+        if low.endswith("inf"):
+            return float("-inf") if low.startswith("-") else float("inf")
+        return float("nan") if low.endswith("nan") else float(low)
+    return text
+
+
+def _scalar(text: str) -> Any:
+    """A value after `key: ` or `- `: quoted, an empty or one-level flow
+    collection, or a plain scalar (a trailing ` #` comment dropped)."""
+    if text.startswith("'"):
+        if not text.endswith("'") or len(text) < 2:
+            raise ValueError(f"YAML: unterminated quote in {text!r}")
+        return text[1:-1].replace("''", "'")
+    if text.startswith('"'):
+        if not text.endswith('"') or len(text) < 2:
+            raise ValueError(f"YAML: unterminated quote in {text!r}")
+        return text[1:-1].encode().decode("unicode_escape")
+    text = text.split(" #", 1)[0].rstrip()
+    if text.startswith("[") and text.endswith("]"):
+        body = text[1:-1].strip()
+        if any(ch in body for ch in "[]{}'\""):
+            raise ValueError(f"YAML: {text!r}: nested or quoted flow items are outside the "
+                             "subset this reader takes")
+        return [_scalar(v.strip()) for v in body.split(",")] if body else []
+    if text == "{}":
+        return {}
+    if text and text[0] in "[{&*!|>%@`":
+        raise ValueError(f"YAML: {text!r} is outside the subset this reader takes")
+    return _plain(text)
+
+
+def _key(text: str) -> Optional[Tuple[str, str]]:
+    """(key, rest) of a `key:` or `key: value` line, else None."""
+    m = _KEY.match(text)
+    if m is None:
+        return None
+    key = m.group(1)
+    if key[:1] in "'\"":
+        key = _scalar(key)
+    return key, (m.group(2) or "").strip()
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def _block(lines: List[Tuple[int, str]], i: int, indent: int) -> Tuple[Any, int]:
+    """The block collection starting at line i, at `indent` -> (value, next
+    line)."""
+    if _is_item(lines[i][1]):
+        out = []
+        while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+            rest = lines[i][1][1:].strip()
+            if not rest:
+                i += 1
+                if i < len(lines) and lines[i][0] > indent:
+                    val, i = _block(lines, i, lines[i][0])
+                else:
+                    val = None
+            elif _key(rest) is not None or _is_item(rest):  # a collection on this line
+                lines[i] = (indent + 2, rest)
+                val, i = _block(lines, i, indent + 2)
+            else:
+                val, i = _scalar(rest), i + 1
+            out.append(val)
+        return out, i
+    out = {}
+    while i < len(lines) and lines[i][0] == indent and not _is_item(lines[i][1]):
+        kv = _key(lines[i][1])
+        if kv is None:
+            raise ValueError(f"YAML: expected `key: value`, got {lines[i][1]!r}")
+        key, rest = kv
+        if key in out:
+            raise ValueError(f"YAML: duplicate key {key!r}")
+        i += 1
+        if rest:
+            out[key] = _scalar(rest)
+        elif i < len(lines) and (lines[i][0] > indent
+                                 or (lines[i][0] == indent and _is_item(lines[i][1]))):
+            out[key], i = _block(lines, i, lines[i][0])
+        else:
+            out[key] = None
+    if i < len(lines) and lines[i][0] > indent:
+        raise ValueError(f"YAML: unexpected indentation at {lines[i][1]!r}")
+    return out, i
+
+
+def parse_yaml(text: str) -> Any:
+    """The document in `text`, for the subset of YAML that ``yaml.safe_dump``
+    writes (block style): nested mappings, block lists (items at their
+    key's indent or deeper, scalars or mappings), empty flow collections,
+    and scalars resolved as PyYAML's safe loader resolves them: null, bool,
+    decimal int, float, quoted and plain strings. Anchors, tags, multi-line
+    scalars and nested flow collections raise ValueError."""
+    lines = []
+    for raw in text.splitlines():
+        body = raw.rstrip()
+        if not body.strip() or body.lstrip().startswith("#") or body.strip() in ("---", "..."):
+            continue
+        stripped = body.lstrip(" ")
+        if stripped.startswith("\t"):
+            raise ValueError("YAML: tabs are not indentation")
+        lines.append((len(body) - len(stripped), stripped))
+    if not lines:
+        return None
+    if len(lines) == 1 and _key(lines[0][1]) is None and not _is_item(lines[0][1]):
+        return _scalar(lines[0][1])
+    value, end = _block(lines, 0, lines[0][0])
+    if end != len(lines):
+        raise ValueError(f"YAML: unexpected line {lines[end][1]!r}")
+    return value
+
+
+_SUBTREES = {"unet": UNetConfig, "control": ControlNetConfig, "vae": VAEConfig,
+             "clip": CLIPTextConfig, "diffusion": DiffusionConfig, "lora": LoRAConfig}
+
+
+def _dataclass_from_dict(cls, d):
+    """The JAX ``_dataclass_from_dict``: nested dicts to their dataclasses,
+    lists to tuples; raises KeyError on a field `cls` does not have."""
+    if d is None:
+        return None
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in fields:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        target = _SUBTREES.get(k)
+        if target is not None and isinstance(v, dict):
+            v = _dataclass_from_dict(target, v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def _deep_update(dst: dict, src: dict) -> dict:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _deep_update(dst[k], v)
+        else:
+            dst[k] = v
+    return dst
+
+
+def check_ported(cfg: ModelConfig) -> ModelConfig:
+    """`cfg`, or NotImplementedError where it needs a part the port does not
+    have: image-prompt tokens (ROADMAP queue 1 item 9), dropout, a schedule
+    other than SD's linear one, or a v_posterior other than 0."""
+    for where, unet in (("unet", cfg.unet),
+                        ("control.unet", cfg.control.unet if cfg.control else None)):
+        if unet is None:
+            continue
+        if unet.ip_tokens:
+            raise NotImplementedError(f"{cfg.name}: {where}.ip_tokens={unet.ip_tokens} needs "
+                                      f"the IP-Adapter branch: ROADMAP queue 1 {IP_ITEM}")
+        if unet.dropout:
+            raise NotImplementedError(f"{cfg.name}: {where}.dropout={unet.dropout}: the port "
+                                      "has no dropout")
+    d = cfg.diffusion
+    if d.beta_schedule != "linear" or d.v_posterior:
+        raise NotImplementedError(f"{cfg.name}: beta_schedule={d.beta_schedule!r}, v_posterior="
+                                  f"{d.v_posterior}: the port has SD's linear schedule with "
+                                  "v_posterior 0 only")
+    return cfg
 
 
 def load_model_config(path_or_preset: str, **overrides) -> ModelConfig:
-    """The ModelConfig of a preset name (``ctrlora_tpu/configs.py``
-    ``load_model_config``); keyword overrides go to the preset's function.
-    YAML files are not read yet."""
+    """The ModelConfig of a preset name (keyword overrides go to the
+    preset's function) or of a YAML file: a full ModelConfig tree under
+    ``model:``, or ``preset: <name>`` with nested overrides (under
+    ``model:`` or at the top), as JAX ``load_model_config`` reads them.
+    Raises where the model needs a part the port does not have
+    (:func:`check_ported`)."""
     if path_or_preset in _PRESETS:
         return _PRESETS[path_or_preset](**overrides)
-    if path_or_preset in _NOT_PORTED:
-        raise ValueError(f"preset {path_or_preset!r} is not ported yet: ROADMAP queue 1 "
-                         f"{_NOT_PORTED[path_or_preset]}")
-    raise ValueError(f"{path_or_preset!r} is not a preset of the port "
-                     f"({', '.join(_PRESETS)}); the port reads no YAML config files yet")
+    try:
+        with open(path_or_preset) as f:
+            raw = parse_yaml(f.read())
+    except FileNotFoundError:
+        raise ValueError(f"{path_or_preset!r} is neither a preset of the port "
+                         f"({', '.join(_PRESETS)}) nor a file") from None
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path_or_preset}: a config file holds a mapping")
+    if "preset" in raw:
+        preset = raw.pop("preset")
+        base = dataclasses.asdict(_PRESETS[preset]())
+        _deep_update(base, raw.get("model", raw))
+        return check_ported(_dataclass_from_dict(ModelConfig, base))
+    return check_ported(_dataclass_from_dict(ModelConfig, raw.get("model", raw)))

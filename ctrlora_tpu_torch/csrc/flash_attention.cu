@@ -32,8 +32,9 @@
 // read MN-major through the descriptor's transpose bit: V is never
 // transposed by hand. Tiles are boxes of 64 columns with the 128B swizzle.
 //
-// * D <= 160 (`flash_fwd_wgmma`, D = 40/80/160 at the UNet/ControlNet sites;
-//   64 and 128 also build). Each consumer warpgroup owns 64 query rows and
+// * D <= 160 (`flash_fwd_wgmma`, D = 40/80/160 at the UNet/ControlNet sites,
+//   8/16/32 at ControlNet-XS's 0.2x control stream; 64 and 128 also build).
+//   Each consumer warpgroup owns 64 query rows and
 //   keeps their logits, probabilities and output accumulator in registers:
 //   three consumers at 160 registers a thread where that fits (D <= 64: BQ
 //   = 192, so each K/V tile serves more rows), else two at 240 (BQ = 128).
@@ -54,6 +55,12 @@
 //   product's N is D + 8: column D of V holds ones, written once per block,
 //   so column D of O is the row sum of the bf16 P; the CUDA cores do no row
 //   sums.
+//   D = 8/16/32 (rows of 16, 32 and 64 bytes, no full box) take the same
+//   path: K and V arrive in one tail box of D columns, Q in a 64-column box
+//   of zeros past D, and the QK product runs over D rounded up to the
+//   16-wide k-step (16 at D = 8) against zeros; no k-step or box reaches past
+//   D into the next head's q/k/v columns of the fused projection, because
+//   every tensor map's innermost size is D.
 // * D = 512 (`flash_fwd_wide`, the VAE). A 64 x 512 fp32 accumulator does
 //   not fit one warpgroup's registers, so the output is split by D: both
 //   consumer warpgroups own the block's 64 query rows and one 256-wide half
@@ -241,7 +248,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[NO], const float (&l
 }
 
 // ---------------------------------------------------------------------------
-// D <= 160: D = 40, 64, 80, 128, 160
+// D <= 160: D = 8, 16, 32, 40, 64, 80, 128, 160
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -553,7 +560,13 @@ extern "C" int ctrlora_flash_fwd(const void* q, const void* k, const void* v, vo
   const float sl2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (D == 40) {
+  if (D == 8) {
+    err = launch_wgmma<8>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 16) {
+    err = launch_wgmma<16>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 32) {
+    err = launch_wgmma<32>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
+  } else if (D == 40) {
     err = launch_wgmma<40>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
   } else if (D == 64) {
     err = launch_wgmma<64>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);

@@ -56,7 +56,13 @@
 // bytes, as the forward found). The contraction over D pads only to 48 /
 // 80 / 160; the N = D products use m64n40 / n80 / n160 wgmma directly.
 //
-// Head dims 40, 80 and 160 (the finetune step's three sites). The register
+// Head dims 40, 80 and 160 (the finetune step's three sites) and 8, 16 and
+// 32 (ControlNet-XS's control stream, whose heads are 16 to 64 bytes wide:
+// the owned rows arrive in a 64-column box of zeros past D, the streamed
+// ones in a tail box of D columns, the contraction over D pads to the
+// 16-wide k-step, and dQ, dK and dV are stored D columns a row, so no
+// product or store reaches the next head's columns of a fused
+// [B, S, 3*H*D] gradient). The register
 // budget is what shapes them: a consumer thread holds dK and dV for its
 // warpgroup's 64 rows as D/2 + D/2 fp32 accumulators, beside two buffers of
 // S^T and dP^T (T/2 each) and their bf16 fragments. Up to D = 80 each
@@ -498,6 +504,9 @@ cudaError_t launch(const Operand (&x)[2], const Operand (&y)[2], const BwdArgs& 
 template <bool DKV>
 cudaError_t dispatch(int D, const Operand (&x)[2], const Operand (&y)[2], const BwdArgs& a, int B,
                      cudaStream_t s) {
+  if (D == 8) return launch<8, DKV>(x, y, a, B, s);
+  if (D == 16) return launch<16, DKV>(x, y, a, B, s);
+  if (D == 32) return launch<32, DKV>(x, y, a, B, s);
   if (D == 40) return launch<40, DKV>(x, y, a, B, s);
   if (D == 80) return launch<80, DKV>(x, y, a, B, s);
   if (D == 160) return launch<160, DKV>(x, y, a, B, s);
@@ -564,7 +573,10 @@ extern "C" int ctrlora_flash_bwd_dkv(const void* q, const void* k, const void* v
 // and dV are split over the warpgroups (dkv != 0: the dK/dV kernel)
 extern "C" int ctrlora_flash_bwd_config(int D, int dkv, int* out) {
   using namespace ctrlora;
-  if (D == 40) dkv ? config<40, true>(out) : config<40, false>(out);
+  if (D == 8) dkv ? config<8, true>(out) : config<8, false>(out);
+  else if (D == 16) dkv ? config<16, true>(out) : config<16, false>(out);
+  else if (D == 32) dkv ? config<32, true>(out) : config<32, false>(out);
+  else if (D == 40) dkv ? config<40, true>(out) : config<40, false>(out);
   else if (D == 80) dkv ? config<80, true>(out) : config<80, false>(out);
   else if (D == 160) dkv ? config<160, true>(out) : config<160, false>(out);
   else return static_cast<int>(cudaErrorInvalidValue);

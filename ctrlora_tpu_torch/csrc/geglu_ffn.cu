@@ -36,8 +36,11 @@
 //   (84 MB at the 64^2 site, written and read once; at 16^2 and 8^2 it stays
 //   in L2). BN = 128 (N = 256, 128 accumulator registers a thread) where that
 //   fills the waves, BN = 64 at the 8^2 site (320 tiles, not 160, on 132 SMs).
-// * `geglu_down`: y = h W2^T + b2 in 128 x 160 tiles (160 divides every
-//   SD1.5 width). Where the tiles would not fill the SMs (the 8^2 site: 32
+// * `geglu_down<BN>`: y = h W2^T + b2 in 128 x BN tiles, BN = 160 at the
+//   SD1.5 widths (160 divides each), 64 at C = 64 and 128 at C = 128 and 256
+//   (ControlNet-XS's control stream, which 160 does not divide; the plan
+//   picks the first of 160, 128, 64 that divides C). Where the tiles would
+//   not fill the SMs (the 8^2 site: 32
 //   tiles, K = F = 5120) the K range splits: each split writes its fp32
 //   partial tile to a workspace, and the last of a tile's splits to arrive
 //   (a self-resetting counter per tile) sums the partials in split order
@@ -57,10 +60,13 @@
 // nothing. The split counters are shared by launches on one device: two
 // concurrent split launches (two streams) would need their own.
 //
-// Numerics (the TPU kernels' and the plain version's rounding points):
-// both products accumulate in fp32; a + b1 is rounded to bf16 before the
-// gate; g + b1 stays fp32 into gelu, whose value is rounded to bf16; the
-// product is rounded to bf16 (h); b2 is added in fp32 and y rounded once.
+// Numerics (the plain version's rounding points, and the TPU resident
+// kernel's): both products accumulate in fp32; a + b1 and g + b1 are
+// rounded to bf16 before the gate (the [rows, 2F] pre-activation in bf16;
+// the TPU's blocked kernel, C = 1280, kept g in fp32, which put single
+// outputs at C = 64 outside the kernel check's tolerance); gelu's value is
+// rounded to bf16; the product is rounded to bf16 (h); b2 is added in fp32
+// and y rounded once.
 // erf is the TPU kernel's polynomial (no branch, unlike erff), and the bf16
 // roundings inside the gate are done on the integer bits: both shorten the
 // gate's instruction stream.
@@ -108,8 +114,9 @@ struct UpCfg : Ring<BOX_A + 2 * BN * W * 2, 2 * (BN / 64) * BOX_OUT> {
   static constexpr int SLOT = (BN / 64) * BOX_OUT;
 };
 
-struct DownCfg : Ring<BOX_A + 160 * W * 2> {
-  static constexpr int BN = 160;
+template <int BN_>
+struct DownCfg : Ring<BOX_A + BN_ * W * 2> {
+  static constexpr int BN = BN_;
 };
 
 template <int ST>
@@ -202,7 +209,8 @@ __device__ __forceinline__ void gate_to_slot(const float (&d)[BN], const bf16* _
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float av = d[4 * (j + jj) + 2 * r + e] + (e ? ba.y : ba.x);
-          const float gv = d[4 * (j + jj + BN / 8) + 2 * r + e] + (e ? bg.y : bg.x);
+          const float gv =
+              round_bf16(d[4 * (j + jj + BN / 8) + 2 * r + e] + (e ? bg.y : bg.x));
           v[e] = round_bf16(av) * round_bf16(0.5f * gv * (1.f + erf_as(gv * 0.70710678118654752f)));
         }
         p[2 * jj + r] = as_u32(__floats2bfloat162_rn(v[0], v[1]));
@@ -284,11 +292,12 @@ geglu_up(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtenso
 // y = h W2^T + b2, the K range optionally split
 // ---------------------------------------------------------------------------
 
+template <int BN_>
 __global__ void __launch_bounds__(THREADS, 1)
 geglu_down(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tw2,
            const bf16* __restrict__ b2, bf16* __restrict__ y, float* __restrict__ ws,
            int* __restrict__ counters, int rows, int C, int F, int split) {
-  using G = DownCfg;
+  using G = DownCfg<BN_>;
   constexpr int ST = G::STAGES, BN = G::BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
@@ -322,7 +331,7 @@ geglu_down(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUten
 
   const int cw = threadIdx.x / 128, w = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const uint32_t base = smem_u32(smem);
-  float d[BN / 2];  // m64n160: columns 8j + 2t.. in d[4j..]
+  float d[BN / 2];  // m64nBN: columns 8j + 2t.. in d[4j..]
   int it = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int tile = u / split, ks = u % split;
@@ -433,6 +442,25 @@ cudaError_t launch_up(const void* x, const void* w1, const void* b1, void* h, in
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_down(const void* h, const void* w2, const void* b2, void* y, void* ws,
+                        void* counters, int rows, int C, int F, int split, int grid,
+                        cudaStream_t stream) {
+  using G = DownCfg<BN>;
+  if (C % BN != 0) return cudaErrorInvalidValue;
+  CUtensorMap th, tw2;
+  cudaError_t err = cached_map(&th, h, rows, F, F, BM);
+  if (err == cudaSuccess) err = cached_map(&tw2, w2, C, F, F, BN);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(geglu_down<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::BYTES);
+  if (err != cudaSuccess) return err;
+  geglu_down<BN><<<grid, THREADS, G::BYTES, stream>>>(
+      th, tw2, static_cast<const bf16*>(b2), static_cast<bf16*>(y), static_cast<float*>(ws),
+      static_cast<int*>(counters), rows, C, F, split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ctrlora
 
@@ -457,23 +485,24 @@ extern "C" int ctrlora_geglu_up(const void* x, const void* w1, const void* b1, v
 
 // y [rows, C] = h W2^T + b2 with w2 [C, F]; split: K splits (a divisor of
 // F / 64), ws: fp32 [split, rows, C] and counters: int32 [tiles], zero, when
-// split > 1
+// split > 1; bn: output columns of a tile (160, 128 or 64, dividing C)
 extern "C" int ctrlora_geglu_down(const void* h, const void* w2, const void* b2, void* y,
                                   void* ws, void* counters, int rows, int C, int F, int split,
-                                  int grid, void* stream) {
+                                  int grid, int bn, void* stream) {
   using namespace ctrlora;
-  using G = DownCfg;
-  if (rows <= 0 || grid <= 0 || C % G::BN != 0 || F % W != 0 || split < 1 ||
-      (F / W) % split != 0 || (split > 1 && (ws == nullptr || counters == nullptr)))
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || grid <= 0 || F % W != 0 || split < 1 || (F / W) % split != 0 ||
+      (split > 1 && (ws == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap th, tw2;
-  cudaError_t err = cached_map(&th, h, rows, F, F, BM);
-  if (err == cudaSuccess) err = cached_map(&tw2, w2, C, F, F, G::BN);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(geglu_down, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  geglu_down<<<grid, THREADS, G::BYTES, static_cast<cudaStream_t>(stream)>>>(
-      th, tw2, static_cast<const bf16*>(b2), static_cast<bf16*>(y), static_cast<float*>(ws),
-      static_cast<int*>(counters), rows, C, F, split);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (bn == 160) {
+    err = launch_down<160>(h, w2, b2, y, ws, counters, rows, C, F, split, grid, s);
+  } else if (bn == 128) {
+    err = launch_down<128>(h, w2, b2, y, ws, counters, rows, C, F, split, grid, s);
+  } else if (bn == 64) {
+    err = launch_down<64>(h, w2, b2, y, ws, counters, rows, C, F, split, grid, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

@@ -30,7 +30,7 @@ from torch import nn
 
 from ctrlora_tpu_torch.configs import LoRAConfig
 from ctrlora_tpu_torch.models.layers import (
-    CL, Conv, Dense, GroupNorm32, LayerNorm32, LoraIdx, has_lora, n_banks,
+    CL, Conv, Dense, GroupNorm32, LayerNorm32, LoraIdx, has_lora, n_banks, zero_,
 )
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
@@ -138,7 +138,7 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out, plus
-    the input (use_linear=False)."""
+    the input (use_linear=False). proj_out starts at zero, as in JAX."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, use_flash: bool = True,
@@ -151,7 +151,7 @@ class SpatialTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 inner, heads, dim_head, context_dim, use_flash=use_flash, lora=lora))
-        self.proj_out = Conv(inner, channels, kernel_size=1)
+        self.proj_out = zero_(Conv(inner, channels, kernel_size=1))
 
     def forward(self, x, context, lora_idx: LoraIdx = None):
         b, c, hh, ww = x.shape

@@ -100,6 +100,14 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+def zero_(layer: nn.Module) -> nn.Module:
+    """Zero a layer's weight and bias in place: the JAX package's zeros
+    kernel_init (its biases start at zero everywhere)."""
+    nn.init.zeros_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 def _affine(channels: int, n_banks: int):
     """Norm affine parameters: [C], or an [n_banks, C] switchable bank."""
     shape = (n_banks, channels) if n_banks > 0 else (channels,)
@@ -108,14 +116,15 @@ def _affine(channels: int, n_banks: int):
 
 class ZeroConv(Conv):
     """A control tap's 1x1 conv, zero-initialised as JAX's (so a fresh
-    control branch adds nothing); with ``n_banks`` its weight [n, co, ci,
-    1, 1] and bias [n, co] are a switchable bank selected per call by
-    ``bank_idx`` (the JAX ``ZeroConv``)."""
+    control branch adds nothing), `channels` in and `out_channels` (default
+    `channels`) out; with ``n_banks`` its weight [n, co, ci, 1, 1] and bias
+    [n, co] are a switchable bank selected per call by ``bank_idx`` (the
+    JAX ``ZeroConv``)."""
 
-    def __init__(self, channels: int, n_banks: int = 0):
-        super().__init__(channels, channels, kernel_size=1)
-        nn.init.zeros_(self.weight)
-        nn.init.zeros_(self.bias)
+    def __init__(self, channels: int, n_banks: int = 0, out_channels: Optional[int] = None):
+        super().__init__(channels, channels if out_channels is None else out_channels,
+                         kernel_size=1)
+        zero_(self)
         self.n_banks = n_banks
         if n_banks:
             self.weight = nn.Parameter(self.weight.detach()[None].repeat(n_banks, 1, 1, 1, 1))
@@ -194,7 +203,9 @@ class ResBlock(nn.Module):
     """UNet residual block. The emb_proj row ([B, C] from ``emb``, or the
     precomputed [1, C] ``emb_row`` of the samplers) folds into out_norm's
     statistics instead of being added to h; its gradient flows back through
-    the GroupNorm's add_row. emb_proj is a LoRA site in the control branch."""
+    the GroupNorm's add_row. emb_proj is a LoRA site in the control branch.
+    out_conv starts at zero, as in JAX, so a fresh block is the identity
+    (or its skip conv)."""
 
     def __init__(self, cin: int, cout: int, emb_dim: int, lora: Optional[LoRAConfig] = None):
         super().__init__()
@@ -202,7 +213,7 @@ class ResBlock(nn.Module):
         self.in_conv = Conv(cin, cout)
         self.emb_proj = Dense(emb_dim, cout, lora=lora)
         self.out_norm = GroupNorm32(cout, silu=True)
-        self.out_conv = Conv(cout, cout)
+        self.out_conv = zero_(Conv(cout, cout))
         self.skip = Conv(cin, cout, kernel_size=1) if cin != cout else None
 
     def forward(self, x, emb=None, emb_row=None, lora_idx: LoraIdx = None):

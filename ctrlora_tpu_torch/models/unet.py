@@ -26,7 +26,7 @@ from ctrlora_tpu_torch.configs import ControlNetConfig, LoRAConfig, UNetConfig
 from ctrlora_tpu_torch.models.attention import SpatialTransformer
 from ctrlora_tpu_torch.models.layers import (
     CL, Conv, Downsample, GroupNorm32, LoraIdx, ResBlock, TimestepEmbed, Upsample, ZeroConv,
-    n_banks,
+    n_banks, zero_,
 )
 
 
@@ -107,6 +107,21 @@ def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
     return ch
 
 
+def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int) -> None:
+    """Adds the out_{i}_* blocks on an encoder of output width `ch`, then
+    norm_out and the zero-initialised conv_out."""
+    emb_dim = 4 * cfg.model_channels
+    for i, step in enumerate(decoder_plan(cfg)):
+        module.add_module(f"out_{i}_res", ResBlock(ch + step.skip_ch, step.out_ch, emb_dim))
+        ch = step.out_ch
+        if step.attn:
+            module.add_module(f"out_{i}_attn", _attn(cfg, ch))
+        if step.upsample:
+            module.add_module(f"out_{i}_up", Upsample(ch, ch))
+    module.norm_out = GroupNorm32(ch, silu=True)
+    module.conv_out = zero_(Conv(ch, cfg.out_channels))
+
+
 def _block(cfg: UNetConfig, block: nn.Module, *args):
     """Run a ResBlock or SpatialTransformer, rematerialised in the backward
     when cfg.use_checkpoint is set and grad is enabled."""
@@ -126,23 +141,14 @@ class UNet(nn.Module):
     skips (consumed in reverse) and 12 onto the middle output; with
     'encoder' (ControlNet-Lite) 0..11 add onto the encoder blocks' outputs
     as they are made, and 12 onto the middle. ``only_mid_control`` keeps
-    the middle tap only (decoder mode)."""
+    the middle tap only (decoder mode). ``conv_out`` starts at zero, as in
+    JAX: a fresh UNet outputs exactly 0."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
         self.time_embed = TimestepEmbed(cfg.model_channels)
-        ch = _build_encoder(self, cfg, cfg.in_channels)
-        emb_dim = 4 * cfg.model_channels
-        for i, step in enumerate(decoder_plan(cfg)):
-            self.add_module(f"out_{i}_res", ResBlock(ch + step.skip_ch, step.out_ch, emb_dim))
-            ch = step.out_ch
-            if step.attn:
-                self.add_module(f"out_{i}_attn", _attn(cfg, ch))
-            if step.upsample:
-                self.add_module(f"out_{i}_up", Upsample(ch, ch))
-        self.norm_out = GroupNorm32(ch, silu=True)
-        self.conv_out = Conv(ch, cfg.out_channels)
+        _build_decoder(self, cfg, _build_encoder(self, cfg, cfg.in_channels))
 
     def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
                 emb_rows: Optional[dict] = None, only_mid_control: bool = False,
@@ -205,9 +211,7 @@ class HintBlock(nn.Module):
         for i, (width, stride) in enumerate(HINT_WIDTHS):
             self.add_module(f"conv_{i}", Conv(cin, width, stride=stride))
             cin = width
-        self.conv_out = Conv(cin, model_channels)
-        nn.init.zeros_(self.conv_out.weight)
-        nn.init.zeros_(self.conv_out.bias)
+        self.conv_out = zero_(Conv(cin, model_channels))
 
     def forward(self, hint: torch.Tensor, dtype) -> torch.Tensor:
         """hint [B, H, W, c] -> NCHW channels-last [B, model_channels, H/8, W/8]."""

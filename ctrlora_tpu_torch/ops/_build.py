@@ -68,8 +68,8 @@ _ENTRIES = {
     # x, w1 [2F, C], b1, h [rows, F], rows, C, F, up tile width, grid, stream
     "ctrlora_geglu_up": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # h, w2 [C, F], b2, y, split workspace, split counters, rows, C, F,
-    # split, grid, stream
-    "ctrlora_geglu_down": [_P] * 6 + [_I] * 5 + [_P],
+    # split, grid, down tile width, stream
+    "ctrlora_geglu_down": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

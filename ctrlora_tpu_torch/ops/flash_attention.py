@@ -2,7 +2,7 @@
 their plain versions, and the autograd Functions that join them.
 
 Kernel B of the port (``csrc/flash_attention.cu``, wgmma on TMA-loaded
-tiles for sm_90a: ``flash_fwd_wgmma`` at D = 40/64/80/128/160,
+tiles for sm_90a: ``flash_fwd_wgmma`` at D = 8/16/32/40/64/80/128/160,
 ``flash_fwd_wide`` at D = 512) replaces the TPU forward kernels
 ``ctrlora_tpu/ops/flash_attention.py`` ``_fwd_kernel_packed_qkv`` (UNet/
 ControlNet self-attention read straight from the fused [B, S, 3*H*D]
@@ -53,7 +53,8 @@ from ctrlora_tpu_torch.ops import _build, kernel_flags
 
 LOG2E = 1.4426950408889634
 KERNEL_DTYPES = (torch.bfloat16,)  # the operand dtypes the kernels take
-BWD_HEAD_DIMS = (40, 80, 160)  # the backward kernels' instantiations (the finetune sites)
+# the backward kernels' instantiations: the finetune sites, and the XS control stream's
+BWD_HEAD_DIMS = (8, 16, 32, 40, 80, 160)
 BWD_SEQ_MULTIPLE = 128  # Sq and Sk must be multiples of it for the backward kernels
 TMA_BOX = 64  # columns of a full TMA box (128 bf16 bytes)
 
@@ -319,13 +320,14 @@ def _check_aligned(what: str, ptrs, strides, d: int) -> None:
                          f"{[p % 16 for p in ptrs]}, strides {list(strides)})")
 
 
-FORWARD_HEAD_DIMS = (40, 64, 80, 128, 160, 512)  # the forward kernel's instantiations
+FORWARD_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128, 160, 512)  # the forward kernel's instantiations
 
 
 def forward_tiles(d: int) -> Optional[Tuple[int, int]]:
     """(query rows, keys) that Sq and Sk must be multiples of for the
     forward kernel at head dim d, or None where it has no instantiation:
-    D = 40/80/160 (the UNet/ControlNet sites), 64, 128 and 512 (the VAE)."""
+    D = 40/80/160 (the UNet/ControlNet sites), 8/16/32 (ControlNet-XS's
+    control stream), 64, 128 and 512 (the VAE)."""
     if d not in FORWARD_HEAD_DIMS:
         return None
     return (64, 32) if d == 512 else (128, 128)
@@ -661,8 +663,11 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
 
 def _hpack_ok(heads: int, dim_head: int) -> bool:
     """The JAX rule for the head-pair kernel: hpack=N with N >= 2, an even
-    head count and a pair no wider than 128."""
-    return (kernel_flags.flags().head_pack or 1) > 1 and heads % 2 == 0 and 2 * dim_head <= 128
+    head count and a pair no wider than 128; and a head dim B6 is built for
+    (40, 64). JAX's rule also takes D = 8/16/32 (ControlNet-XS's control
+    stream, under hpack=2 and qkvpack=0 only): those take B's BSHD entry."""
+    return ((kernel_flags.flags().head_pack or 1) > 1 and heads % 2 == 0
+            and 2 * dim_head <= 128 and dim_head in HPACK2_HEAD_DIMS)
 
 
 def dot_product_attention_bshd(q, k, v, scale: Optional[float] = None,

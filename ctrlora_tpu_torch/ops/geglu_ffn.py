@@ -25,9 +25,10 @@ import torch.nn.functional as F
 
 from ctrlora_tpu_torch.ops import _build
 
-KERNEL_WIDTHS = (320, 640, 1280)  # the SD1.5 transformer widths the kernel is built for
+# the transformer widths the kernels take: SD1.5's, and ControlNet-XS's 0.2x control stream
+KERNEL_WIDTHS = (64, 128, 256, 320, 640, 1280)
 BM = 128        # rows of a tile of either launch
-BN_DOWN = 160   # output columns of a down tile (divides every kernel width)
+DOWN_TILES = (160, 128, 64)  # a down tile's output columns: the first that divides C
 K_BOX = 64      # columns of one TMA box: the unit of the K loops and of F
 H100_SMS = 132
 # a tile's fixed cost in the plan's units: F columns (up), K boxes (down)
@@ -38,8 +39,8 @@ UP_FIXED, DOWN_FIXED = 32, 4
 class GegluPlan:
     """The tiling of one call. Up: tiles of BM rows by ``bn_up`` columns of
     F (unit u is tile (u // n_up, u % n_up)); down: tiles of BM rows by
-    BN_DOWN output columns, each K range cut into ``split`` parts (unit u is
-    part u % split of tile u // split). Each launch runs ``*_grid``
+    ``bn_down`` output columns, each K range cut into ``split`` parts (unit
+    u is part u % split of tile u // split). Each launch runs ``*_grid``
     persistent blocks, block b taking units b, b + grid, ..."""
     bn_up: int
     up_units: int
@@ -48,6 +49,7 @@ class GegluPlan:
     down_tiles: int
     down_units: int
     down_grid: int
+    bn_down: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -55,20 +57,24 @@ def geglu_plan(rows: int, c: int, f: int, sms: int = H100_SMS) -> GegluPlan:
     """Tiling for rows x C x F on `sms` SMs that minimises the busiest SM's
     work: its units (ceil(units / sms)) times a unit's work plus a fixed cost
     (filling the ring, the epilogue). Up: 128 columns of F a tile (F % 128 ==
-    0) or 64, costed in columns plus UP_FIXED. Down: the split of the F / 64
-    boxes of K (a divisor), costed in boxes plus DOWN_FIXED; ties go to the
-    wider tile and the smaller split."""
+    0) or 64, costed in columns plus UP_FIXED. Down: tiles of the first of
+    DOWN_TILES that divides C, and the split of the F / 64 boxes of K (a
+    divisor), costed in boxes plus DOWN_FIXED; ties go to the wider tile
+    and the smaller split."""
     m = -(-rows // BM)
     busiest = lambda units, work: -(-units // sms) * work
     costs = {bn: busiest(m * (f // bn), bn + UP_FIXED) for bn in (128, 64) if f % bn == 0}
     bn_up = min(costs, key=costs.get)
-    tiles = m * (c // BN_DOWN)
+    bn_down = next((bn for bn in DOWN_TILES if c % bn == 0), None)
+    if bn_down is None:
+        raise ValueError(f"geglu_plan: no down tile of {DOWN_TILES} divides C = {c}")
+    tiles = m * (c // bn_down)
     nk = f // K_BOX
     split = min((s for s in range(1, nk + 1) if nk % s == 0),
                 key=lambda s: busiest(tiles * s, nk // s + DOWN_FIXED))
     up_units = m * (f // bn_up)
     return GegluPlan(bn_up, up_units, min(up_units, sms), split, tiles, tiles * split,
-                     min(tiles * split, sms))
+                     min(tiles * split, sms), bn_down)
 
 
 def geglu_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -88,8 +94,9 @@ def geglu_ffn_work(rows: int, c: int, f: int, itemsize: int = 2,
 
 
 def geglu_shapes_ok(x, w1, b1, w2, b2) -> bool:
-    """Static dispatch rule: the kernel serves the SD1.5 widths with F a
-    multiple of its 64-wide box; other shapes take the plain version."""
+    """Static dispatch rule: the kernel serves the SD1.5 widths and
+    ControlNet-XS's (KERNEL_WIDTHS) with F a multiple of its 64-wide box;
+    other shapes take the plain version."""
     c = x.shape[-1]
     f2 = w1.shape[0]
     return (c in KERNEL_WIDTHS and f2 % 128 == 0 and w1.shape == (f2, c)
@@ -140,7 +147,7 @@ def launch_down(h, w2, b2, out, plan: GegluPlan) -> None:
         split_ptrs = (ws.data_ptr(), _split_counters(h.device, plan.down_tiles).data_ptr())
     code = _build.cuda_lib().ctrlora_geglu_down(
         h.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), *split_ptrs, rows, c, f,
-        plan.split, plan.down_grid, _build.stream_ptr(h.device))
+        plan.split, plan.down_grid, plan.bn_down, _build.stream_ptr(h.device))
     _build.check(code, "geglu_ffn down")
 
 

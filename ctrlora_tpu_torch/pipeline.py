@@ -4,7 +4,11 @@
 The control branch is built by ``cfg.control.variant`` (``build_control``):
 'controlnet' is the ControlNet, latent-hint (CtrLoRA) or image-hint
 (vanilla ControlNet); 'lite' is ControlNet-Lite, whose taps add onto the
-UNet's encoder side. A LoRA ControlNet is the fused tree for serving
+UNet's encoder side; 'xs' is ControlNet-XS, whose control stream runs in
+one module with the base UNet (``models/xs.py``): the pipeline holds that
+XS UNet in place of its UNet and has no separate control module
+(``control`` is None), as JAX holds the XS tree in ``params.unet``. A LoRA
+ControlNet is the fused tree for serving
 (``lora_fuse``), or, with ``fuse_lora=False``, the unfused tree with its
 stacked LoRA adapters (and switchable banks), which training updates. A
 condition may carry its own control module (``Conditioning.control``: the
@@ -25,25 +29,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctrlora_tpu_torch.configs import XS_ITEM, ControlNetConfig, ModelConfig
+from ctrlora_tpu_torch.configs import ControlNetConfig, ModelConfig, UNetConfig
 from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel, encode_windowed
 from ctrlora_tpu_torch.models.layers import ResBlock, to_channels_last
 from ctrlora_tpu_torch.models.lite import ControlNetLite
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
+from ctrlora_tpu_torch.models.xs import XSUNet
 from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
 
 
-def build_control(cfg: ControlNetConfig, fuse_lora: bool = True) -> nn.Module:
+def build_control(cfg: ControlNetConfig, fuse_lora: bool = True,
+                  unet: Optional[UNetConfig] = None) -> nn.Module:
     """The control module of `cfg`'s variant, on the current default
-    device: ControlNet-Lite, or the ControlNet (its fused tree, without
-    LoRA parameters, unless ``fuse_lora`` is False)."""
+    device: ControlNet-Lite; the ControlNet (its fused tree, without LoRA
+    parameters, unless ``fuse_lora`` is False); or, for ControlNet-XS, the
+    XS UNet, both streams in one module, over the base UNet config `unet`
+    (default ``cfg.unet``), which the pipeline holds in place of its
+    UNet."""
     if cfg.variant == "lite":
         return ControlNetLite(cfg.unet, cfg.hint_channels)
     if cfg.variant == "xs":
-        raise NotImplementedError(f"ControlNet-XS is not ported yet: ROADMAP queue 1 {XS_ITEM}")
+        return XSUNet(cfg.unet if unet is None else unet, hint_channels=cfg.hint_channels,
+                      control_model_ratio=cfg.control_model_ratio,
+                      infusion2control=cfg.infusion2control, guiding=cfg.guiding,
+                      learn_embedding=cfg.learn_embedding)
     if cfg.variant != "controlnet":
         raise ValueError(f"unknown control variant {cfg.variant!r}")
     return ControlNet(fused_control_config(cfg) if fuse_lora else cfg)
@@ -68,16 +80,22 @@ class CtrLoraPipeline:
     mode, without gradients, in channels-last memory. ``fuse_lora=False``
     holds the unfused LoRA control tree (training) instead of the fused one
     (serving). ``control_mode`` is where the taps add onto the UNet:
-    'encoder' for ControlNet-Lite, else 'decoder'."""
+    'encoder' for ControlNet-Lite, else 'decoder'. With ControlNet-XS
+    (``is_xs``) ``unet`` is the XS UNet and ``control`` is None."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", fuse_lora: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
         self.fuse_lora = fuse_lora
+        self.is_xs = cfg.control.variant == "xs"
         self.control_mode = "encoder" if cfg.control.variant == "lite" else "decoder"
         with self.device:
-            self.unet = UNet(cfg.unet)
-            self.control = build_control(cfg.control, fuse_lora)
+            if self.is_xs:
+                self.unet = build_control(cfg.control, fuse_lora, unet=cfg.unet)
+                self.control = None
+            else:
+                self.unet = UNet(cfg.unet)
+                self.control = build_control(cfg.control, fuse_lora)
             self.vae = AutoencoderKL(cfg.vae)
             self.clip = CLIPTextModel(cfg.clip)
         for m in self.modules():
@@ -89,25 +107,36 @@ class CtrLoraPipeline:
     def new_control(self) -> nn.Module:
         """Another control module of the pipeline's kind (fused or not),
         built as the pipeline builds its own: a condition's own tree."""
+        if self.is_xs:
+            raise ValueError("ControlNet-XS has no separate control module: its control "
+                             "stream is part of the pipeline's XS UNet")
         with self.device:
             control = build_control(self.cfg.control, self.fuse_lora)
         return to_channels_last(control.eval().requires_grad_(False))
 
     def modules(self) -> List[nn.Module]:
-        return [self.unet, self.control, self.vae, self.clip]
+        """The UNet (or XS UNet), the control module where there is one, the
+        VAE and CLIP."""
+        return [m for m in (self.unet, self.control, self.vae, self.clip) if m is not None]
 
     def load_state_dicts(self, unet, control, vae, clip) -> None:
         """Load the four state dicts (``convert.params_from_jax`` layout; the
-        control dict fused, or unfused for ``fuse_lora=False``) with
-        strict=True."""
-        for module, sd in zip(self.modules(), (unet, control, vae, clip)):
-            module.load_state_dict(sd, strict=True)
+        control dict fused, or unfused for ``fuse_lora=False``; empty for
+        ControlNet-XS) with strict=True."""
+        if self.control is None and control:
+            raise ValueError("ControlNet-XS has no control module: its control stream's "
+                             "weights are in the UNet's state dict")
+        for module, sd in ((self.unet, unet), (self.control, control), (self.vae, vae),
+                           (self.clip, clip)):
+            if module is not None:
+                module.load_state_dict(sd, strict=True)
 
     def cast_for_inference(self) -> None:
         """Cast the UNet, ControlNet and VAE weights to their compute dtypes
         once and derive the fused projections; CLIP stays fp32."""
         cast_params_for_inference(self.unet, self.cfg.unet.compute_dtype)
-        cast_params_for_inference(self.control, self.cfg.control.unet.compute_dtype)
+        if self.control is not None:
+            cast_params_for_inference(self.control, self.cfg.control.unet.compute_dtype)
         cast_params_for_inference(self.vae, self.cfg.vae.compute_dtype)
 
     # ------------------------------------------------------------------
@@ -180,8 +209,9 @@ class CtrLoraPipeline:
         the step, so the sampler computes them once, not per step. Each
         condition's rows come from its own control module and its
         ``lora_idx`` (both are LoRA sites), as in JAX. None for
-        ControlNet-Lite, as in JAX: the UNet then embeds t in each call."""
-        if self.control_mode == "encoder":
+        ControlNet-Lite and ControlNet-XS, as in JAX: the UNet then embeds t
+        in each call."""
+        if self.is_xs or self.control_mode == "encoder":
             return None
 
         def branch(module, dtype, lora_idx=None):
@@ -232,7 +262,17 @@ class CtrLoraPipeline:
         [B, h, w, 4] fp32 for noisy latents. emb_rows: one step's rows of
         ``emb_proj_tables`` (t batch-uniform); control_scales: one factor
         per control tap (13 at SD1.5 width); control_batch_mask [B]: each
-        sample's control on (1) or off (0), guess mode's uncond half."""
+        sample's control on (1) or off (0), guess mode's uncond half.
+
+        ControlNet-XS: one fused two-stream forward on the first
+        condition's pixel hint, or the plain SD forward where there is no
+        condition (JAX's XS branch). JAX silently ignores the scales, the
+        mask, a condition's weight and any further condition there; the
+        port raises on a mask, on scales other than ones, on a weight other
+        than 1 and on more than one condition."""
+        if self.is_xs:
+            return self._apply_xs(x_noisy, t, context, conds, control_scales,
+                                  control_batch_mask)
         control = None
         if conds:
             control = self.apply_control(
@@ -245,3 +285,16 @@ class CtrLoraPipeline:
                          emb_rows=emb_rows["unet"] if emb_rows is not None else None,
                          only_mid_control=self.cfg.diffusion.only_mid_control,
                          control_mode=self.control_mode)
+
+    def _apply_xs(self, x_noisy, t, context, conds, control_scales, control_batch_mask):
+        if control_batch_mask is not None:
+            raise ValueError("ControlNet-XS takes no control_batch_mask (JAX ignores it)")
+        if control_scales is not None and any(float(s) != 1.0 for s in control_scales):
+            raise ValueError("ControlNet-XS takes no control_scales other than ones "
+                             "(JAX ignores them)")
+        conds = conds or []
+        if len(conds) > 1 or any(c.weight != 1.0 for c in conds):
+            raise ValueError("ControlNet-XS takes one condition at weight 1 (JAX uses the "
+                             "first condition's hint only)")
+        hint = conds[0].hint if conds else None
+        return self.unet(x_noisy, t, context, hint=hint, no_control=not conds)

@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora_ckpt", type=str, default=None,
                    help="a reference-format LoRA .ckpt, or the port trainer's ckpt_*.pt")
     p.add_argument("--config", type=str, default=None,
-                   help="preset name (default: ctrlora_finetune)")
+                   help="preset name or YAML file (default: ctrlora_finetune)")
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--lora_rank", type=int, default=128)
     p.add_argument("--n_samples", type=int, default=-1, help="-1 = all")

@@ -1,24 +1,28 @@
 """Baseline trainers with the PyTorch port: the vanilla image-hint
-ControlNet and ControlNet-Lite (counterpart of ``scripts/train_cn.py``;
-reference: scripts/train_cn.py, train_cnlite.py). The trainer of the
-CtrLoRA CLIs, with the pixel hint as the condition and every control
-parameter trainable (trainable='all'); the UNet stays frozen.
+ControlNet, ControlNet-Lite and ControlNet-XS (counterpart of
+``scripts/train_cn.py``; reference: scripts/train_cn.py, train_cnlite.py,
+train_cnxs.py). The trainer of the CtrLoRA CLIs, with the pixel hint as the
+condition and every control parameter trainable (trainable='all'); the UNet
+(XS: its base stream) stays frozen.
 
   python -m ctrlora_tpu_torch.scripts.train_cn --variant controlnet \\
       --dataroot data/mycondition --sd_ckpt ckpts/v1-5-pruned.ckpt \\
       --cn_ckpt ckpts/control_sd15_init.ckpt --bs 4 --gradacc 2 -n cn_mycondition
   python -m ctrlora_tpu_torch.scripts.train_cn --variant lite ...
+  python -m ctrlora_tpu_torch.scripts.train_cn --variant xs \\
+      --config configs/cnxs_sd15.yaml ...
 
-The flags are the JAX script's, with --config taking a preset name (no
-YAML), plus --device (default cuda; the script never falls back to the CPU,
-ask for it with --device cpu) and --log_every. --multigen20m reads
+The flags are the JAX script's, with --config taking a preset name or a
+YAML file (``configs.load_model_config``), plus --device (default cuda; the
+script never falls back to the CPU, ask for it with --device cpu) and
+--log_every. --multigen20m reads
 ``<dataroot>/json_files/aesthetics_plus_all_group_<task>_all.json``;
 --subset N trains on the first N examples. --cn_ckpt fills every control
-key but LoRA ones; what no file gives keeps the initialisation seeded with
---seed. Images are resized to 512^2 (``RESOLUTION``), as the reference
-trains the baselines. --variant xs, --tp > 1 and --shard_opt_state raise.
-``main`` is ``parse_args``, ``build_datasets`` (the files) and ``train``
-(the run on dataset objects).
+key but LoRA ones (XS: a file in TwoStreamControlNet's layout); what no
+file gives keeps the initialisation seeded with --seed. Images are resized
+to 512^2 (``RESOLUTION``), as the reference trains the baselines. --tp > 1
+and --shard_opt_state raise. ``main`` is ``parse_args``, ``build_datasets``
+(the files) and ``train`` (the run on dataset objects).
 """
 
 from __future__ import annotations
@@ -28,14 +32,14 @@ import os
 from typing import Optional, Sequence
 
 from ctrlora_tpu_torch.configs import (
-    XS_ITEM, ModelConfig, cnlite_config, load_model_config, sd15_config,
+    ModelConfig, cnlite_config, cnxs_config, load_model_config, sd15_config,
 )
 from ctrlora_tpu_torch.data.datasets import CustomDataset, MultiGen20M
 from ctrlora_tpu_torch.data.scheduler import SingleTaskSchedule
 from ctrlora_tpu_torch.scripts import train_common as common
 
 RESOLUTION = 512  # the image size of the baselines' training data
-PRESETS = {"controlnet": sd15_config, "lite": cnlite_config}
+PRESETS = {"controlnet": sd15_config, "lite": cnlite_config, "xs": cnxs_config}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", type=str, default=None)
     p.add_argument("--subset", type=int, default=0, help="train on the first N examples")
     p.add_argument("--config", type=str, default=None,
-                   help="preset name (default: the variant's, cldm_v15 or cnlite_sd15)")
+                   help="preset name or YAML file (default: the variant's preset, "
+                        "cldm_v15, cnlite_sd15 or cnxs_sd15)")
     common.add_common_flags(p, bs=1, max_steps=100_000, log_freq=1000, num_workers=16,
                             baseline=True)
     return p
@@ -60,9 +65,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def model_config(args: argparse.Namespace) -> ModelConfig:
-    if args.variant == "xs":
-        raise NotImplementedError(f"--variant xs: ControlNet-XS is not ported yet: ROADMAP "
-                                  f"queue 1 {XS_ITEM}")
     return load_model_config(args.config) if args.config else PRESETS[args.variant]()
 
 

@@ -11,8 +11,8 @@ scripts/train_ctrlora_finetune.py).
   python -m ctrlora_tpu_torch.scripts.train_ctrlora_finetune \\
       --multigen_json path/to/task.json --multigen_meta path/to/meta --task hed ...
 
-The flags are the JAX script's, with --config taking a preset name (no
-YAML), plus --device (default cuda; the script never falls back to the CPU,
+The flags are the JAX script's, with --config taking a preset name or a
+YAML file, plus --device (default cuda; the script never falls back to the CPU,
 ask for it with --device cpu) and --log_every. --resume takes a
 ``ckpt_*.pt`` of an earlier run and the loader resumes at its step;
 --cache_latents encodes a --dataroot dataset's VAE posterior moments once
@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multigen_meta", type=str)
     p.add_argument("--task", type=str, default=None)
     p.add_argument("--config", type=str, default=None,
-                   help="preset name (default: ctrlora_finetune)")
+                   help="preset name or YAML file (default: ctrlora_finetune)")
     p.add_argument("--ft_with_lora", action="store_true", default=True)
     p.add_argument("--no_lora", dest="ft_with_lora", action="store_false")
     p.add_argument("--norm_trainable", action="store_true", default=True)

@@ -10,8 +10,8 @@ task's LoRA bank, and the whole control branch trains (trainable='all').
       --tasks hed canny seg depth normal openpose hedsketch bbox outpainting \\
       --sd_ckpt ckpts/v1-5-pruned.ckpt --cn_ckpt ckpts/control_init.ckpt --bs 4
 
-The flags are the JAX script's, with --config taking a preset name (no
-YAML), plus --device (default cuda, no fallback to the CPU) and
+The flags are the JAX script's, with --config taking a preset name or a
+YAML file, plus --device (default cuda, no fallback to the CPU) and
 --log_every. --tasks sets the number of LoRA banks and ``cfg.tasks``
 (bank i trains on task i). ``main`` is ``parse_args``, ``build_datasets``
 (one MultiGen20M per task from ``aesthetics_plus_all_group_<task>_all.json``)
@@ -39,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meta_dir", type=str, required=True)
     p.add_argument("--tasks", nargs="+", default=list(MULTIGEN_TASKS))
     p.add_argument("--config", type=str, default=None,
-                   help="preset name (default: ctrlora_pretrain)")
+                   help="preset name or YAML file (default: ctrlora_pretrain)")
     common.add_common_flags(p, bs=4, max_steps=700_000, log_freq=10_000, num_workers=16)
     return p
 

@@ -11,8 +11,13 @@ the dotted parameter names, which carry the flax scope names:
   * trainable='full' - every control parameter except LoRA
 
 With sd_locked=False the UNet decoder (out_* blocks, norm_out, conv_out)
-trains too. Frozen parameters get ``requires_grad_(False)`` and AdamW never
-sees them, as in the reference; so no gradient is computed for them.
+trains too. ControlNet-XS (the pipeline's XS UNet, no control module)
+trains every parameter whose top-level name starts with ``ctrl_``,
+``enc_zero_``, ``dec_zero_``, ``mid_zero_`` or ``hint_block``, whatever the
+mode, and never its base stream (JAX ``unet_trainable(xs=True)``). Frozen
+parameters get ``requires_grad_(False)`` and AdamW never sees them, as in
+the reference; so no gradient is computed for them, while the gradient
+still flows through their activations (the XS base stream's too).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from ctrlora_tpu_torch.configs import TrainConfig
+from ctrlora_tpu_torch.models.xs import XS_TRAINABLE_PREFIXES
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
 from ctrlora_tpu_torch.training.ema import EmaState
 
@@ -54,14 +60,21 @@ def unet_trainable(name: str, cfg: TrainConfig) -> bool:
     return top.startswith("out_") or top in ("norm_out", "conv_out")
 
 
+def xs_trainable(name: str, cfg: TrainConfig) -> bool:
+    return name.split(".")[0].startswith(XS_TRAINABLE_PREFIXES)
+
+
 def branches(pipe: CtrLoraPipeline) -> Dict[str, nn.Module]:
-    return {"unet": pipe.unet, "control": pipe.control, "vae": pipe.vae, "clip": pipe.clip}
+    """The pipeline's modules by branch name (no 'control' for XS)."""
+    out = {"unet": pipe.unet, "control": pipe.control, "vae": pipe.vae, "clip": pipe.clip}
+    return {k: m for k, m in out.items() if m is not None}
 
 
 def trainable_mask(pipe: CtrLoraPipeline, cfg: TrainConfig) -> Mask:
     """{branch: {parameter name: True where it trains}}; VAE and CLIP are
     always frozen."""
-    rules = {"unet": unet_trainable, "control": control_trainable}
+    rules = {"unet": xs_trainable if pipe.is_xs else unet_trainable,
+             "control": control_trainable}
     return {branch: {name: branch in rules and rules[branch](name, cfg)
                      for name, _ in module.named_parameters()}
             for branch, module in branches(pipe).items()}

@@ -28,8 +28,11 @@ import numpy as np
 import torch
 
 from ctrlora_tpu_torch import convert
-from ctrlora_tpu_torch.configs import CLIPTextConfig, ControlNetConfig, UNetConfig, VAEConfig
+from ctrlora_tpu_torch.configs import (
+    CLIPTextConfig, ControlNetConfig, ModelConfig, UNetConfig, VAEConfig,
+)
 from ctrlora_tpu_torch.models.unet import decoder_plan, encoder_plan
+from ctrlora_tpu_torch.models.xs import control_config
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -190,6 +193,75 @@ def lite_entries(cfg: UNetConfig) -> List[Entry]:
     e += _conv("middle_block.2", ("mid_conv",))
     e += _conv("middle_block_out.0", ("zero_mid",))
     return e + _hint_block()
+
+
+XS_BASE_PREFIX, XS_CTRL_PREFIX = "base.", "control_model."
+
+
+def xs_entries(cfg: UNetConfig, ratio: float = 0.2, infusion2control: Optional[str] = "cat",
+               guiding: str = "encoder_double", learn_embedding: bool = False) -> List[Entry]:
+    """ControlNet-XS table (the port's copy of JAX ``models/xs.py``
+    ``xs_entries``): the base stream under ``XS_BASE_PREFIX`` in the UNet's
+    layout; the control stream under ``XS_CTRL_PREFIX``, and the zero convs and
+    the hint encoder at the root, in TwoStreamControlNet's layout
+    (reference cldm_xs.py:129-262). Without infusion2control there are no
+    enc_zero_in convs, and no entries for them."""
+    e = [(XS_BASE_PREFIX + t, f, k) for t, f, k in unet_entries(cfg)]
+    ctr_cfg = control_config(cfg, ratio)
+    if learn_embedding:
+        e += _linear(f"{XS_CTRL_PREFIX}time_embed.0", ("ctrl_time_embed", "dense0"))
+        e += _linear(f"{XS_CTRL_PREFIX}time_embed.2", ("ctrl_time_embed", "dense1"))
+    steps = encoder_plan(ctr_cfg)[0]
+    cat = infusion2control == "cat"
+    in_ch = ctr_cfg.model_channels
+    for i, step in enumerate(steps):
+        t = f"{XS_CTRL_PREFIX}input_blocks.{i}"
+        if step.kind == "conv":
+            e += _conv(f"{t}.0", ("ctrl_in_conv",))
+        elif step.kind == "res":
+            e += _resblock(f"{t}.0", f"ctrl_in_{i}_res", cat or in_ch != step.out_ch)
+            if step.attn:
+                e += _transformer(f"{t}.1", f"ctrl_in_{i}_attn", cfg.transformer_depth)
+            in_ch = step.out_ch
+        else:
+            e += _conv(f"{t}.0.op", (f"ctrl_in_{i}_down", "conv"))
+    e += _resblock(f"{XS_CTRL_PREFIX}middle_block.0", "ctrl_mid_res0", cat)
+    e += _transformer(f"{XS_CTRL_PREFIX}middle_block.1", "ctrl_mid_attn", cfg.transformer_depth)
+    e += _resblock(f"{XS_CTRL_PREFIX}middle_block.2", "ctrl_mid_res1", False)
+    if guiding == "full":  # the control decoder (ControlledUNetModelFixed output_blocks)
+        for i, step in enumerate(decoder_plan(ctr_cfg)):
+            t = f"{XS_CTRL_PREFIX}output_blocks.{i}"
+            e += _resblock(f"{t}.0", f"ctrl_out_{i}_res", True)
+            nxt = 1
+            if step.attn:
+                e += _transformer(f"{t}.{nxt}", f"ctrl_out_{i}_attn", cfg.transformer_depth)
+                nxt += 1
+            if step.upsample:
+                e += _conv(f"{t}.{nxt}.conv", (f"ctrl_out_{i}_up", "conv"))
+    for i in range(len(steps)):
+        if infusion2control is not None:  # JAX's table lists them even without infusion
+            e += _conv(f"enc_zero_convs_in.{i}.0", (f"enc_zero_in_{i}",))
+        if guiding in ("encoder_double", "full"):
+            e += _conv(f"enc_zero_convs_out.{i}.0", (f"enc_zero_out_{i}",))
+    e += _conv("middle_block_out.0", ("mid_zero_out",))
+    if guiding == "full":
+        e += _conv("middle_block_in.0", ("mid_zero_in",))
+        for i in range(len(decoder_plan(ctr_cfg)) - 1):
+            e += _conv(f"dec_zero_convs_out.{i}.0", (f"dec_zero_out_{i}",))
+            e += _conv(f"dec_zero_convs_in.{i}.0", (f"dec_zero_in_{i}",))
+    else:
+        for i in range(len(steps)):
+            e += _conv(f"dec_zero_convs_out.{i}.0", (f"dec_zero_out_{i}",))
+    return e + _hint_block()
+
+
+def xs_control_entries(cfg: ModelConfig) -> List[Entry]:
+    """The table of an XS model's control file: ``xs_entries`` without the
+    base stream (the SD file's), at the knobs of ``cfg.control``."""
+    c = cfg.control
+    return [e for e in xs_entries(cfg.unet, c.control_model_ratio, c.infusion2control,
+                                  c.guiding, c.learn_embedding)
+            if not e[0].startswith(XS_BASE_PREFIX)]
 
 
 def control_entries(cfg: ControlNetConfig) -> List[Entry]:

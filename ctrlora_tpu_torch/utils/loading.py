@@ -4,7 +4,10 @@ LoRAs -> the four state dicts (counterpart of ``ctrlora_tpu/utils/loading.py``).
 The reference's three-stage partial load:
   1. the SD checkpoint fills the UNet, VAE and CLIP;
   2. the Base-ControlNet checkpoint fills the control branch's base weights,
-     skipping the LoRA, zero-conv and norm keys (``check_key``);
+     skipping the LoRA, zero-conv and norm keys (``check_key``); for
+     ControlNet-XS, a control file in TwoStreamControlNet's layout
+     (``ckpt_torch.xs_control_entries``) fills the XS UNet's control stream,
+     zero convs and hint encoder;
   3. LoRA checkpoint i fills bank slot i: its LoRA matrices, and its zero
      convs and transformer norms (switchable banks).
 
@@ -73,6 +76,11 @@ def load_basecn_into(cfg, states: States, sd: Dict[str, np.ndarray], skip: str =
         keep = lambda k: "lora" not in k
     else:
         raise ValueError(f"skip must be 'slots' or 'lora', got {skip!r}")
+    if cfg.control.variant == "xs":  # the control keys of the XS tree, into the XS UNet
+        sd = {k: v for k, v in sd.items() if keep(k)}
+        tree, _ = bridge.convert_tree(sd, bridge.xs_control_entries(cfg), strict=False)
+        _merge(states.unet, tree)
+        return
     sd = {k: v for k, v in sd.items() if k.startswith(pfx) and keep(k[len(pfx):])}
     tree, _ = bridge.convert_tree(sd, bridge.control_entries(cfg.control), prefix=pfx,
                                   strict=False)
@@ -108,8 +116,8 @@ def load_ctrlora(pipe: CtrLoraPipeline, sd_file: Optional[str] = None,
     if pipe.fuse_lora and cfg.control.lora.n_loras > 0:
         with pipe.device:  # initialised where the pipeline lives (fast on a card)
             control = build_control(cfg.control, fuse_lora=False)
-    states = States(_cpu_state(pipe.unet), _cpu_state(control), _cpu_state(pipe.vae),
-                    _cpu_state(pipe.clip))
+    states = States(_cpu_state(pipe.unet), {} if control is None else _cpu_state(control),
+                    _cpu_state(pipe.vae), _cpu_state(pipe.clip))
     if sd_file:
         load_sd_into(cfg, states, bridge.load_torch_state_dict(sd_file))
     if basecn_file:

@@ -45,6 +45,7 @@ from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
 from ctrlora_tpu_torch.training import step as pstep
 from ctrlora_tpu_torch.training import train_state as pts
 from tests.test_torch_plms_dpm import _random_params
+from tests.torch_fresh import seed_zeroed_layers_
 
 RTOL, ATOL = 2e-3, 2e-4
 B, LAT, HINT = 2, 8, 64  # latent 8x8 (tiny VAE: /2), pixel hint 64x64 (hint encoder: /8)
@@ -139,10 +140,17 @@ def test_baseline_presets_match_jax(name):
 
 
 def test_xs_preset_names_its_roadmap_item():
-    with pytest.raises(ValueError, match="item 10b"):
-        configs.load_model_config("cnxs_sd15")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        CtrLoraPipeline(_variant(configs.tiny_test_config(hint_mode="image"), "xs"), "cpu")
+    """ControlNet-XS (ROADMAP item 10b) is ported: its preset is JAX's, field
+    for field, and its pipeline holds the XS UNet and no control module.
+    What is still not ported names its item: the style config's image
+    tokens (item 9)."""
+    fields = _shared_fields(configs.load_model_config("cnxs_sd15"),
+                            jax_configs.load_model_config("cnxs_sd15"))
+    assert len(fields) > 60 and [(p, a) for p, a, b in fields if a != b] == []
+    pipe = CtrLoraPipeline(_variant(configs.tiny_test_config(hint_mode="image"), "xs"), "cpu")
+    assert type(pipe.unet).__name__ == "XSUNet" and pipe.control is None
+    with pytest.raises(NotImplementedError, match="item 9"):
+        configs.load_model_config("configs/inference/ctrlora_style_sd15_rank128_1lora.yaml")
 
 
 def test_hint_block_matches_jax(env):
@@ -270,7 +278,8 @@ def test_train_step_matches_jax(env):
 def test_fresh_control_branch_adds_nothing(variant):
     """As in JAX, whose zero convs and hint-encoder output conv start at
     zero: a fresh branch's taps are all zero, so a fresh model is the
-    plain UNet, and each zero conv still gets a gradient."""
+    plain UNet, and each zero conv still gets a gradient once the UNet's
+    zeroed layers carry weights (a fresh UNet outputs 0, as JAX's)."""
     torch.manual_seed(0)
     pipe = CtrLoraPipeline(port_config(variant), "cpu", fuse_lora=False)
     x, t = torch.randn(B, LAT, LAT, 4), torch.tensor([3, 500])
@@ -281,6 +290,7 @@ def test_fresh_control_branch_adds_nothing(variant):
         assert all(not tap.any() for tap in taps)
         torch.testing.assert_close(pipe.apply_model(x, t, ctx, [Conditioning(hint)]),
                                    pipe.unet(x, t, ctx), rtol=0, atol=0)
+    seed_zeroed_layers_(pipe.unet)
     tcfg = configs.TrainConfig(trainable="all")
     pts.make_optimizer(pipe, tcfg, pts.trainable_mask(pipe, tcfg))
     pipe.apply_model(x, t, ctx, [Conditioning(hint)]).square().mean().backward()

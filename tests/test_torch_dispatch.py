@@ -46,10 +46,19 @@ def test_flash_rule_sends_other_dtypes_to_plain(s, d, dtype):
     assert not fa.flash_kernel_ok((BF16, dtype, BF16), s, s, d)  # one operand is enough
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 48, 96, 256])
+@pytest.mark.parametrize("d", [4, 12, 24, 48, 96, 256])
 def test_flash_rule_sends_other_head_dims_to_plain(d):
     assert d not in fa.FORWARD_HEAD_DIMS
     assert not fa.flash_kernel_ok((BF16,) * 3, 4096, 4096, d)
+
+
+@pytest.mark.parametrize("s, d", [(4096, 8), (1024, 16), (256, 32)])
+def test_flash_rule_admits_the_xs_head_dims(s, d):
+    """ControlNet-XS's control stream (8 heads of 8/16/32 at 64^2, 32^2 and
+    16^2) takes the kernels forward and backward, as JAX's rule (no
+    head-dim condition) takes its Pallas kernels; its 8^2 site stays plain."""
+    assert fa.flash_kernel_ok((BF16,) * 3, s, s, d, grad=True)
+    assert not fa.flash_kernel_ok((BF16,) * 3, 64, 64, d)
 
 
 @pytest.mark.parametrize("sq, sk, admitted", [

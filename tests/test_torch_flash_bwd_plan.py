@@ -6,8 +6,9 @@ every instantiated head dim the block fits the H100's 232,448 bytes of
 shared memory, the grid covers both sequences exactly, and every TMA box and
 operand stride is a multiple of 16 bytes in the BHSD, BSHD and fused-qkv
 layouts alike. A head dim without an instantiation raises on a non-CPU
-tensor before any launch and takes the plain version on the CPU. The
-kernels themselves run only on the card.
+tensor before any launch and takes the plain version on the CPU. The head
+dims include ControlNet-XS's 8, 16 and 32 (rows of 16 to 64 bytes, one tail
+box each). The kernels themselves run only on the card.
 """
 
 import numpy as np
@@ -17,8 +18,10 @@ import torch
 from ctrlora_tpu_torch.ops import flash_attention as fa
 
 H100_SMEM = 232448
-# (B, H, S) of the finetune step's three sites at batch 4, 512^2
+# (B, H, S, D) of the finetune step's three sites at batch 4, 512^2, and of
+# ControlNet-XS's control stream (8 heads of 8/16/32) at the same batch
 SITES = [(4, 8, 4096, 40), (4, 8, 1024, 80), (4, 8, 256, 160)]
+XS_SITES = [(4, 8, 4096, 8), (4, 8, 1024, 16), (4, 8, 256, 32)]
 KINDS = [True, False]  # dK/dV, dQ
 
 
@@ -43,7 +46,7 @@ def test_warpgroups_cover_the_owned_rows(d, dkv):
     assert plan.rows == (64 if plan.split else 2 * 64)
 
 
-@pytest.mark.parametrize("b, h, s, d", SITES + [(1, 2, 384, 40), (2, 1, 640, 80)])
+@pytest.mark.parametrize("b, h, s, d", SITES + [(1, 2, 384, 40), (2, 1, 640, 80)] + XS_SITES)
 @pytest.mark.parametrize("dkv", KINDS)
 def test_grid_covers_both_sequences(b, h, s, d, dkv):
     plan = fa.flash_bwd_plan(d, dkv)
@@ -67,7 +70,7 @@ def _layouts(b, h, s, d):
     return {"bhsd": bhsd, "bshd": bshd, "qkv": fused}
 
 
-@pytest.mark.parametrize("b, h, s, d", SITES)
+@pytest.mark.parametrize("b, h, s, d", SITES + XS_SITES)
 @pytest.mark.parametrize("layout", ["bhsd", "bshd", "qkv"])
 def test_tma_boxes_and_strides_are_16_byte_multiples(b, h, s, d, layout):
     for width in fa.tma_box_widths(d) + (fa.TMA_BOX,):  # streamed boxes; owned rows
@@ -78,13 +81,13 @@ def test_tma_boxes_and_strides_are_16_byte_multiples(b, h, s, d, layout):
     assert all(st * 2 % 16 == 0 for st in strides), strides
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 512])
+@pytest.mark.parametrize("d", [48, 64, 128, 512])
 def test_other_head_dims_have_no_plan(d):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_bwd_plan(d, True)
 
 
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [48, 64])
 def test_other_head_dims_raise_off_the_cpu(d):
     q, k, v, dout = (torch.empty(1, 2, 256, d, device="meta", dtype=torch.bfloat16)
                      for _ in range(4))
@@ -105,7 +108,7 @@ def test_untiled_sequences_raise_off_the_cpu():
         fa.flash_attention_bwd_dkv(q, k, v, lse, dout, delta, 40 ** -0.5)
 
 
-@pytest.mark.parametrize("d", [32, 64, 40])
+@pytest.mark.parametrize("d", [32, 64, 40, 8])
 def test_cpu_tensors_take_the_plain_version_at_any_head_dim(d):
     rng = np.random.default_rng(d)
     q, k, v, dout = (torch.from_numpy(rng.normal(size=(1, 2, 96, d)).astype(np.float32))
@@ -119,3 +122,16 @@ def test_cpu_tensors_take_the_plain_version_at_any_head_dim(d):
                          fa.flash_attention_bwd_dkv_plain(*args)):
         torch.testing.assert_close(got, want)
     assert fa.flash_attention_bwd_dq.launches == fa.flash_attention_bwd_dkv.launches == 0
+
+
+@pytest.mark.parametrize("b, h, s, d", XS_SITES)
+def test_xs_head_dims_have_plans_like_the_narrowest_finetune_site(b, h, s, d):
+    """D = 8/16/32 tile as D = 40 does: 64-row streamed tiles, 128 owned
+    rows, no split, one box a row; the fused projection's heads are D
+    apart."""
+    for dkv in KINDS:
+        plan = fa.flash_bwd_plan(d, dkv)
+        assert (plan.rows, plan.tile, plan.split) == (128, 64, False)
+        assert plan == fa.flash_bwd_plan(40, dkv)
+    assert fa.tma_box_widths(d) == (d,)
+    assert fa.flash_kernel_ok((torch.bfloat16,) * 3, s, s, d, grad=True)

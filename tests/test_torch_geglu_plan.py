@@ -1,8 +1,10 @@
 """Kernel C's host side on the CPU: the tiling that ``geglu_plan`` hands the
 two CUDA launches (``ctrlora_geglu_up``, ``ctrlora_geglu_down``) covers
-every output tile of h [rows, F] and y [rows, C] exactly once, its split-K
-factor divides the F / 64 boxes of K, every launch fills the H100's 132 SMs
-or its case says why not, and the static dispatch admits what it admitted.
+every output tile of h [rows, F] and y [rows, C] exactly once (at the
+SD1.5 widths and at ControlNet-XS's 64/128/256, whose down tiles are 64 and
+128 columns wide), its split-K factor divides the F / 64 boxes of K, every
+launch at the SD1.5 sites fills the H100's 132 SMs or its case says why
+not, and the static dispatch admits what it admitted, and the XS widths.
 The kernels themselves run only on the card (chip_smoke.py phase 3)."""
 
 import numpy as np
@@ -10,7 +12,7 @@ import pytest
 import torch
 
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu
-from ctrlora_tpu_torch.ops.geglu_ffn import BM, BN_DOWN, K_BOX, H100_SMS, geglu_plan
+from ctrlora_tpu_torch.ops.geglu_ffn import BM, DOWN_TILES, K_BOX, H100_SMS, geglu_plan
 
 # rows x C at the sampling sites (CFG batch of 8 at 64^2, 32^2, 16^2, 8^2),
 # the finetune step's (batch 4) and ragged counts (last tile part-filled)
@@ -18,6 +20,9 @@ SAMPLING = [(8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280)]
 FINETUNE = [(4 * 4096, 320), (4 * 1024, 640), (4 * 256, 1280), (4 * 64, 1280)]
 RAGGED = [(1000, 320), (77 * 2, 640), (300, 1280)]
 SHAPES = SAMPLING + FINETUNE + RAGGED
+# ControlNet-XS's control stream (0.2x: C = 64/128/256) at the same sites
+XS = [(8 * 4096, 64), (8 * 1024, 128), (8 * 256, 256), (8 * 64, 256),
+      (4 * 4096, 64), (4 * 1024, 128), (4 * 256, 256), (4 * 64, 256)]
 
 
 def _units_of_blocks(units, grid):
@@ -25,7 +30,7 @@ def _units_of_blocks(units, grid):
     return [list(range(b, units, grid)) for b in range(grid)]
 
 
-@pytest.mark.parametrize("rows, c", SHAPES)
+@pytest.mark.parametrize("rows, c", SHAPES + XS)
 def test_plan_covers_every_tile_once(rows, c):
     f = 4 * c
     plan = geglu_plan(rows, c, f)
@@ -43,10 +48,11 @@ def test_plan_covers_every_tile_once(rows, c):
             cover[m, n * bn // K_BOX:(n + 1) * bn // K_BOX] += 1
     assert (cover == 1).all()
 
-    # down: unit u -> K part u % split of tile u // split of y, BN_DOWN columns
-    n_down = c // BN_DOWN
+    # down: unit u -> K part u % split of tile u // split of y, bn_down columns
+    n_down = c // plan.bn_down
     nk = f // K_BOX
-    assert c % BN_DOWN == 0 and plan.down_tiles == m_tiles * n_down
+    assert plan.bn_down in DOWN_TILES and c % plan.bn_down == 0
+    assert plan.down_tiles == m_tiles * n_down
     assert plan.down_units == plan.down_tiles * plan.split
     cover = np.zeros((m_tiles, n_down, nk), int)
     for units in _units_of_blocks(plan.down_units, plan.down_grid):
@@ -59,7 +65,7 @@ def test_plan_covers_every_tile_once(rows, c):
     assert (cover == 1).all()
 
 
-@pytest.mark.parametrize("rows, c", SHAPES)
+@pytest.mark.parametrize("rows, c", SHAPES + XS)
 def test_split_divides_the_k_boxes(rows, c):
     f = 4 * c
     plan = geglu_plan(rows, c, f)
@@ -107,6 +113,15 @@ def test_plan_at_the_sampling_sites():
         assert (plan.bn_up, plan.split) == (bn_up, split)
 
 
+@pytest.mark.parametrize("rows, c", SAMPLING + XS)
+def test_down_tile_is_the_widest_that_divides_c(rows, c):
+    """160 at the SD1.5 widths; 64 at C = 64 and 128 at 128 and 256, where
+    160 does not divide C."""
+    plan = geglu_plan(rows, c, 4 * c)
+    assert plan.bn_down == {64: 64, 128: 128, 256: 128}.get(c, 160)
+    assert c in geglu.KERNEL_WIDTHS
+
+
 def _operands(c, f2, rows=4, w1_shape=None, b1_len=None, w2_shape=None, b2_len=None):
     return (torch.zeros(2, rows, c), torch.zeros(w1_shape or (f2, c)),
             torch.zeros(b1_len or f2), torch.zeros(w2_shape or (c, f2 // 2)),
@@ -121,7 +136,8 @@ def _operands(c, f2, rows=4, w1_shape=None, b1_len=None, w2_shape=None, b2_len=N
     (_operands(320, 128), True),            # F = 64: one box
     (_operands(640, 384), True),            # F = 192: no 128-wide up tile
     (_operands(320, 2560 + 64), False),     # F not a multiple of 64
-    (_operands(64, 256), False),            # the tiny configuration's width
+    (_operands(64, 256), True),             # ControlNet-XS's 64^2 width (F = 4C)
+    (_operands(32, 256), False),            # the tiny configuration's width
     (_operands(768, 6144), False),          # not an SD1.5 width
     (_operands(320, 2560, w1_shape=(2560, 640)), False),
     (_operands(320, 2560, b1_len=1280), False),

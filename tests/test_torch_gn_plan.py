@@ -3,7 +3,9 @@
 ``group_norm_plan`` mirrors the cluster size, slab and path that
 ``csrc/group_norm.cu`` chooses (chip_smoke.py holds the two against each
 other on the card). Here it is checked at every GroupNorm shape of the three
-paths and the VAE, read off the models themselves: a forward on the meta
+paths, the VAE and ControlNet-XS (its 64/128/256-channel control stream and
+the 384/768/1536 channels of its `cat` infusion), read off the models
+themselves: a forward on the meta
 device records each GroupNorm's input. At each shape, in bf16 and fp32:
 each slab holds whole groups and a run of >= 128 contiguous bytes (or the
 whole row), the block's shared memory stays within the H100's 232,448 bytes,
@@ -22,6 +24,7 @@ import torch
 from ctrlora_tpu_torch import configs
 from ctrlora_tpu_torch.models.unet import UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL
+from ctrlora_tpu_torch.models.xs import XSUNet
 from ctrlora_tpu_torch.ops import group_norm as gn
 
 H100_SMEM = 232448
@@ -48,7 +51,8 @@ def path_shapes():
     """GroupNorm shapes by path: the UNet (the ControlNet repeats its
     encoder's) at the sampling CFG batch of 8 and the finetune batch of 4 on
     64^2 latents, and the VAE encoding 512^2 images and decoding 64^2
-    latents at batch 4 and (phase 4's fp32 decode) 1."""
+    latents at batch 4 and (phase 4's fp32 decode) 1; ControlNet-XS's two
+    streams at the sampling and training batches (8 and 4)."""
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     ucfg = dataclasses.replace(cfg.unet, dtype="float32", use_flash_attention=False)
     vcfg = dataclasses.replace(cfg.vae, dtype="float32")
@@ -65,8 +69,14 @@ def path_shapes():
         for b in (4, 1):
             model.decode(torch.empty(b, 64, 64, 4))
 
+    def xs():
+        model = XSUNet(ucfg)
+        for b in (8, 4):
+            model(torch.empty(b, 64, 64, 4), torch.zeros(b, dtype=torch.int32),
+                  torch.empty(b, 77, ucfg.context_dim), hint=torch.empty(b, 512, 512, 3))
+
     return {"sampling": _recorded_shapes(unet(8)), "finetune": _recorded_shapes(unet(4)),
-            "vae": _recorded_shapes(vae)}
+            "vae": _recorded_shapes(vae), "xs": _recorded_shapes(xs)}
 
 
 def test_the_paths_reach_the_decoder_concat_widths(path_shapes):
@@ -77,8 +87,15 @@ def test_the_paths_reach_the_decoder_concat_widths(path_shapes):
     assert (512 * 512, 128) in {(hw, c) for _, hw, c, _, _ in path_shapes["vae"]}
 
 
+def test_xs_reaches_its_control_widths(path_shapes):
+    widths = {c for _, _, c, _, _ in path_shapes["xs"]}
+    assert {64, 128, 256, 384, 768, 1536} <= widths
+    assert {(64 * 64, 384), (32 * 32, 768), (16 * 16, 1536), (8 * 8, 1536)} <= {
+        (hw, c) for _, hw, c, _, _ in path_shapes["xs"]}
+
+
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
 def test_slabs_hold_whole_groups(path_shapes, path, itemsize):
     for b, hw, c, groups, _ in path_shapes[path]:
         plan = gn.group_norm_plan(b, hw, c, groups, itemsize, SMS)
@@ -95,7 +112,7 @@ def test_slabs_hold_whole_groups(path_shapes, path, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
 def test_cluster_and_shared_memory_fit_the_card(path_shapes, path, itemsize):
     for b, hw, c, groups, _ in path_shapes[path]:
         plan = gn.group_norm_plan(b, hw, c, groups, itemsize, SMS)
@@ -106,7 +123,7 @@ def test_cluster_and_shared_memory_fit_the_card(path_shapes, path, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
 def test_staged_or_reread_follows_the_bytes(path_shapes, path, itemsize):
     """Staged: the block's rows of the slab sit in its shared memory. Re-read:
     not even a cluster of 8 would fit them, and the ring of chunks does."""

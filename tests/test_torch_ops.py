@@ -42,6 +42,9 @@ T = torch.from_numpy
     (640, 1e-6, False, "bc"),      # cpg 20, add_row [B, C], transformer eps
     (128, 1e-6, True, None),       # cpg 4, VAE
     (128, 1e-6, False, "1c"),
+    (64, 1e-5, True, "bc"),        # cpg 2: ControlNet-XS's control stream at 64^2
+    (384, 1e-5, True, None),       # cpg 12: its `cat` infusion's 64 + 320
+    (1536, 1e-5, True, None),      # cpg 48: 256 + 1280
 ])
 def test_group_norm_matches_pallas(c, eps, silu, row):
     rng = np.random.default_rng(c + int(silu))
@@ -59,7 +62,7 @@ def test_group_norm_matches_pallas(c, eps, silu, row):
     assert gn.group_norm.launches == 0  # CPU tensors take the plain version
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 8, 16, 32])  # UNet; ControlNet-XS's control stream
 def test_flash_qkv_matches_pallas(d):
     b, s, h = 1, 256, 2
     rng = np.random.default_rng(d)
@@ -115,6 +118,14 @@ def _port_geglu(x, w1, b1, w2, b2):
 
 def test_geglu_matches_pallas_resident():
     x, w1, b1, w2, b2 = _geglu_inputs(256, 64, 256, 1)
+    with override(geglu_ffn=True):
+        ref = jgeglu.geglu_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    _close(_port_geglu(x, w1, b1, w2, b2), ref)
+
+
+@pytest.mark.parametrize("c", [128, 256])  # ControlNet-XS's 32^2 and 16^2 widths (F = 4C)
+def test_geglu_matches_pallas_xs_widths(c):
+    x, w1, b1, w2, b2 = _geglu_inputs(128, c, 4 * c, c)
     with override(geglu_ffn=True):
         ref = jgeglu.geglu_ffn(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
     _close(_port_geglu(x, w1, b1, w2, b2), ref)

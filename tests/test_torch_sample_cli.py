@@ -5,8 +5,8 @@
   dropout): the same items and the same arrays, exactly, from the same
   numpy draws; ``CTRLORA_NATIVE_DATA`` is honoured (the native image prep)
   rather than ignored;
-* ``configs.load_model_config``: the port's presets, and a clear error for
-  the JAX preset not ported yet (cnxs_sd15) and for YAML files;
+* ``configs.load_model_config``: the port's presets (cnxs_sd15 among
+  them), a YAML file, and a clear error for a name that is neither;
 * ``python -m ctrlora_tpu_torch.scripts.sample`` (its ``main``) on the tiny
   preset with ``--device cpu``, for each sampler: it writes sample/,
   control/, img/ and prompt.txt, pads the short last batch, and its samples
@@ -107,10 +107,11 @@ def test_load_model_config():
     assert configs.load_model_config("ctrlora_pretrain") == configs.ctrlora_pretrain_config()
     assert configs.load_model_config("cldm_v15") == configs.sd15_config()
     assert configs.load_model_config("cnlite_sd15") == configs.cnlite_config()
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 10b"):
-        configs.load_model_config("cnxs_sd15")
-    with pytest.raises(ValueError, match="YAML"):
-        configs.load_model_config("configs/ctrlora_finetune_sd15_rank128.yaml")
+    assert configs.load_model_config("cnxs_sd15") == configs.cnxs_config()
+    assert (configs.load_model_config("configs/ctrlora_finetune_sd15_rank128.yaml")
+            == configs.ctrlora_finetune_config(128))
+    with pytest.raises(ValueError, match="neither a preset"):
+        configs.load_model_config("no_such_preset")
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from ctrlora_tpu_torch.training import train_state as pts
 from ctrlora_tpu_torch.training import trainer as trainer_mod
 from ctrlora_tpu_torch.training.trainer import image_log_rows, make_image_log_hook
 from tests.test_torch_plms_dpm import _random_params
+from tests.torch_fresh import seeded_training_pipelines
 
 RES, BS = 32, 2
 
@@ -54,6 +55,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _seeded_zeroed_layers():
+    """The CLIs train from the seeded init, whose UNet outputs 0 as JAX's
+    does: its zeroed layers get weights so that gradients flow."""
+    with seeded_training_pipelines():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,8 @@
 * ``scripts.train_cn.main`` for both variants over written PNG pairs with
   --bs 2 --gradacc 2 --use_ema: metrics, checkpoints, the image log, the
   frozen UNet; 2 steps, --resume, 2 more give the bits of 4 straight steps;
-  --variant xs, --tp 2 and --shard_opt_state raise; no fallback to the CPU;
+  --tp 2, --shard_opt_state and a --config that names nothing raise; no
+  fallback to the CPU (--variant xs: tests/test_torch_xs.py);
 * the image log of an image-hint model (``training.trainer.image_log_rows``:
   the pixel hint goes to the sampler as it is; Lite builds no row tables)
   against the JAX hook's arrays with JAX's starting noise, rtol 2e-3 /
@@ -59,6 +60,7 @@ from ctrlora_tpu_torch.training.trainer import image_log_rows, step_seed
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
 from ctrlora_tpu_torch.utils import loading
 from tests.test_torch_plms_dpm import _random_params
+from tests.torch_fresh import seeded_training_pipelines
 
 RES = 64  # the CLI's image size here (the hint encoder needs a multiple of 8)
 
@@ -71,6 +73,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _seeded_zeroed_layers():
+    """The CLIs train from the seeded init, whose UNet outputs 0 as JAX's
+    does: its zeroed layers get weights so that gradients flow."""
+    with seeded_training_pipelines():
+        yield
 
 
 def _variant(cfg, variant):
@@ -199,8 +209,7 @@ def test_train_cn_cli(straight, variant):
     assert png.shape == (48 + 3 * RES, 2 * RES, 3)
     assert trainer.state.ema.updates == 4
     # the frozen UNet is the seeded one, bit for bit
-    torch.manual_seed(42)
-    seeded = CtrLoraPipeline(cli_config(variant), "cpu", fuse_lora=False)
+    seeded = common.load_training_pipeline(cli_config(variant), "cpu", None, None, 42)
     for name, p in trainer.pipe.unet.named_parameters():
         assert torch.equal(p, seeded.unet.state_dict()[name]), name
 
@@ -223,7 +232,7 @@ def test_train_cn_resume_is_bit_equal_to_straight(straight, tiny_cli, dataset_di
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--variant", "xs"], NotImplementedError, "item 10b"),
+    (["--config", "no_such_config.yaml"], ValueError, "neither a preset"),
     (["--tp", "2"], NotImplementedError, "item 12"),
     (["--shard_opt_state"], NotImplementedError, "item 12"),
     (["--gradacc", "0"], ValueError, "gradacc"),

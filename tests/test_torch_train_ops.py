@@ -55,7 +55,7 @@ def test_flash_bshd_forward_matches_pallas(d):
     assert fa.flash_attention_bshd.launches == 0  # CPU tensors take the plain version
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("d", [40, 80, 160, 8, 16, 32])  # UNet; ControlNet-XS's control stream
 def test_flash_backward_math_matches_pallas(d):
     q, k, v, g = _qkv(d, 10 + d, layout="bhsd")
     jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))

@@ -34,6 +34,7 @@ from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
 from ctrlora_tpu_torch.training import step as pstep
 from ctrlora_tpu_torch.training import train_state as pts
 from ctrlora_tpu_torch.training.trainer import Trainer
+from tests.torch_fresh import seed_zeroed_layers_
 
 RTOL, ATOL = 2e-3, 2e-4
 ZERO_INIT = ("conv_out", "out_conv", "proj_out", "zero_", "lora_up")
@@ -178,6 +179,8 @@ def _tiny_trainer(tmp_path, **kw):
         for name, p in pipe.control.named_parameters():
             if "lora_up" in name or name.startswith("zero_"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    for i, module in enumerate((pipe.unet, pipe.control)):  # fresh, both output 0 (as JAX's)
+        seed_zeroed_layers_(module, 3 + i)
     tcfg = configs.TrainConfig(trainable="lora", log_every=1, **kw)
     batch = lambda: {"jpg": torch.rand(2, 16, 16, 3, generator=gen) * 2 - 1,
                      "hint": torch.rand(2, 16, 16, 3, generator=gen),

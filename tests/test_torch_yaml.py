@@ -1,0 +1,121 @@
+"""The port's YAML config reader against the JAX package's
+``load_model_config`` (PyYAML) on the CPU:
+
+* every file under ``configs/`` reads to the same ModelConfig tree as JAX
+  reads it (field for field), or raises naming the ROADMAP item of the part
+  it needs (the style config's image tokens: item 9);
+* a ``preset:`` + overrides file, nested under ``model:`` and at the top;
+* a round trip of JAX ``save_model_config`` output;
+* ``parse_yaml`` against ``yaml.safe_load`` on the scalars and collections
+  ``yaml.safe_dump`` writes, and its refusals.
+"""
+
+import dataclasses
+import glob
+import os
+
+import pytest
+import yaml
+
+from ctrlora_tpu import configs as jax_configs
+
+from ctrlora_tpu_torch import configs
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FILES = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
+NEEDS_ITEM = {"ctrlora_style_sd15_rank128_1lora.yaml": "item 9"}
+
+
+def _tree(cfg):
+    return dataclasses.asdict(cfg)
+
+
+def test_every_config_file_is_listed():
+    names = {os.path.basename(f) for f in FILES}
+    assert len(FILES) >= 17 and {"cnxs_sd15.yaml", "cldm_v15.yaml"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=[os.path.relpath(f, ROOT) for f in FILES])
+def test_config_file_reads_as_jax_reads_it(path):
+    want = jax_configs.load_model_config(path)
+    item = NEEDS_ITEM.get(os.path.basename(path))
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            configs.load_model_config(path)
+        return
+    got = configs.load_model_config(path)
+    assert _tree(got) == _tree(want)
+    with open(path) as f:
+        assert configs.parse_yaml(f.read()) == yaml.safe_load(open(path))
+
+
+def test_cnxs_file_is_the_xs_preset():
+    cfg = configs.load_model_config(os.path.join(ROOT, "configs", "cnxs_sd15.yaml"))
+    assert cfg == configs.cnxs_config()
+    assert (cfg.control.variant, cfg.control.control_model_ratio, cfg.control.guiding,
+            cfg.control.infusion2control) == ("xs", 0.2, "encoder_double", "cat")
+
+
+@pytest.mark.parametrize("nested", [True, False], ids=["under-model", "top-level"])
+def test_preset_with_overrides_matches_jax(tmp_path, nested):
+    body = ("unet:\n  dtype: float32\n  attention_resolutions:\n  - 4\n  - 2\n"
+            "control:\n  guiding: full\n  infusion2control: add\n  learn_embedding: true\n"
+            "  lora:\n    network_alpha: 16.0\n"
+            "diffusion:\n  linear_end: 1.2e-02\n  parameterization: v\n"
+            "tasks:\n- hed\n- canny\n")
+    if nested:
+        body = "model:\n" + "".join(f"  {ln}\n" for ln in body.splitlines())
+    path = tmp_path / "override.yaml"
+    path.write_text("# an XS variant\npreset: cnxs_sd15\n" + body)
+    got, want = configs.load_model_config(str(path)), jax_configs.load_model_config(str(path))
+    assert _tree(got) == _tree(want)
+    assert got.unet.dtype == "float32" and got.control.guiding == "full"
+    assert got.tasks == ("hed", "canny") and got.diffusion.linear_end == 0.012
+
+
+@pytest.mark.parametrize("name", ["cnxs_sd15", "cldm_v15", "ctrlora_finetune", "tiny"])
+def test_jax_saved_config_round_trips(tmp_path, name):
+    path = str(tmp_path / f"{name}.yaml")
+    jax_configs.save_model_config(jax_configs.load_model_config(name), path)
+    assert _tree(configs.load_model_config(path)) == _tree(jax_configs.load_model_config(path))
+    assert configs.load_model_config(path) == configs.load_model_config(name)
+
+
+SCALARS = ["a: 1", "a: -3", "a: 0.5", "a: 1.0e-05", "a: 1e-5", "a: .5", "a: null", "a: ~",
+           "a:", "a: true", "a: False", "a: 'quoted: yes'", 'a: "x\\ty"', "a: bfloat16",
+           "a: .inf", "a: -.inf", "a: 1_000", "a: 'it''s'", "a: []", "a: {}", "a: [1, b, 2.5]",
+           "a: plain words here", "a: x # a comment"]
+
+
+@pytest.mark.parametrize("text", SCALARS)
+def test_scalars_resolve_as_pyyaml_does(text):
+    assert configs.parse_yaml(text + "\n") == yaml.safe_load(text)
+
+
+def test_block_collections_as_pyyaml_reads_them():
+    text = ("---\na:\n  b:\n  - 1\n  - x\n  c:\n    - {}\n    - - 2\n      - 3\n  d: 4\n"
+            "e:\n- k: 1\n  m: two\n- k: 2\n")
+    assert configs.parse_yaml(text) == yaml.safe_load(text)
+    assert configs.parse_yaml("") is None and configs.parse_yaml("- 1\n- 2\n") == [1, 2]
+
+
+@pytest.mark.parametrize("text", ["a: &x 1\n", "a: !!str 1\n", "a: |\n  x\n", "a: [1, [2]]\n",
+                                  "a: 1\n  b: 2\n", "a: 1\na: 2\n", "a: 'open\n",
+                                  "a:\n\t- 1\n"])
+def test_outside_the_subset_raises(text):
+    with pytest.raises(ValueError, match="YAML"):
+        configs.parse_yaml(text)
+
+
+@pytest.mark.parametrize("field, value, match", [
+    ("unet", {"ip_tokens": 4}, "item 9"),
+    ("unet", {"dropout": 0.1}, "dropout"),
+    ("diffusion", {"beta_schedule": "cosine"}, "linear"),
+])
+def test_unported_parts_raise(tmp_path, field, value, match):
+    path = tmp_path / "x.yaml"
+    key, val = next(iter(value.items()))
+    path.write_text(f"preset: cldm_v15\n{field}:\n  {key}: {val}\n")
+    jax_configs.load_model_config(str(path))  # JAX reads it
+    with pytest.raises(NotImplementedError, match=match):
+        configs.load_model_config(str(path))
