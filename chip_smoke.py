@@ -6,8 +6,9 @@ the rank-128 LoRA finetune step, the switchable two-LoRA CtrLoRA API from
 reference-format checkpoints, the finetune and pretrain CLIs training
 from dataset files, the ControlNet baselines (vanilla image-hint
 ControlNet and ControlNet-Lite) sampling and training through train_cn,
-and ControlNet-XS sampling from configs/cnxs_sd15.yaml and training
-through train_cn --variant xs.
+ControlNet-XS sampling from configs/cnxs_sd15.yaml and training
+through train_cn --variant xs, and style transfer with IP-Adapter
+(StyleCtrLoRA) from the style config file.
 
     python3 chip_smoke.py
 
@@ -148,6 +149,32 @@ the script exits non-zero:
    8/16/32 too); loaded tensors equal to the files', the frozen base
    stream bit-identical, every trainable weight changed, one step's loss
    and gradients with the kernels within 1e-2 / L2 5e-2 of plain. The
+   files are deleted at the end;
+13. style transfer at SD1.5 width, its config read from
+   configs/inference/ctrlora_style_sd15_rank128_1lora.yaml (equal to
+   style.style_config(1, 128, 4): 4 image-prompt tokens at every attn2
+   of the UNet): seeded random weights written as fp16 files (SD, Base
+   ControlNet, one rank-128 LoRA; the IP-Adapter file in its published
+   nested form, 16 sites x to_{k,v}_ip and the image projection; the HF
+   ViT-H/14 vision tower; the HF ViT-H text tower with its projection);
+   StyleCtrLoRA(1).create_model and load_ip_adapter(target='style_blocks'):
+   every loaded tensor equal to the files' (the UNet's image-prompt
+   projections as their bf16 parameters hold them), ip_scale 1 at the
+   out_3/4/5 sites and 0 at the other 13; reloaded on every site;
+   embed_style of a 640x480 image and embed_neg_content (ms, [1, 4, 768],
+   finite, the negative content moving the tokens); sample_with_style's
+   sampling call on a 512^2 condition image, batch 4, 50 DDIM steps at CFG
+   7.5 (s/batch with the prep / DDIM / decode split beside phase 4's,
+   launches, peak memory, finite [4, 512, 512, 3] images) and img2img at
+   strength 0.8 over 20 steps; one UNet + ControlNet evaluation with the
+   image tokens: its launches by kernel, the kernels within relative L2
+   5e-2 of the plain versions, other style tokens and image_proj(zeros)
+   against the cond tokens in the uncond half each moving the output
+   (> 1e-3), the image-prompt branch's device ms and kernels a step (its
+   calls replayed under torch.profiler, and back to back); ip_scale 0 at
+   every site within relative L2 5e-2 of a UNet
+   without image tokens on the text alone; then a tiny style
+   configuration on the GPU against the CPU (rtol 2e-3 / atol 2e-4). The
    files are deleted at the end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -190,8 +217,12 @@ from torch import nn
 
 from ctrlora_tpu_torch import api as api_mod
 from ctrlora_tpu_torch import configs, lora_fuse
-from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32
-from ctrlora_tpu_torch.models.unet import decoder_plan, encoder_plan
+from ctrlora_tpu_torch import style as style_mod
+from ctrlora_tpu_torch.models import ip_adapter
+from ctrlora_tpu_torch.models.attention import CrossAttention
+from ctrlora_tpu_torch.models.clip import CLIPTextModel
+from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32, to_channels_last
+from ctrlora_tpu_torch.models.unet import UNet, decoder_plan, encoder_plan
 from ctrlora_tpu_torch.models.vae import AutoencoderKL
 from ctrlora_tpu_torch.ops import _build
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
@@ -200,7 +231,7 @@ from ctrlora_tpu_torch.ops import group_norm as gn_ops
 from ctrlora_tpu_torch.ops import kernel_flags
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline, build_control
-from ctrlora_tpu_torch.sampling.common import make_emb_row_tables
+from ctrlora_tpu_torch.sampling.common import make_emb_row_tables, make_guided_eps_fn
 from ctrlora_tpu_torch.sampling.ddim import (
     DDIMConfig, ddim_decode_from, ddim_encode, ddim_sample, ddim_stochastic_encode,
 )
@@ -814,7 +845,7 @@ def random_init_(module: nn.Module, gen: torch.Generator) -> None:
             if getattr(m, "lora", None) is not None:
                 randn(m.lora_down, 1.0 / m.lora_down.shape[-1])
                 randn(m.lora_up, 0.05)
-        for pname in ("token_embedding", "position_embedding"):
+        for pname in ("token_embedding", "position_embedding", "class_embedding"):
             p = getattr(m, pname, None)
             if isinstance(p, nn.Parameter):
                 p.data.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
@@ -2451,6 +2482,332 @@ def xs_slice(dev, phase4_s_batch, phase6_s_step):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 13: style transfer with IP-Adapter
+# ---------------------------------------------------------------------------
+
+STYLE_CONFIG = os.path.join("configs", "inference", "ctrlora_style_sd15_rank128_1lora.yaml")
+STYLE_VISION = ip_adapter.CLIPVisionConfig()  # ViT-H/14, the IP-Adapter's image encoder
+STYLE_TEXT = style_mod.VITH_TEXT_PROJECTED  # the negative-content text tower
+STYLE_IMAGE_HW = (480, 640)  # the style image: 640 x 480
+STYLE_I2I_STEPS, STYLE_STRENGTH = 20, 0.8
+NEG_CONTENT = "a photo of a house"
+STYLE_KERNELS = SAMPLING_KERNELS
+# the tiny style configuration of the GPU-against-CPU check
+TINY_VISION = ip_adapter.CLIPVisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                                          intermediate_size=64, num_layers=2, num_heads=2,
+                                          projection_dim=16)
+
+
+def is_ip_key(key: str) -> bool:
+    return "_ip." in key or key.endswith("ip_scale")
+
+
+def write_style_files(cfg, dev, root, gen, vision_cfg, text_cfg, dtype=torch.float16):
+    """Seeded random weights as the style path's files in `dtype`: SD, Base
+    ControlNet and one LoRA (``write_reference_files``; the SD file has no
+    image-prompt keys), the IP-Adapter file in its published nested form
+    ({'image_proj': ..., 'ip_adapter': {'{2j+1}.to_{k,v}_ip.weight'}}), the
+    HF-named vision tower and, with `text_cfg`, the HF-named text tower with
+    its projection. Returns (paths, written)."""
+    src = CtrLoraPipeline(cfg, dev)
+    for m in src.modules():
+        random_init_(m, gen)
+    paths, written = write_reference_files(
+        src, unfused_control_state(src.control, cfg.control.lora, gen), cfg, root, dtype)
+    randn = lambda shape, std: (torch.randn(shape, generator=gen, device=dev) * std).to(
+        "cpu", dtype)
+    ip_sd = {}
+    for j, site in enumerate(ip_adapter.ip_attn_sites(cfg.unet)):
+        for name in ("to_k_ip", "to_v_ip"):
+            shape = getattr(src.unet.get_submodule(".".join(site)), name).weight.shape
+            ip_sd[f"{2 * j + 1}.{name}.weight"] = randn(shape, shape[1] ** -0.5)
+    del src
+    d, n, e = cfg.unet.context_dim, cfg.unet.ip_tokens, vision_cfg.projection_dim
+    proj_sd = {"proj.weight": randn((n * d, e), e ** -0.5), "proj.bias": randn((n * d,), 0.02),
+               "norm.weight": 1 + randn((d,), 0.1), "norm.bias": randn((d,), 0.02)}
+    written["ip"] = {"image_proj": proj_sd, "ip_adapter": ip_sd}
+    paths["ip"] = os.path.join(root, "ip-adapter_sd15.bin")
+    torch.save(written["ip"], paths["ip"])
+    with torch.device(dev):
+        vision = ip_adapter.CLIPVisionModel(vision_cfg)
+    random_init_(vision, gen)
+    vstate = vision.state_dict()
+    written["vision"] = {hf: vstate[k].detach().to("cpu", dtype)
+                         for k, hf in ip_adapter.clip_vision_keys(vision_cfg).items()}
+    paths["vision"] = os.path.join(root, "image_encoder.bin")
+    torch.save(written["vision"], paths["vision"])
+    del vision, vstate
+    if text_cfg is not None:
+        with torch.device(dev):
+            text = CLIPTextModel(text_cfg)
+        random_init_(text, gen)
+        tsd = as_file(ckpt_torch.export_tree(text.state_dict(), ckpt_torch.clip_entries(text_cfg),
+                                             "text_model."), dtype)
+        tsd["text_projection.weight"] = text.text_projection.weight.detach().to("cpu", dtype)
+        paths["text"] = os.path.join(root, "text_encoder.bin")
+        torch.save(tsd, paths["text"])
+        del text, tsd
+    return paths, written
+
+
+def style_loaded_equal(st, written, cfg, vision_cfg) -> int:
+    """The UNet's image-prompt projections equal the file's as their (bf16)
+    parameters hold it, the image projection and the vision tower the
+    file's fp16 widened exactly; returns the count, or raises."""
+    pairs = []
+    for j, site in enumerate(ip_adapter.ip_attn_sites(cfg.unet)):
+        attn = st.pipe.unet.get_submodule(".".join(site))
+        for name in ("to_k_ip", "to_v_ip"):
+            w = getattr(attn, name).weight
+            pairs.append((f"{'.'.join(site)}.{name}", w,
+                          written["ip"]["ip_adapter"][f"{2 * j + 1}.{name}.weight"].to(w.dtype)))
+    proj = st.image_proj.state_dict()
+    pairs += [(f"image_proj.{k}", proj[k], v.float()) for k, v in written["ip"]["image_proj"].items()]
+    vstate = st.vision.state_dict()
+    pairs += [(k, vstate[k], written["vision"][hf].float())
+              for k, hf in ip_adapter.clip_vision_keys(vision_cfg).items()]
+    bad = [k for k, got, want in pairs if not torch.equal(got.cpu(), want)]
+    if bad or len(vstate) != len(written["vision"]):
+        raise AssertionError(f"style: loaded tensors differ from the files: {bad[:5]}")
+    return len(pairs)
+
+
+def ip_scales(st, cfg) -> dict:
+    """{site: its ip_scale}, sites in ip_layers order."""
+    return {".".join(s): st.pipe.unet.get_submodule(".".join(s)).ip_scale.item()
+            for s in ip_adapter.ip_attn_sites(cfg.unet)}
+
+
+def timed(fn, dev):
+    """(fn(), its wall ms, ended by a synchronise)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ip_branch_ms(evaluate):
+    """The image-prompt branch of one evaluation (every attn2's to_k_ip /
+    to_v_ip, plain attention over the image tokens and the scaled add), its
+    calls captured from `evaluate()` and replayed: the device ms and device
+    kernels of one replay (torch.profiler), the ms a replay of 20 queued
+    back to back behind a sleep kernel (the host's launch time where it
+    exceeds the device's), and the captured query shapes."""
+    calls, real = [], CrossAttention._add_ip
+
+    def spy(self, out, q, ip_ctx):
+        if ip_ctx is not None:
+            calls.append((self, torch.zeros_like(out), q, ip_ctx))
+        return real(self, out, q, ip_ctx)
+
+    with mock.patch.object(CrossAttention, "_add_ip", spy):
+        evaluate()
+    replay = lambda: [real(a, o, q, c) for a, o, q, c in calls]
+    return {"device_ms": device_ms(replay), "device_kernels": device_kernels(replay),
+            "b2b_ms": time_b2b(replay), "query_shapes": [list(q.shape) for _, _, q, _ in calls]}
+
+
+def tiny_style_gpu_vs_cpu(dev):
+    """The tiny configuration with 4 image-prompt tokens (and the real CLIP
+    vocabulary) as a StyleCtrLoRA from tiny fp32 files: the style tokens and
+    a guided 3-step txt2img sample, fp32 on the GPU against the CPU."""
+    cfg = configs.tiny_test_config(n_loras=1, switchable_banks=True)
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, ip_tokens=4),
+                              clip=dataclasses.replace(cfg.clip, vocab_size=49408))
+    root = os.path.join(ROOT, "runs", "chip_smoke_tiny_style")
+    shutil.rmtree(root, ignore_errors=True)
+    paths, _ = write_style_files(cfg, torch.device("cpu"), root,
+                                 torch.Generator().manual_seed(SEED), TINY_VISION, None,
+                                 torch.float32)
+    rng = np.random.default_rng(SEED)
+    hint = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    style = rng.integers(0, 256, (40, 30, 3), dtype=np.uint8)
+    outs = []
+    for d in (torch.device("cpu"), dev):
+        st = style_mod.StyleCtrLoRA(1, cfg=cfg, vision_cfg=TINY_VISION, device=d)
+        st.create_model(paths["sd"], paths["basecn"], paths["loras"])
+        st.load_ip_adapter(paths["ip"], image_encoder_ckpt=paths["vision"])
+        tokens = st.embed_style(style)
+        outs.append((tokens.cpu(), st._sample_style_float((hint,), tokens, PROMPT, N_PROMPT, 2, 3,
+                                                          7.5, (1.0,), SEED).cpu()))
+    shutil.rmtree(root, ignore_errors=True)
+    tok_err = compare(outs[1][0], outs[0][0], rtol=2e-3, atol=2e-4)
+    err = compare(outs[1][1], outs[0][1], rtol=2e-3, atol=2e-4)
+    log("tiny_style", tokens_gpu_vs_cpu_max_abs_err=tok_err, gpu_vs_cpu_max_abs_err=err,
+        shape=list(outs[0][1].shape), tol="rtol=2e-3 atol=2e-4")
+
+
+def style_slice(dev, phase4_s_batch):
+    """Phase 13: StyleCtrLoRA at SD1.5 width from fp16 files of seeded
+    weights. Returns the launches of the timed txt2img run."""
+    cfg = configs.load_model_config(os.path.join(ROOT, STYLE_CONFIG))
+    if cfg != style_mod.style_config(1, 128, 4):
+        raise AssertionError(f"{STYLE_CONFIG} reads as {cfg}, not style_config(1, 128, 4)")
+    root = os.path.join(ROOT, "runs", "chip_smoke_style")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        return _style_slice(dev, cfg, root, phase4_s_batch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _style_slice(dev, cfg, root, phase4_s_batch):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    paths, written = write_style_files(cfg, dev, root, gen, STYLE_VISION, STYLE_TEXT)
+    log("style", config=STYLE_CONFIG, config_equals_style_config=True,
+        write_s=time.perf_counter() - t0,
+        file_gb={k: os.path.getsize(paths[k]) / 2 ** 30 for k in ("sd", "ip", "vision", "text")})
+
+    # loading: the style blocks only, then every site
+    st = style_mod.StyleCtrLoRA(1, cfg=cfg, vision_cfg=STYLE_VISION, neg_text_cfg=STYLE_TEXT,
+                                device=dev)
+    create_s, n_ref = create_checked(st, paths, written, cfg)
+    _, ip_load_ms = timed(lambda: st.load_ip_adapter(
+        paths["ip"], ip_scale=1.0, target="style_blocks", image_encoder_ckpt=paths["vision"]), dev)
+    n_style = style_loaded_equal(st, written, cfg, STYLE_VISION)
+    targets = ip_adapter.IP_SCALE_TARGETS["style_blocks"]
+    scales = ip_scales(st, cfg)
+    on = [k for k in scales if any(k.startswith(t[0] + ".") for t in targets)]
+    wrong = {k: v for k, v in scales.items() if v != (1.0 if k in on else 0.0)}
+    log("style", create_model_s=create_s, load_ip_adapter_s=ip_load_ms / 1e3,
+        loaded_tensors_equal_files=n_ref + n_style,
+        ip_scale_on=len(on), ip_scale_off=len(scales) - len(on), ip_scale_wrong=wrong)
+    if wrong or not on:
+        raise AssertionError(f"style_blocks: ip_scale wrong at {wrong}")
+    st.load_ip_adapter(paths["ip"], ip_scale=1.0, target="all")
+    if set(ip_scales(st, cfg).values()) != {1.0}:
+        raise AssertionError("target='all' left a site's ip_scale other than 1")
+
+    # the style embedding, with and without the negative content
+    rng = np.random.default_rng(SEED + 13)
+    style = rng.integers(0, 256, (*STYLE_IMAGE_HW, 3), dtype=np.uint8)
+    _, first_ms = timed(lambda: st.embed_style(style), dev)
+    tokens, embed_ms = timed(lambda: st.embed_style(style), dev)
+    neg, neg_ms = timed(lambda: st.embed_neg_content(NEG_CONTENT, paths["text"], 1.0), dev)
+    tokens_neg = st.embed_style(style, neg, 1.0)
+    rel_neg = rel_l2(tokens_neg, tokens)
+    finite = all(bool(torch.isfinite(t).all()) for t in (tokens, neg, tokens_neg))
+    log("style", embed_style_ms=embed_ms, embed_style_first_ms=first_ms,
+        embed_neg_content_ms_with_file_read=neg_ms, neg_content_shape=list(neg.shape),
+        tokens_shape=list(tokens.shape),
+        tokens_neg_shape=list(tokens_neg.shape), finite=finite,
+        rel_l2_tokens_neg_vs_plain=rel_neg)
+    want = [1, cfg.unet.ip_tokens, cfg.unet.context_dim]
+    if list(tokens.shape) != want or list(tokens_neg.shape) != want or not finite \
+            or not rel_neg > 1e-3:
+        raise AssertionError(f"style tokens: {list(tokens.shape)}, finite {finite}, "
+                             f"negative content moved them {rel_neg}")
+    del neg, tokens_neg
+
+    # txt2img at batch 4 and 512^2, 50 steps, then img2img
+    hint = rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    run = lambda steps, timings=None, **kw: st._sample_style_float(
+        (hint,), tokens, PROMPT, N_PROMPT, BATCH, steps, 7.5, (1.0,), SEED, timings=timings, **kw)
+    t0 = time.perf_counter()
+    run(2)  # warm-up
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted("style", STYLE_KERNELS) as launches:
+        timings = {}
+        t0 = time.perf_counter()
+        img = run(STEPS, timings)
+        total = time.perf_counter() - t0
+    step_ms = timings["ddim_s"] / STEPS * 1e3
+    log("style", steps=STEPS, batch=BATCH, size=SIZE, warmup_s=warm, s_per_batch=total,
+        phase4_s_per_batch=phase4_s_batch, ratio_to_phase4=total / phase4_s_batch,
+        s_per_step=timings["ddim_s"] / STEPS, **timings, launches=launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        image_shape=list(img.shape), image_finite=bool(torch.isfinite(img).all()),
+        image_mean=img.float().mean().item(), image_std=img.float().std().item())
+    if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"style: bad image, shape {tuple(img.shape)}")
+    content = rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    timings = {}
+    t0 = time.perf_counter()
+    img2 = run(STYLE_I2I_STEPS, timings, img2img_image=content,
+               img2img_strength=STYLE_STRENGTH)
+    log("style", img2img_steps=STYLE_I2I_STEPS, strength=STYLE_STRENGTH,
+        denoising_steps=int(STYLE_I2I_STEPS * STYLE_STRENGTH),
+        s_per_batch=time.perf_counter() - t0, **timings, image_shape=list(img2.shape),
+        image_finite=bool(torch.isfinite(img2).all()))
+    if tuple(img2.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img2).all():
+        raise AssertionError(f"style img2img: bad image, shape {tuple(img2.shape)}")
+    del img, img2
+
+    # one UNet + ControlNet evaluation of the guidance batch with image tokens
+    pipe = st.pipe
+    ctx, unc = pipe.encode_text_cond_uncond(st.token_ids(PROMPT, BATCH),
+                                            st.token_ids(N_PROMPT, BATCH))
+    conds = st.conditions([hint], BATCH, (1.0,))
+    conds2 = [dataclasses.replace(c, hint=torch.cat([c.hint, c.hint])) for c in conds]
+    full_ctx = torch.cat([ctx, unc])
+    lat = SIZE // 2 ** (len(cfg.vae.ch_mult) - 1)
+    x = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    x2 = torch.cat([x, x])
+    ts = torch.tensor([981], dtype=torch.int32, device=dev)
+    tvec = torch.full((2 * BATCH,), 981, dtype=torch.int32, device=dev)
+    zero = st.embed_style_tokens_zero(BATCH)
+    cond_ip = tokens.repeat_interleave(BATCH, dim=0)
+    ip_of = lambda tok: torch.cat([tok.repeat_interleave(BATCH, dim=0), zero])
+
+    def evaluate(tok=tokens):
+        packed, rows_of = make_emb_row_tables(pipe, conds2, ts)
+        return pipe.apply_model(x2, tvec, full_ctx, conds2, emb_rows=rows_of(packed[0]),
+                                ip_context=ip_of(tok))
+
+    before = counts_now()
+    out_k = evaluate()
+    torch.cuda.synchronize(dev)
+    per_eval = counts_since(before)
+    with plain_versions():
+        out_p = evaluate()
+    rel = rel_l2(out_k, out_p)
+    other = st.embed_style(rng.integers(0, 256, (*STYLE_IMAGE_HW, 3), dtype=np.uint8))
+    rel_style = rel_l2(evaluate(other), out_k)
+    eps = lambda u: make_guided_eps_fn(pipe, ctx, unc, conds, 7.5, ip_context=cond_ip,
+                                       uncond_ip_context=u)(x, 981)
+    rel_uncond = rel_l2(eps(zero), eps(None))
+    ip = ip_branch_ms(evaluate)
+    log("style", launches_per_evaluation=per_eval, rel_l2_kernels_vs_plain=rel,
+        bound=MODEL_REL_TOL, rel_l2_other_style_tokens=rel_style,
+        rel_l2_uncond_tokens_zero_proj_vs_cond=rel_uncond,
+        ip_branch_per_step={k: v for k, v in ip.items() if k != "query_shapes"},
+        ip_branch_device_share_of_step_wall=ip["device_ms"] / step_ms,
+        ip_branch_query_shapes=ip["query_shapes"])
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL or not rel_style > 1e-3 \
+            or not rel_uncond > 1e-3:
+        raise AssertionError(f"style evaluation: kernels vs plain {rel}, other tokens "
+                             f"{rel_style}, uncond tokens {rel_uncond}")
+
+    # ip_scale 0 everywhere against a UNet without image tokens on the text alone
+    for s in ip_adapter.ip_attn_sites(cfg.unet):
+        pipe.unet.get_submodule(".".join(s)).ip_scale.data.fill_(0.0)
+    with dev:
+        unet0 = UNet(dataclasses.replace(cfg.unet, ip_tokens=0))
+    unet0.load_state_dict({k: v for k, v in pipe.unet.state_dict().items()
+                           if not is_ip_key(k)}, strict=True)
+    lora_fuse.cast_params_for_inference(unet0, cfg.unet.compute_dtype)
+    to_channels_last(unet0.eval().requires_grad_(False))
+    with torch.no_grad():
+        packed, rows_of = make_emb_row_tables(pipe, conds2, ts)
+        rows = rows_of(packed[0])
+        taps = pipe.apply_control(x2, tvec, full_ctx, conds2, emb_rows=rows["control"])
+        with_ip = pipe.unet(x2, tvec, torch.cat([full_ctx, ip_of(tokens)], dim=1),
+                            control=taps, emb_rows=rows["unet"])
+        text_only = unet0(x2, tvec, full_ctx, control=taps, emb_rows=rows["unet"])
+    rel0 = rel_l2(with_ip, text_only)
+    log("style", rel_l2_ip_scale0_vs_text_only_unet=rel0, bound=MODEL_REL_TOL)
+    if not math.isfinite(rel0) or rel0 > MODEL_REL_TOL:
+        raise AssertionError(f"ip_scale 0 departs from the text-only UNet: rel {rel0}")
+    del st, pipe, unet0, written
+    torch.cuda.empty_cache()
+    tiny_style_gpu_vs_cpu(dev)
+    return launches
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
@@ -2584,6 +2941,7 @@ def main(argv) -> int:
     cli_runs = train_cli_slice(dev, phase6_s_step)
     baseline_runs = baselines_slice(dev)
     xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
+    style_launches = style_slice(dev, phase4_s_batch)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2592,7 +2950,8 @@ def main(argv) -> int:
                    "api_2lora": sum(r[name] for r in api_runs.values()),
                    "train_cli": sum(r[name] for r in cli_runs.values()),
                    "baselines": sum(r[name] for r in baseline_runs.values()),
-                   "xs": sum(r[name] for r in xs_runs.values())}
+                   "xs": sum(r[name] for r in xs_runs.values()),
+                   "style": style_launches[name]}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

@@ -54,7 +54,7 @@ class UNetConfig:
     use_checkpoint: bool = True  # rematerialise ResBlocks and transformers in training
     dtype: str = "bfloat16"
     use_flash_attention: bool = True
-    ip_tokens: int = 0  # IP-Adapter image tokens: not ported (ROADMAP queue 1 item 9)
+    ip_tokens: int = 0  # IP-Adapter image tokens at the end of every attn2 context
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -305,10 +305,6 @@ _PRESETS = {
     "ctrlora_pretrain": ctrlora_pretrain_config,
     "tiny": tiny_test_config,
 }
-# the ROADMAP queue 1 item that ports the image-prompt branch
-IP_ITEM = "item 9 (style / IP-Adapter)"
-
-
 # ---------------------------------------------------------------------------
 # YAML files
 # ---------------------------------------------------------------------------
@@ -481,15 +477,18 @@ def _deep_update(dst: dict, src: dict) -> dict:
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """`cfg`, or NotImplementedError where it needs a part the port does not
-    have: image-prompt tokens (ROADMAP queue 1 item 9), dropout, a schedule
+    have: image-prompt tokens in the control branch, dropout, a schedule
     other than SD's linear one, or a v_posterior other than 0."""
+    if cfg.control is not None and cfg.control.unet.ip_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: control.unet.ip_tokens={cfg.control.unet.ip_tokens}: the control "
+            "branch reads the text context only (the image-prompt tokens go to the UNet), "
+            "where a JAX ControlNet built with image tokens would take the last text tokens "
+            "for them")
     for where, unet in (("unet", cfg.unet),
                         ("control.unet", cfg.control.unet if cfg.control else None)):
         if unet is None:
             continue
-        if unet.ip_tokens:
-            raise NotImplementedError(f"{cfg.name}: {where}.ip_tokens={unet.ip_tokens} needs "
-                                      f"the IP-Adapter branch: ROADMAP queue 1 {IP_ITEM}")
         if unet.dropout:
             raise NotImplementedError(f"{cfg.name}: {where}.dropout={unet.dropout}: the port "
                                       "has no dropout")

@@ -7,8 +7,8 @@ the same in both packages and only the leaf's layout changes:
 * Conv ``kernel`` HWIO                -> ``weight`` OIHW
 * banked ZeroConv ``kernel`` [n,1,1,ci,co] -> ``weight`` [n, co, ci, 1, 1]
 * GroupNorm / LayerNorm ``scale``     -> ``weight`` (banked [n, C] kept)
-* ``bias``, ``lora_down`` [n, in, r], ``lora_up`` [n, r, out] and the CLIP
-  embeddings keep their layout.
+* ``bias``, ``lora_down`` [n, in, r], ``lora_up`` [n, r, out], the CLIP
+  embeddings and the 0-d ``ip_scale`` keep their layout.
 
 A tree without LoRA or banks (a fused control tree, the UNet, VAE and CLIP)
 loads straight into the port's modules with ``load_state_dict(strict=True)``;
@@ -56,7 +56,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 walk(f"{prefix}{key}.", value)
                 continue
             name, arr = _leaf(key, np.asarray(value))
-            out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
+            # reshape: ascontiguousarray makes a 0-d leaf (ip_scale) 1-d
+            out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
 
     walk("", tree)
     return out

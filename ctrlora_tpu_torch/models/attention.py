@@ -18,6 +18,13 @@ Two ``CTRLORA_KERNELS`` tokens change the self-attention path without LoRA,
 as in the JAX ``CrossAttention``: ``qkvpack=0`` splits the fused projection
 into strided [B, S, H, D] views for the BSHD dispatcher (which takes kernel
 B6 under ``hpack=2``), and ``fuse_qkv=0`` issues three projections.
+
+With ``ip_tokens`` (the IP-Adapter, reference attention_ip.py:196-289) a
+cross-attention's context is [text | image]: the last ``ip_tokens`` rows go
+through the bias-free ``to_k_ip`` / ``to_v_ip`` and are attended by the same
+queries through the plain attention (JAX runs this 4-token branch outside
+Pallas too), added as ``ip_scale`` (an fp32 scalar cast to the output's
+dtype, as JAX's) times that output.
 """
 
 from __future__ import annotations
@@ -37,10 +44,17 @@ from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import kernel_flags
 
 
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default Dense kernel init on an [out, in] weight: a normal of
+    variance 1/in truncated at two standard deviations."""
+    std = weight.shape[1] ** -0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
 class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None, use_flash: bool = True,
-                 lora: Optional[LoRAConfig] = None):
+                 lora: Optional[LoRAConfig] = None, ip_tokens: int = 0):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head, self.use_flash = heads, dim_head, use_flash
@@ -52,6 +66,14 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(cdim, inner, bias=False, lora=lora)
         self.to_out = Dense(inner, query_dim, lora=lora)
         self.wqkv: Optional[torch.Tensor] = None  # not a parameter: derived
+        self.ip_tokens = 0 if self.is_self else ip_tokens
+        if self.ip_tokens:
+            self.to_k_ip = Dense(cdim, inner, bias=False)
+            self.to_v_ip = Dense(cdim, inner, bias=False)
+            with torch.no_grad():
+                lecun_normal_(self.to_k_ip.weight)
+                lecun_normal_(self.to_v_ip.weight)
+            self.ip_scale = nn.Parameter(torch.ones(()))
 
     def fuse_projections(self) -> None:
         """Concatenate the self-attention q|k|v weights once (after the
@@ -62,13 +84,18 @@ class CrossAttention(nn.Module):
     def forward(self, x, context=None, lora_idx: LoraIdx = None):
         b, s, _ = x.shape
         h, d = self.heads, self.dim_head
+        ip_ctx = None
+        if self.ip_tokens:  # context = [text tokens | image-prompt tokens]
+            n = context.shape[1] - self.ip_tokens
+            context, ip_ctx = context[:, :n], context[:, n:]
         if self.lora:
             ctx = x if context is None else context
             heads4 = lambda t: t.unflatten(-1, (h, d))  # [B, S, H, D] view
+            q = self.to_q(x, lora_idx)
             out = fa_ops.dot_product_attention_bshd(
-                heads4(self.to_q(x, lora_idx)), heads4(self.to_k(ctx, lora_idx)),
+                heads4(q), heads4(self.to_k(ctx, lora_idx)),
                 heads4(self.to_v(ctx, lora_idx)), use_flash=self.use_flash)
-            return self.to_out(out, lora_idx)
+            return self.to_out(self._add_ip(out, q, ip_ctx), lora_idx)
         if context is None:
             fl = kernel_flags.flags()
             if fl.fuse_qkv is not False:
@@ -86,12 +113,24 @@ class CrossAttention(nn.Module):
             out = fa_ops.dot_product_attention_bshd(q, k, v, use_flash=self.use_flash)
         else:
             heads4 = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
-            q = heads4(self.to_q(x))
-            k = heads4(self.to_k(context))
-            v = heads4(self.to_v(context))
-            out = fa_ops.dot_product_attention(q, k, v, use_flash=self.use_flash)
-            out = out.transpose(1, 2).reshape(b, s, h * d)
+            q = self.to_q(x)
+            out = fa_ops.dot_product_attention(heads4(q), heads4(self.to_k(context)),
+                                               heads4(self.to_v(context)),
+                                               use_flash=self.use_flash)
+            out = self._add_ip(out.transpose(1, 2).reshape(b, s, h * d), q, ip_ctx)
         return self.to_out(out)
+
+    def _add_ip(self, out, q, ip_ctx):
+        """out [B, S, H*D] plus the image-prompt branch over ip_ctx with the
+        queries q [B, S, H*D] (out unchanged without image tokens)."""
+        if ip_ctx is None:
+            return out
+        b, s, _ = q.shape
+        heads4 = lambda t: t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
+        out_ip = fa_ops.attention_plain(heads4(q), heads4(self.to_k_ip(ip_ctx)),
+                                        heads4(self.to_v_ip(ip_ctx)))[0]
+        out_ip = out_ip.transpose(1, 2).reshape(b, s, -1)
+        return out + self.ip_scale.to(out.dtype) * out_ip
 
 
 class FeedForward(nn.Module):
@@ -119,14 +158,15 @@ class BasicTransformerBlock(nn.Module):
     """Pre-LN self-attention -> cross-attention -> feed-forward."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: Optional[int],
-                 use_flash: bool = True, lora: Optional[LoRAConfig] = None):
+                 use_flash: bool = True, lora: Optional[LoRAConfig] = None,
+                 ip_tokens: int = 0):
         super().__init__()
         banks = n_banks(lora)
         self.norm1 = LayerNorm32(dim, n_banks=banks)
         self.attn1 = CrossAttention(dim, heads, dim_head, use_flash=use_flash, lora=lora)
         self.norm2 = LayerNorm32(dim, n_banks=banks)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
-                                    use_flash=use_flash, lora=lora)
+                                    use_flash=use_flash, lora=lora, ip_tokens=ip_tokens)
         self.norm3 = LayerNorm32(dim, n_banks=banks)
         self.ff = FeedForward(dim, lora=lora)
 
@@ -142,7 +182,7 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, use_flash: bool = True,
-                 lora: Optional[LoRAConfig] = None):
+                 lora: Optional[LoRAConfig] = None, ip_tokens: int = 0):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -150,7 +190,8 @@ class SpatialTransformer(nn.Module):
         self.proj_in = Conv(channels, inner, kernel_size=1)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
-                inner, heads, dim_head, context_dim, use_flash=use_flash, lora=lora))
+                inner, heads, dim_head, context_dim, use_flash=use_flash, lora=lora,
+                ip_tokens=ip_tokens))
         self.proj_out = zero_(Conv(inner, channels, kernel_size=1))
 
     def forward(self, x, context, lora_idx: LoraIdx = None):

@@ -81,15 +81,18 @@ def decoder_plan(cfg: UNetConfig) -> List[DecoderStep]:
     return steps
 
 
-def _attn(cfg: UNetConfig, ch: int, lora: Optional[LoRAConfig] = None) -> SpatialTransformer:
+def _attn(cfg: UNetConfig, ch: int, lora: Optional[LoRAConfig] = None,
+          ip_tokens: int = 0) -> SpatialTransformer:
     return SpatialTransformer(ch, cfg.num_heads, ch // cfg.num_heads,
                               depth=cfg.transformer_depth, context_dim=cfg.context_dim,
-                              use_flash=cfg.use_flash_attention, lora=lora)
+                              use_flash=cfg.use_flash_attention, lora=lora,
+                              ip_tokens=ip_tokens)
 
 
 def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
-                   lora: Optional[LoRAConfig] = None) -> int:
-    """Adds in_conv and the in_{i}_* blocks; returns the output width."""
+                   lora: Optional[LoRAConfig] = None, ip_tokens: int = 0) -> int:
+    """Adds in_conv and the in_{i}_* blocks; returns the output width. Only
+    the UNet passes its ``ip_tokens``: a control branch reads text only."""
     emb_dim = 4 * cfg.model_channels
     ch = cfg.model_channels
     module.in_conv = Conv(in_channels, ch)
@@ -98,16 +101,16 @@ def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
             module.add_module(f"in_{i}_res", ResBlock(ch, step.out_ch, emb_dim, lora))
             ch = step.out_ch
             if step.attn:
-                module.add_module(f"in_{i}_attn", _attn(cfg, ch, lora))
+                module.add_module(f"in_{i}_attn", _attn(cfg, ch, lora, ip_tokens))
         else:
             module.add_module(f"in_{i}_down", Downsample(ch, step.out_ch))
     module.mid_res0 = ResBlock(ch, ch, emb_dim, lora)
-    module.mid_attn = _attn(cfg, ch, lora)
+    module.mid_attn = _attn(cfg, ch, lora, ip_tokens)
     module.mid_res1 = ResBlock(ch, ch, emb_dim, lora)
     return ch
 
 
-def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int) -> None:
+def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int, ip_tokens: int = 0) -> None:
     """Adds the out_{i}_* blocks on an encoder of output width `ch`, then
     norm_out and the zero-initialised conv_out."""
     emb_dim = 4 * cfg.model_channels
@@ -115,7 +118,7 @@ def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int) -> None:
         module.add_module(f"out_{i}_res", ResBlock(ch + step.skip_ch, step.out_ch, emb_dim))
         ch = step.out_ch
         if step.attn:
-            module.add_module(f"out_{i}_attn", _attn(cfg, ch))
+            module.add_module(f"out_{i}_attn", _attn(cfg, ch, ip_tokens=ip_tokens))
         if step.upsample:
             module.add_module(f"out_{i}_up", Upsample(ch, ch))
     module.norm_out = GroupNorm32(ch, silu=True)
@@ -142,13 +145,15 @@ class UNet(nn.Module):
     'encoder' (ControlNet-Lite) 0..11 add onto the encoder blocks' outputs
     as they are made, and 12 onto the middle. ``only_mid_control`` keeps
     the middle tap only (decoder mode). ``conv_out`` starts at zero, as in
-    JAX: a fresh UNet outputs exactly 0."""
+    JAX: a fresh UNet outputs exactly 0. With ``cfg.ip_tokens`` every attn2
+    takes the context's last ``ip_tokens`` rows as image-prompt tokens."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
         self.time_embed = TimestepEmbed(cfg.model_channels)
-        _build_decoder(self, cfg, _build_encoder(self, cfg, cfg.in_channels))
+        _build_decoder(self, cfg, _build_encoder(self, cfg, cfg.in_channels,
+                                                 ip_tokens=cfg.ip_tokens), cfg.ip_tokens)
 
     def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
                 emb_rows: Optional[dict] = None, only_mid_control: bool = False,

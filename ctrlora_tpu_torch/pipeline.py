@@ -257,12 +257,19 @@ class CtrLoraPipeline:
     def apply_model(self, x_noisy, t, context, conds: Optional[Sequence[Conditioning]] = None,
                     emb_rows: Optional[Dict] = None,
                     control_scales: Optional[Sequence[float]] = None,
-                    control_batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    control_batch_mask: Optional[torch.Tensor] = None,
+                    ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Predicted model output (eps, or v for a v-parameterized model)
         [B, h, w, 4] fp32 for noisy latents. emb_rows: one step's rows of
         ``emb_proj_tables`` (t batch-uniform); control_scales: one factor
         per control tap (13 at SD1.5 width); control_batch_mask [B]: each
         sample's control on (1) or off (0), guess mode's uncond half.
+        ip_context [B, ip_tokens, D]: image-prompt tokens appended to the
+        UNet's context only; the control branch reads the text context
+        (reference cldm_ctrlora_style_inference.py:163-187). A UNet with
+        image tokens needs them and one without takes none: the port
+        raises on either, and on a token count other than the UNet's, where
+        JAX would take the last text tokens for image tokens.
 
         ControlNet-XS: one fused two-stream forward on the first
         condition's pixel hint, or the plain SD forward where there is no
@@ -271,8 +278,14 @@ class CtrLoraPipeline:
         port raises on a mask, on scales other than ones, on a weight other
         than 1 and on more than one condition."""
         if self.is_xs:
+            if ip_context is not None:
+                raise ValueError("ControlNet-XS takes no ip_context (JAX ignores it)")
             return self._apply_xs(x_noisy, t, context, conds, control_scales,
                                   control_batch_mask)
+        n_ip = self.cfg.unet.ip_tokens
+        if (ip_context is None) != (n_ip == 0) or (n_ip and ip_context.shape[1] != n_ip):
+            got = None if ip_context is None else tuple(ip_context.shape)
+            raise ValueError(f"the UNet takes {n_ip} image-prompt tokens; ip_context is {got}")
         control = None
         if conds:
             control = self.apply_control(
@@ -281,6 +294,8 @@ class CtrLoraPipeline:
             if control_batch_mask is not None:
                 m = control_batch_mask.reshape(-1, 1, 1, 1)
                 control = tuple(c * m.to(c.dtype) for c in control)
+        if ip_context is not None:
+            context = torch.cat([context, ip_context.to(context.dtype)], dim=1)
         return self.unet(x_noisy, t, context, control=control,
                          emb_rows=emb_rows["unet"] if emb_rows is not None else None,
                          only_mid_control=self.cfg.diffusion.only_mid_control,

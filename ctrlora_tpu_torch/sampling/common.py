@@ -40,19 +40,25 @@ class _GuidedEps:
     hints (reference: cldm/cldm.py:398), and returns
     ``out_u + scale * (out_c - out_u)``; `scale` overrides the guidance
     scale for one call (a ``ucg_schedule``). Guess mode runs the uncond half
-    without control (a control_batch_mask of ones then zeros). ``conds`` is
-    the condition list the model calls take (hints doubled under
-    guidance), which ``make_emb_row_tables`` also takes."""
+    without control (a control_batch_mask of ones then zeros). The
+    image-prompt tokens ``ip_context`` are stacked as [cond; uncond], the
+    uncond half taking ``uncond_ip_context`` where given, else the cond
+    tokens (the style app gives ``image_proj(zeros)``). ``conds`` is the
+    condition list the model calls take (hints doubled under guidance),
+    which ``make_emb_row_tables`` also takes."""
 
     def __init__(self, pipe: CtrLoraPipeline, context: torch.Tensor,
                  uncond_context: Optional[torch.Tensor],
                  conds: Optional[Sequence[Conditioning]], guidance_scale: float,
-                 control_scales: Optional[Sequence[float]] = None, guess_mode: bool = False):
+                 control_scales: Optional[Sequence[float]] = None, guess_mode: bool = False,
+                 ip_context: Optional[torch.Tensor] = None,
+                 uncond_ip_context: Optional[torch.Tensor] = None):
         self.pipe = pipe
         self.guidance_scale = guidance_scale
         self.control_scales = control_scales
         self.use_cfg = uncond_context is not None and guidance_scale != 1.0
         self.cmask = None
+        self.ip_context = ip_context
         if self.use_cfg:
             # replace() keeps every other field, the condition's own control
             # module among them
@@ -62,6 +68,9 @@ class _GuidedEps:
             if guess_mode:
                 b = context.shape[0]
                 self.cmask = torch.cat([torch.ones(b), torch.zeros(b)]).to(pipe.device)
+            if ip_context is not None:
+                self.ip_context = torch.cat(
+                    [ip_context, ip_context if uncond_ip_context is None else uncond_ip_context])
         else:
             self.context, self.conds = context, list(conds or [])
 
@@ -73,7 +82,7 @@ class _GuidedEps:
         x_in = torch.cat([x, x]) if self.use_cfg else x
         out = self.pipe.apply_model(x_in, tvec, self.context, self.conds, emb_rows=emb_rows,
                                     control_scales=self.control_scales,
-                                    control_batch_mask=self.cmask)
+                                    control_batch_mask=self.cmask, ip_context=self.ip_context)
         if not self.use_cfg:
             return out
         s = self.guidance_scale if scale is None else scale
@@ -84,10 +93,11 @@ def make_guided_eps_fn(pipe: CtrLoraPipeline, context: torch.Tensor,
                        uncond_context: Optional[torch.Tensor],
                        conds: Optional[Sequence[Conditioning]], guidance_scale: float,
                        control_scales: Optional[Sequence[float]] = None,
-                       guess_mode: bool = False) -> "_GuidedEps":
+                       guess_mode: bool = False, ip_context: Optional[torch.Tensor] = None,
+                       uncond_ip_context: Optional[torch.Tensor] = None) -> "_GuidedEps":
     """The guided model call every sampler makes (see ``_GuidedEps``)."""
     return _GuidedEps(pipe, context, uncond_context, conds, guidance_scale, control_scales,
-                     guess_mode)
+                     guess_mode, ip_context, uncond_ip_context)
 
 
 def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Optional[Sequence[Conditioning]],

@@ -61,7 +61,9 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                 mask: Optional[torch.Tensor] = None, x0: Optional[torch.Tensor] = None,
                 ddim_schedule: Optional[DDIMSchedule] = None,
                 noise: Optional[torch.Tensor] = None,
-                mask_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask_noise: Optional[torch.Tensor] = None,
+                ip_context: Optional[torch.Tensor] = None,
+                uncond_ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns the final latents [B, h, w, 4] fp32.
 
     `x_T` is the starting noise; without it the noise comes from
@@ -72,6 +74,8 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     sigma is above 0), `mask_noise` [S, ...] the draws that noise x0; each
     missing one is drawn from `generator` after x_T, eta draws first. At
     eta 0 without a mask the loop draws and launches nothing for noise.
+    `ip_context` [B, ip_tokens, D] are a style UNet's image-prompt tokens,
+    `uncond_ip_context` the uncond CFG half's (default: the same tokens).
     """
     device = pipe.device
     dd = ddim_schedule or make_ddim_schedule(pipe.schedule, cfg.steps, eta=cfg.eta)
@@ -93,7 +97,7 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
         keep_img = 1.0 - mask
 
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode)
+                                control_scales, cfg.guess_mode, ip_context, uncond_ip_context)
     if cfg.ucg_schedule is not None:
         if len(cfg.ucg_schedule) != n_steps:
             raise ValueError(f"ucg_schedule has {len(cfg.ucg_schedule)} scales for "
@@ -184,12 +188,15 @@ def ddim_decode_from(pipe: CtrLoraPipeline, x_latent: torch.Tensor, t_start: int
                      conds: Optional[Sequence[Conditioning]], cfg: DDIMConfig,
                      control_scales: Optional[Sequence[float]] = None,
                      generator: Optional[torch.Generator] = None,
-                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     noise: Optional[torch.Tensor] = None,
+                     ip_context: Optional[torch.Tensor] = None,
+                     uncond_ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DDIM decoding from an intermediate step (reference:
     ddim_hacked.py:297-317): the first t_start rungs of the cfg.steps
-    ladder, from x_latent down to t = 0."""
+    ladder, from x_latent down to t = 0 (the style pipeline's img2img)."""
     sub = make_ddim_schedule(pipe.schedule, cfg.steps, eta=cfg.eta)[:t_start]
     return ddim_sample(pipe, context, uncond_context, conds, tuple(x_latent.shape),
                        dataclasses.replace(cfg, steps=t_start), x_T=x_latent,
                        generator=generator, control_scales=control_scales,
-                       ddim_schedule=sub, noise=noise)
+                       ddim_schedule=sub, noise=noise, ip_context=ip_context,
+                       uncond_ip_context=uncond_ip_context)

@@ -99,14 +99,16 @@ def dpm_solver_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                       algorithm: str = "dpmsolver++", thresholding: bool = False,
                       dynamic_thresholding_ratio: float = 0.995,
                       thresholding_max_val: float = 1.0,
-                      lower_order_final: bool = True) -> torch.Tensor:
+                      lower_order_final: bool = True,
+                      ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The multistep solver, cfg.steps model evaluations. Returns the final
-    latents [B, h, w, 4] fp32."""
+    latents [B, h, w, 4] fp32. `ip_context`: a style UNet's image-prompt
+    tokens, as in ``ddim_sample``."""
     data_pred = _check(order, algorithm)
     device = pipe.device
     x = initial_latents(x_T, latent_shape, generator, device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode)
+                                control_scales, cfg.guess_mode, ip_context)
     m_fn = _model_fn(pipe, eps_fn, data_pred, thresholding, dynamic_thresholding_ratio,
                      thresholding_max_val)
 
@@ -267,14 +269,15 @@ def dpm_solver_singlestep_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                                  order: int = 2, algorithm: str = "dpmsolver++",
                                  thresholding: bool = False,
                                  dynamic_thresholding_ratio: float = 0.995,
-                                 thresholding_max_val: float = 1.0) -> torch.Tensor:
+                                 thresholding_max_val: float = 1.0,
+                                 ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The singlestep solver, cfg.steps model evaluations in blocks of
     `order` (reference dpm_solver.py:827-853, method 'singlestep'). Returns
     the final latents [B, h, w, 4] fp32."""
     data_pred = _check(order, algorithm)
     x = initial_latents(x_T, latent_shape, generator, pipe.device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode)
+                                control_scales, cfg.guess_mode, ip_context)
     m_fn = _model_fn(pipe, eps_fn, data_pred, thresholding, dynamic_thresholding_ratio,
                      thresholding_max_val)
 

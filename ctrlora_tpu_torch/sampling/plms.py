@@ -32,9 +32,11 @@ def plms_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                 conds: Optional[Sequence[Conditioning]], latent_shape: Sequence[int],
                 cfg: DDIMConfig = DDIMConfig(), x_T: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                control_scales: Optional[Sequence[float]] = None) -> torch.Tensor:
+                control_scales: Optional[Sequence[float]] = None,
+                ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns the final latents [B, h, w, 4] fp32; cfg.steps ladder rungs,
-    cfg.steps + 1 model evaluations."""
+    cfg.steps + 1 model evaluations. `ip_context`: a style UNet's
+    image-prompt tokens, as in ``ddim_sample``."""
     if cfg.eta != 0.0:
         raise ValueError("PLMS requires eta=0")
     if v_model(pipe):
@@ -43,7 +45,7 @@ def plms_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     dd = make_ddim_schedule(pipe.schedule, cfg.steps)
     img = initial_latents(x_T, latent_shape, generator, device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode)
+                                control_scales, cfg.guess_mode, ip_context)
     order = np.arange(dd.num_steps - 1, -1, -1)
     ts = dd.timesteps[order]
     ts_next = np.concatenate([ts[1:], [0]])  # one rung down, 0 past the end

@@ -89,7 +89,7 @@ def _resblock(t: str, f: str, has_skip: bool) -> List[Entry]:
     return e
 
 
-def _transformer(t: str, f: str, depth: int = 1) -> List[Entry]:
+def _transformer(t: str, f: str, depth: int = 1, ip: bool = False) -> List[Entry]:
     e: List[Entry] = []
     e += _norm(f"{t}.norm", (f, "norm"))
     e += _conv(f"{t}.proj_in", (f, "proj_in"))
@@ -100,6 +100,10 @@ def _transformer(t: str, f: str, depth: int = 1) -> List[Entry]:
             e += _linear(f"{tb}.{attn}.to_k", (*fb, attn, "to_k"), bias=False)
             e += _linear(f"{tb}.{attn}.to_v", (*fb, attn, "to_v"), bias=False)
             e += _linear(f"{tb}.{attn}.to_out.0", (*fb, attn, "to_out"))
+        if ip:
+            e += _linear(f"{tb}.attn2.to_k_ip", (*fb, "attn2", "to_k_ip"), bias=False)
+            e += _linear(f"{tb}.attn2.to_v_ip", (*fb, "attn2", "to_v_ip"), bias=False)
+            e.append((f"{tb}.attn2.ip_scale", (*fb, "attn2", "ip_scale"), T_COPY))
         e += _linear(f"{tb}.ff.net.0.proj", (*fb, "ff", "proj"))
         e += _linear(f"{tb}.ff.net.2", (*fb, "ff", "out"))
         e += _norm(f"{tb}.norm1", (*fb, "norm1"))
@@ -109,8 +113,9 @@ def _transformer(t: str, f: str, depth: int = 1) -> List[Entry]:
     return e
 
 
-def unet_entries(cfg: UNetConfig, decoder: bool = True) -> List[Entry]:
-    """Full UNet table (reference names: model.diffusion_model.*)."""
+def unet_entries(cfg: UNetConfig, decoder: bool = True, ip: bool = False) -> List[Entry]:
+    """Full UNet table (reference names: model.diffusion_model.*); `ip` adds
+    every attn2's image-prompt projections and scale."""
     e: List[Entry] = []
     e += _linear("time_embed.0", ("time_embed", "dense0"))
     e += _linear("time_embed.2", ("time_embed", "dense1"))
@@ -123,13 +128,13 @@ def unet_entries(cfg: UNetConfig, decoder: bool = True) -> List[Entry]:
             e += _resblock(f"input_blocks.{i}.0", f"in_{i}_res", in_ch != step.out_ch)
             if step.attn:
                 e += _transformer(
-                    f"input_blocks.{i}.1", f"in_{i}_attn", cfg.transformer_depth
+                    f"input_blocks.{i}.1", f"in_{i}_attn", cfg.transformer_depth, ip
                 )
             in_ch = step.out_ch
         else:
             e += _conv(f"input_blocks.{i}.0.op", (f"in_{i}_down", "conv"))
     e += _resblock("middle_block.0", "mid_res0", False)
-    e += _transformer("middle_block.1", "mid_attn", cfg.transformer_depth)
+    e += _transformer("middle_block.1", "mid_attn", cfg.transformer_depth, ip)
     e += _resblock("middle_block.2", "mid_res1", False)
     if decoder:
         ch = chans[-1]
@@ -140,7 +145,7 @@ def unet_entries(cfg: UNetConfig, decoder: bool = True) -> List[Entry]:
             nxt = 1
             if step.attn:
                 e += _transformer(
-                    f"output_blocks.{i}.{nxt}", f"out_{i}_attn", cfg.transformer_depth
+                    f"output_blocks.{i}.{nxt}", f"out_{i}_attn", cfg.transformer_depth, ip
                 )
                 nxt += 1
             if step.upsample:

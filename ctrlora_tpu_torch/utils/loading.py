@@ -57,8 +57,12 @@ def _merge(dst: StateDict, tree: dict) -> None:
 
 
 def load_sd_into(cfg, states: States, sd: Dict[str, np.ndarray]) -> None:
+    """The SD file's UNet, VAE and CLIP keys; each key the file lacks keeps
+    the state's value (an SD file has no image-prompt keys: those come from
+    the IP-Adapter file)."""
+    ip = cfg.unet.ip_tokens > 0
     for dst, entries, prefix in (
-            (states.unet, bridge.unet_entries(cfg.unet), "model.diffusion_model."),
+            (states.unet, bridge.unet_entries(cfg.unet, ip=ip), "model.diffusion_model."),
             (states.vae, bridge.vae_entries(cfg.vae), "first_stage_model."),
             (states.clip, bridge.clip_entries(cfg.clip), "cond_stage_model.transformer.text_model.")):
         tree, _ = bridge.convert_tree(sd, entries, prefix=prefix, strict=False)

@@ -42,6 +42,7 @@ from ctrlora_tpu_torch import configs, convert
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling import common as sampling_common
 from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
+from ctrlora_tpu_torch.style import style_config
 from ctrlora_tpu_torch.training import step as pstep
 from ctrlora_tpu_torch.training import train_state as pts
 from tests.test_torch_plms_dpm import _random_params
@@ -142,15 +143,15 @@ def test_baseline_presets_match_jax(name):
 def test_xs_preset_names_its_roadmap_item():
     """ControlNet-XS (ROADMAP item 10b) is ported: its preset is JAX's, field
     for field, and its pipeline holds the XS UNet and no control module.
-    What is still not ported names its item: the style config's image
-    tokens (item 9)."""
+    The style config's image tokens (item 9) are ported too: its file reads
+    as the port's ``style_config()``."""
     fields = _shared_fields(configs.load_model_config("cnxs_sd15"),
                             jax_configs.load_model_config("cnxs_sd15"))
     assert len(fields) > 60 and [(p, a) for p, a, b in fields if a != b] == []
     pipe = CtrLoraPipeline(_variant(configs.tiny_test_config(hint_mode="image"), "xs"), "cpu")
     assert type(pipe.unet).__name__ == "XSUNet" and pipe.control is None
-    with pytest.raises(NotImplementedError, match="item 9"):
-        configs.load_model_config("configs/inference/ctrlora_style_sd15_rank128_1lora.yaml")
+    assert configs.load_model_config(
+        "configs/inference/ctrlora_style_sd15_rank128_1lora.yaml") == style_config()
 
 
 def test_hint_block_matches_jax(env):

@@ -40,7 +40,7 @@ def test_port_modules_cover_the_slice():
                 "data.loader", "training.ema", "training.latent_cache",
                 "scripts.train_common", "scripts.train_ctrlora_finetune",
                 "scripts.train_ctrlora_pretrain", "models.lite", "scripts.train_cn",
-                "models.xs"):
+                "models.xs", "models.ip_adapter", "models.openclip", "style"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
