@@ -7,8 +7,9 @@ reference-format checkpoints, the finetune and pretrain CLIs training
 from dataset files, the ControlNet baselines (vanilla image-hint
 ControlNet and ControlNet-Lite) sampling and training through train_cn,
 ControlNet-XS sampling from configs/cnxs_sd15.yaml and training
-through train_cn --variant xs, and style transfer with IP-Adapter
-(StyleCtrLoRA) from the style config file.
+through train_cn --variant xs, style transfer with IP-Adapter
+(StyleCtrLoRA) from the style config file, and the evaluation protocol:
+the sample CLI's output scored by the evaluate_{control,restore,fid} CLIs.
 
     python3 chip_smoke.py
 
@@ -175,7 +176,29 @@ the script exits non-zero:
    every site within relative L2 5e-2 of a UNet
    without image tokens on the text alone; then a tiny style
    configuration on the GPU against the CPU (rtol 2e-3 / atol 2e-4). The
-   files are deleted at the end.
+   files are deleted at the end;
+14. (after phase 13) evaluation: (a) the sample CLI's main at its defaults
+   (DDIM 50, CFG 7.5, --bs 4, 512^2) on fp16 reference-format files and a
+   CustomDataset of 8 seeded items: s/batch, files written, its launches
+   per model evaluation in the sampler and per batch outside it, equal to
+   phase 9's sample CLI batch; (b) seeded files in the published layouts
+   at the published widths (pt_inception with BN buffers; VGG16 features +
+   lpips lin heads; an HF CLIPModel at clip-vit-large-patch14's widths)
+   and evaluate_control --detector canny, evaluate_restore (both with
+   LPIPS and CLIPScore) and evaluate_fid on sample/ against img/: the
+   printed metrics (finite, LPIPS >= 0, CLIPScore in [0, 100]), seconds,
+   images/s, peak memory, and no hand-written kernel launched; (c) LPIPS
+   at [64, 512, 512, 3] pairs, Inception at [32, 299, 299, 3], CLIP's
+   towers and the CLIPScorer call at 64 images, SSIM at [64, 512, 512, 3]
+   and a T5 v1.1-large encode of [4, 77] ids, back to back: ms, images/s,
+   fp32 FLOPs (torch.utils.flop_counter) and the share of the H100's 67
+   TFLOP/s fp32 peak (TF32 off); (d) those models on the card against
+   copies on the CPU on small seeded inputs (rtol 1e-4 / atol 1e-5, CLIP
+   scores atol 1e-3), and the TF32 guard restoring the caller's flags; (e)
+   lpips(a, a) and ssim(a, a) at full width (within 1e-6 of 0 and 1), the
+   FID of the samples against themselves (within 1e-3 of tr(C), timed on
+   the host) below their FID against img/. The files are deleted at the
+   end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -198,8 +221,12 @@ share, and the flash backward's share of the step).
 """
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
+import gc
+import importlib.metadata
+import io
 import json
 import math
 import os
@@ -216,9 +243,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctrlora_tpu_torch import api as api_mod
-from ctrlora_tpu_torch import configs, lora_fuse
+from ctrlora_tpu_torch import configs, evaluation, lora_fuse
 from ctrlora_tpu_torch import style as style_mod
+from ctrlora_tpu_torch.models import inception as inception_mod
 from ctrlora_tpu_torch.models import ip_adapter
+from ctrlora_tpu_torch.models import lpips as lpips_mod
+from ctrlora_tpu_torch.models import t5 as t5_mod
 from ctrlora_tpu_torch.models.attention import CrossAttention
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
 from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32, to_channels_last
@@ -240,6 +270,7 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
 )
 from ctrlora_tpu_torch.sampling.plms import plms_sample
 from ctrlora_tpu_torch.data import native as native_data
+from ctrlora_tpu_torch.scripts import evaluate_control, evaluate_fid, evaluate_restore
 from ctrlora_tpu_torch.scripts import sample as sample_cli
 from ctrlora_tpu_torch.scripts import train_cn as train_cn_mod
 from ctrlora_tpu_torch.scripts import train_common
@@ -252,6 +283,7 @@ from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
 from ctrlora_tpu_torch.utils.image import png_writer, write_png
 from ctrlora_tpu_torch.utils.loading import check_key, load_ctrlora
+from ctrlora_tpu_torch.utils.precision import fp32_exact
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -1148,7 +1180,8 @@ def sampler_family(dev, pipe, ids, uncond, hint):
     (batch 4, 512^2, CFG 7.5, FAMILY_STEPS steps). Each run: prep (CLIP
     pair, hint encode), the sampler, decode, timed apart; the model
     evaluations, and the kernel launches per evaluation of the sampler
-    alone. Returns the launches of all runs."""
+    alone. Returns the launches of all runs and the sample CLI batch's
+    launch rates (``launch_rates``)."""
     evals = [0]
     apply_model = pipe.apply_model
 
@@ -1235,10 +1268,10 @@ def sampler_family(dev, pipe, ids, uncond, hint):
     log("samplers", guess_mode_unet_controlnet_rel_l2_kernels_vs_plain=rel, bound=MODEL_REL_TOL)
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"guess-mode evaluation departs from the plain path: rel {rel}")
-    cli_launches = sample_cli_batch(dev)
+    cli_launches, cli_rates = sample_cli_batch(dev)
     for k, v in cli_launches.items():
         totals[k] = totals.get(k, 0) + v
-    return totals
+    return totals, cli_rates
 
 
 def sample_cli_batch(dev):
@@ -1276,18 +1309,63 @@ def sample_cli_batch(dev):
     nids = tok([""] * BATCH, max_length=cfg.clip.max_length)
     opts = sample_cli.SampleOptions.from_args(args)
     sample_cli.sample_batch(pipe, hint, ids, nids, opts, args.seed)  # warm-up
-    with counted("sample CLI batch", SAMPLING_KERNELS) as launches:
+    with counted("sample CLI batch", SAMPLING_KERNELS) as launches, cli_launch_split() as split:
         t0 = time.perf_counter()
         out = sample_cli.sample_batch(pipe, hint, ids, nids, opts, args.seed)
         total = time.perf_counter() - t0
+    rates = launch_rates(launches, split, batches=1)
     log("sample_cli", sampler=opts.sampler, dpm_order=opts.dpm_order,
         dpm_method=opts.dpm_method, steps=opts.steps, batch=BATCH, size=SIZE, write_s=write_s,
-        load_pipeline_s=load_s, s_per_batch=total, launches=launches, shape=list(out.shape),
-        dtype=str(out.dtype), image_mean=float(out.mean()), image_std=float(out.std()))
+        load_pipeline_s=load_s, s_per_batch=total, launches=launches, **rates,
+        shape=list(out.shape), dtype=str(out.dtype), image_mean=float(out.mean()),
+        image_std=float(out.std()))
     if out.shape != (BATCH, SIZE, SIZE, 3) or out.dtype != np.uint8 or not out.std() > 0:
         raise AssertionError(f"sample CLI batch: {out.shape} {out.dtype} std {out.std()}")
     del pipe
-    return launches
+    return launches, rates
+
+
+@contextlib.contextmanager
+def cli_launch_split():
+    """Count, while the block runs, the model evaluations (calls of
+    CtrLoraPipeline.apply_model), the sample CLI's sampler calls and the
+    kernel launches inside them; yields the dict it fills."""
+    split = {"evaluations": 0, "sampler_calls": 0, "in_sampler": {n: 0 for n in wrappers()}}
+    apply_model = CtrLoraPipeline.apply_model
+
+    def counting_apply(self, *a, **kw):
+        split["evaluations"] += 1
+        return apply_model(self, *a, **kw)
+
+    def counting_sampler(fn):
+        def run(*a, **kw):
+            before = counts_now()
+            out = fn(*a, **kw)
+            for n, v in counts_since(before).items():
+                split["in_sampler"][n] += v
+            split["sampler_calls"] += 1
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(CtrLoraPipeline, "apply_model", counting_apply))
+        for name in ("ddim_sample", "plms_sample", "dpm_solver_sample",
+                     "dpm_solver_singlestep_sample"):
+            stack.enter_context(mock.patch.object(
+                sample_cli, name, counting_sampler(getattr(sample_cli, name))))
+        yield split
+
+
+def launch_rates(launches, split, batches: int) -> dict:
+    """The sample CLI's launches as rates that do not depend on the sampler
+    or its steps: per model evaluation inside the sampler, and per batch
+    outside it (the text and hint encodes, the decode)."""
+    n = split["evaluations"]
+    return {"model_evaluations": n, "sampler_calls": split["sampler_calls"],
+            "launches_per_evaluation": {k: v / n for k, v in split["in_sampler"].items() if v},
+            "launches_per_batch_outside_sampler": {
+                k: (launches[k] - split["in_sampler"][k]) / batches for k in launches
+                if launches[k] - split["in_sampler"][k]}}
 
 
 # ---------------------------------------------------------------------------
@@ -2808,6 +2886,438 @@ def _style_slice(dev, cfg, root, phase4_s_batch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: evaluation -- the sample CLI's output scored by the evaluate CLIs
+# ---------------------------------------------------------------------------
+
+EVAL_ITEMS = 8
+EVAL_KERNELS = SAMPLING_KERNELS
+# the H100 SXM's published float32 rate outside the tensor cores: with TF32
+# off the metrics' convolutions and matmuls run there
+FP32_PEAK_FLOPS = 67e12
+# openai/clip-vit-large-patch14, the reference's CLIPScore model
+CLIP_L = {"text_width": 768, "text_layers": 12, "vision_width": 1024, "vision_layers": 24,
+          "patch": 14, "image": 224, "projection": 768}
+# full-width throughput inputs: the CLIs' default batches (--bs 64 for
+# control/restore, 32 for fid) and a T5 encode of 4 x 77 ids
+EVAL_SHAPES = {"lpips": (64, 512, 512, 3), "inception": (32, 299, 299, 3), "clip": 64,
+               "ssim": (64, 512, 512, 3), "t5": (4, 77)}
+GPU_CPU_RTOL, GPU_CPU_ATOL, CLIP_SCORE_ATOL = 1e-4, 1e-5, 1e-3
+# FID of a set against itself, relative to the trace of its covariance
+SELF_FID_REL_TOL = 1e-3
+
+
+def normal_(gen, shape, std, dev, mean=0.0):
+    return torch.randn(shape, generator=gen, device=dev) * std + mean
+
+
+def lpips_file_state(gen, dev) -> dict:
+    """torchvision VGG16 ``features.{i}`` + lpips ``lin{k}.model.1.weight``
+    of seeded weights (a gain under 1 a conv)."""
+    sd, cin = {}, 3
+    for (cout, _), idxs in zip(lpips_mod.VGG16_PLAN, lpips_mod.CONV_IDX):
+        for i in idxs:
+            sd[f"features.{i}.weight"] = normal_(gen, (cout, cin, 3, 3), (1 / (9 * cin)) ** 0.5, dev)
+            sd[f"features.{i}.bias"] = normal_(gen, (cout,), 0.01, dev)
+            cin = cout
+    for k, (cout, _) in enumerate(lpips_mod.VGG16_PLAN):
+        sd[f"lin{k}.model.1.weight"] = torch.rand((1, cout, 1, 1), generator=gen, device=dev) * 0.1
+    return sd
+
+
+def inception_file_state(gen, dev) -> dict:
+    """pt_inception-2015-12-05's torchvision names and shapes with BN
+    buffers: He-normal convs, BN near identity, an fc of unit gain."""
+    sd = {}
+    for name, p in inception_mod.FIDInceptionV3().state_dict().items():
+        prefix, leaf = name.rsplit(".", 1)
+        shape = tuple(p.shape)
+        if prefix == "fc":
+            sd[name] = normal_(gen, shape, shape[-1] ** -0.5 if leaf == "weight" else 0.01, dev)
+        elif leaf == "weight":
+            fan_in = shape[1] * shape[2] * shape[3]
+            sd[f"{prefix}.conv.weight"] = normal_(gen, shape, (2 / fan_in) ** 0.5, dev)
+        elif leaf == "scale":
+            c = shape[0]
+            sd[f"{prefix}.bn.weight"] = normal_(gen, (c,), 0.02, dev, 1.0)
+            sd[f"{prefix}.bn.bias"] = normal_(gen, (c,), 0.02, dev)
+            sd[f"{prefix}.bn.running_mean"] = normal_(gen, (c,), 0.1, dev)
+            sd[f"{prefix}.bn.running_var"] = torch.rand((c,), generator=gen, device=dev) + 0.5
+            sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0, device=dev)
+    return sd
+
+
+def clip_file_state(gen, dev, text_width, text_layers, vision_width, vision_layers, patch,
+                    image, projection) -> dict:
+    """An HF CLIPModel state dict (text_model.*, vision_model.*, the two
+    projections) of seeded weights at the given widths."""
+    sd = {}
+
+    def tower(pre, d, layers):
+        for i in range(layers):
+            t = f"{pre}.encoder.layers.{i}"
+            for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd[f"{t}.self_attn.{n}.weight"] = normal_(gen, (d, d), 0.02, dev)
+                sd[f"{t}.self_attn.{n}.bias"] = normal_(gen, (d,), 0.01, dev)
+            for n in ("layer_norm1", "layer_norm2"):
+                sd[f"{t}.{n}.weight"] = normal_(gen, (d,), 0.02, dev, 1.0)
+                sd[f"{t}.{n}.bias"] = normal_(gen, (d,), 0.01, dev)
+            sd[f"{t}.mlp.fc1.weight"] = normal_(gen, (4 * d, d), 0.02, dev)
+            sd[f"{t}.mlp.fc1.bias"] = normal_(gen, (4 * d,), 0.01, dev)
+            sd[f"{t}.mlp.fc2.weight"] = normal_(gen, (d, 4 * d), 0.02, dev)
+            sd[f"{t}.mlp.fc2.bias"] = normal_(gen, (d,), 0.01, dev)
+
+    dt, dv = text_width, vision_width
+    sd["text_model.embeddings.token_embedding.weight"] = normal_(gen, (49408, dt), 0.02, dev)
+    sd["text_model.embeddings.position_embedding.weight"] = normal_(gen, (77, dt), 0.01, dev)
+    tower("text_model", dt, text_layers)
+    sd["text_model.final_layer_norm.weight"] = normal_(gen, (dt,), 0.02, dev, 1.0)
+    sd["text_model.final_layer_norm.bias"] = normal_(gen, (dt,), 0.01, dev)
+    sd["text_projection.weight"] = normal_(gen, (projection, dt), dt ** -0.5, dev)
+    sd["vision_model.embeddings.class_embedding"] = normal_(gen, (dv,), 0.02, dev)
+    sd["vision_model.embeddings.patch_embedding.weight"] = normal_(gen, (dv, 3, patch, patch),
+                                                                   0.02, dev)
+    sd["vision_model.embeddings.position_embedding.weight"] = normal_(
+        gen, ((image // patch) ** 2 + 1, dv), 0.01, dev)
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        sd[f"vision_model.{ln}.weight"] = normal_(gen, (dv,), 0.02, dev, 1.0)
+        sd[f"vision_model.{ln}.bias"] = normal_(gen, (dv,), 0.01, dev)
+    tower("vision_model", dv, vision_layers)
+    sd["visual_projection.weight"] = normal_(gen, (projection, dv), dv ** -0.5, dev)
+    return sd
+
+
+def smooth_image(rng, h, w):
+    """A seeded uint8 RGB image with edges and gradients (a blurred random
+    field), so canny finds structure in it."""
+    import cv2
+
+    return cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (0, 0), 4.0)
+
+
+def write_eval_dataset(root, rng):
+    """A CustomDataset of EVAL_ITEMS pairs (source: the condition, target:
+    the image) of 512^2 PNGs and their prompts."""
+    data = os.path.join(root, "data")
+    for sub in ("source", "target"):
+        os.makedirs(os.path.join(data, sub))
+    with open(os.path.join(data, "prompt.json"), "w") as f:
+        for i in range(EVAL_ITEMS):
+            for sub in ("source", "target"):
+                write_png(os.path.join(data, sub, f"{i}.png"), smooth_image(rng, SIZE, SIZE))
+            f.write(json.dumps({"source": f"source/{i}.png", "target": f"target/{i}.png",
+                                "prompt": f"{PROMPT}, item {i}"}) + "\n")
+    return data
+
+
+def eval_sample(dev, root, phase9_rates):
+    """(a) The sample CLI's main at its defaults (DDIM 50, CFG 7.5, --bs 4,
+    512^2) on fp16 reference-format files and a dataset of EVAL_ITEMS
+    seeded items. Returns the launches and the output directory."""
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    t0 = time.perf_counter()
+    src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+    for m in src.modules():
+        random_init_(m, gen)
+    paths, _ = write_reference_files(src, src.control.state_dict(), cfg,
+                                     os.path.join(root, "ckpts"), torch.float16)
+    del src
+    torch.cuda.empty_cache()
+    data = write_eval_dataset(root, np.random.default_rng(SEED + 14))
+    write_s = time.perf_counter() - t0
+    out = os.path.join(root, "out")
+    batch_s = []
+    sample_batch = sample_cli.sample_batch
+
+    def timed_batch(*a, **kw):
+        t = time.perf_counter()
+        images = sample_batch(*a, **kw)  # numpy: the card is done
+        batch_s.append(time.perf_counter() - t)
+        return images
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted("evaluation sample CLI", EVAL_KERNELS) as launches, cli_launch_split() as split, \
+            mock.patch.object(sample_cli, "sample_batch", timed_batch), \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        sample_cli.main(["--dataroot", data, "--save_dir", out, "--sd_ckpt", paths["sd"],
+                         "--cn_ckpt", paths["basecn"], "--lora_ckpt", paths["loras"][0],
+                         "--bs", str(BATCH), "--resolution", str(SIZE), "--device", dev.type])
+        total = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root, "ckpts"))
+    rates = launch_rates(launches, split, len(batch_s))
+    written = {sub: sorted(os.listdir(os.path.join(out, sub))) for sub in ("sample", "control", "img")}
+    with open(os.path.join(out, "prompt.txt")) as f:
+        prompt_lines = f.read().splitlines()
+    shapes = {png_shape(os.path.join(out, sub, n)) == [SIZE, SIZE, 3]
+              for sub, names in written.items() for n in names}
+    same = {k: rates[k] == phase9_rates[k]
+            for k in ("launches_per_evaluation", "launches_per_batch_outside_sampler")}
+    log("evaluation_sample", sampler="ddim", steps=STEPS, scale=7.5, batch=BATCH, size=SIZE,
+        items=EVAL_ITEMS, write_s=write_s, cli_s=total, s_per_batch=batch_s,
+        load_and_write_s=total - sum(batch_s), launches=launches, **rates,
+        phase9_cli_rates=phase9_rates, rates_equal_phase9=same,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        files_written={k: len(v) for k, v in written.items()}, prompt_lines=len(prompt_lines),
+        pngs_rgb_at_size=shapes == {True})
+    if not all(same.values()) or shapes != {True} or len(prompt_lines) != EVAL_ITEMS \
+            or any(len(v) != EVAL_ITEMS for v in written.values()):
+        raise AssertionError(f"evaluation sample CLI: rates equal phase 9 {same}, files "
+                             f"{ {k: len(v) for k, v in written.items()} }, "
+                             f"{len(prompt_lines)} prompts, RGB at {SIZE}^2: {shapes}")
+    return launches, out
+
+
+def run_cli(dev, name, main, argv):
+    """One evaluate CLI's main: (its results, its printed lines, seconds,
+    peak GB above what was allocated before it), with no hand-written
+    kernel launched."""
+    buf = io.StringIO()
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted(f"evaluation {name}", ()) as launches, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        results = main(argv)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched hand-written kernels: {launches}")
+    return results, buf.getvalue().splitlines(), seconds, \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30 - before
+
+
+def eval_score(dev, root, out, files):
+    """(b) evaluate_control --detector canny and evaluate_restore (LPIPS and
+    CLIPScore files given), evaluate_fid on sample/ against img/: printed
+    metrics, seconds, images/s, peak memory, 0 hand-kernel launches."""
+    common = ["--sample_dir", out, "--lpips_ckpt", files["lpips"], "--clip_ckpt", files["clip"],
+              "--device", dev.type]
+    runs = {"evaluate_control": (evaluate_control.main, common + ["--detector", "canny"]),
+            "evaluate_restore": (evaluate_restore.main, common),
+            "evaluate_fid": (evaluate_fid.main, [
+                "--dir_a", os.path.join(out, "sample"), "--dir_b", os.path.join(out, "img"),
+                "--inception_ckpt", files["inception"], "--device", dev.type])}
+    scores = {}
+    for name, (main, argv) in runs.items():
+        results, lines, seconds, peak = run_cli(dev, name, main, argv)
+        images = EVAL_ITEMS * (2 if name == "evaluate_fid" else 1)
+        log("evaluation_score", cli=name, printed=lines, results=results, seconds=seconds,
+            images=images, images_per_s=images / seconds, peak_mem_gb_above_start=peak,
+            hand_kernel_launches=0)
+        finite = all(math.isfinite(v) for v in results.values())
+        want = ({"mse", "psnr", "ssim", "lpips", "clip score"} if name != "evaluate_fid"
+                else {"IS", "IS std", "FID"})
+        ok = finite and set(results) == want and (
+            name == "evaluate_fid" or (results["lpips"] >= 0 and 0 <= results["clip score"] <= 100
+                                       and lines[1:] == [f"{k.upper()}: {v:.4f}"
+                                                         for k, v in results.items()]))
+        if not ok:
+            raise AssertionError(f"{name}: {results}, printed {lines}")
+        scores[name] = results
+    return scores
+
+
+def flops_of(fn) -> float:
+    """The fp32 multiply-adds (x2) of fn's matmuls and convolutions, by
+    torch.utils.flop_counter."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def eval_throughput(dev, lp, inc, scorer, t5):
+    """(c) Each metric back to back at the CLIs' default batch, on seeded
+    inputs: ms, images/s, fp32 FLOPs and the share of the fp32 peak. Returns
+    the seeded LPIPS input (reused by the sanity checks)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 141)
+    a = torch.rand(EVAL_SHAPES["lpips"], generator=gen, device=dev)
+    b = torch.rand(EVAL_SHAPES["lpips"], generator=gen, device=dev)
+    x = torch.rand(EVAL_SHAPES["inception"], generator=gen, device=dev) * 2 - 1
+    n_clip = EVAL_SHAPES["clip"]
+    rng = np.random.default_rng(SEED + 141)
+    images = np.stack([smooth_image(rng, SIZE, SIZE) for _ in range(n_clip)])
+    prompts = [f"{PROMPT}, item {i}" for i in range(n_clip)]
+    pixels = torch.from_numpy(ip_adapter.clip_image_preprocess(images, scorer.image_size)).to(dev)
+    ids = torch.randint(0, t5.cfg.vocab_size, EVAL_SHAPES["t5"], generator=gen, device=dev)
+    def t5_encode():
+        with fp32_exact(), torch.no_grad():
+            return t5(ids)
+
+    runs = {
+        "lpips": (lambda: lpips_mod.lpips(lp, a, b), EVAL_SHAPES["lpips"][0], 3),
+        "inception": (lambda: inception_mod.inception_features(inc, x),
+                      EVAL_SHAPES["inception"][0], 10),
+        "clip_towers": (lambda: scorer.embed_pixels(pixels, prompts), n_clip, 3),
+        "ssim": (lambda: evaluation.ssim(a, b), EVAL_SHAPES["ssim"][0], 10),
+        "t5_encode": (t5_encode, EVAL_SHAPES["t5"][0], 10),
+    }
+    out = {}
+    for name, (fn, n, iters) in runs.items():
+        flops = flops_of(fn)
+        ms = time_ms(fn, iters=iters)
+        out[name] = {"ms": ms, "images_per_s": n / ms * 1e3, "batch": n, "gflop": flops / 1e9,
+                     "tflop_per_s": flops / ms / 1e9,
+                     "share_of_fp32_peak": flops / (ms / 1e3) / FP32_PEAK_FLOPS}
+    # the CLIPScorer call as a user makes it: CLIP's host preprocessing of
+    # uint8 512^2 images, both towers, the cosine, back on the host
+    scorer(images[:2], prompts[:2])
+    t0 = time.perf_counter()
+    scores = scorer(images, prompts)
+    call_s = time.perf_counter() - t0
+    out["clip_score_call"] = {"ms": call_s * 1e3, "images_per_s": n_clip / call_s,
+                              "batch": n_clip, "host_preprocess_included": True,
+                              "mean_score_unclamped": float(scores.mean())}
+    log("evaluation_throughput", fp32_peak_tflop_per_s=FP32_PEAK_FLOPS / 1e12,
+        tf32="off", shapes={k: list(v) if isinstance(v, tuple) else v
+                            for k, v in EVAL_SHAPES.items()}, **out,
+        clip_scores_finite=bool(np.isfinite(scores).all()))
+    if not np.isfinite(scores).all():
+        raise AssertionError("CLIP scores are not finite")
+    return a
+
+
+def eval_gpu_vs_cpu(dev, lp, inc, scorer, clip_sd, t5):
+    """(d) The full-width models on the card against copies on the CPU, the
+    same seeded small inputs, fp32 with TF32 off; and the TF32 guard's
+    restore of the caller's flags."""
+    rng = np.random.default_rng(SEED + 142)
+    pair = [torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+            for _ in range(2)]
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 75, 75, 3)).astype(np.float32))
+    u8 = rng.integers(0, 256, (2, 64, 48, 3), dtype=np.uint8)
+    images = np.stack([smooth_image(rng, 96, 80) for _ in range(2)])
+    prompts = ["a photo of a cat", "a red house by a lake"]
+    ids = torch.from_numpy(rng.integers(0, t5.cfg.vocab_size, (2, 16)))
+    cpu = torch.device("cpu")
+    lp_cpu = copy.deepcopy(lp).to(cpu)
+    inc_cpu = copy.deepcopy(inc).to(cpu)
+    t5_cpu = copy.deepcopy(t5).to(cpu)
+    scorer_cpu = evaluation.CLIPScorer.from_torch_state(clip_sd, device="cpu")
+    on = lambda t: t.to(dev)
+    got = {
+        "lpips": (lpips_mod.lpips(lp, *map(on, pair)), lpips_mod.lpips(lp_cpu, *pair)),
+        "fid_preprocess": (inception_mod.fid_preprocess(u8, dev),
+                           inception_mod.fid_preprocess(u8, cpu)),
+        "ssim": (evaluation.ssim(*map(on, pair)), evaluation.ssim(*pair)),
+    }
+    (fg, lg), (fc, lc) = (inception_mod.inception_features(inc, on(x)),
+                          inception_mod.inception_features(inc_cpu, x))
+    got["inception_features"], got["inception_logits"] = (fg, fc), (lg, lc)
+    with torch.no_grad(), fp32_exact():
+        got["t5_last_hidden"] = (t5(on(ids)), t5_cpu(ids))
+    errors = {k: compare(g.cpu(), w, GPU_CPU_RTOL, GPU_CPU_ATOL) for k, (g, w) in got.items()}
+    clip_g, clip_c = scorer(images, prompts), scorer_cpu(images, prompts)
+    errors["clip_scores"] = compare(torch.from_numpy(clip_g), torch.from_numpy(clip_c), 0.0,
+                                    CLIP_SCORE_ATOL)
+    del lp_cpu, inc_cpu, t5_cpu, scorer_cpu
+
+    # the guard: 'highest' / TF32 off inside the call, the caller's flags after
+    flags = lambda: (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    seen = []
+    handle = lp.conv0.register_forward_pre_hook(lambda *_: seen.append(flags()))
+    saved = flags()
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lpips_mod.lpips(lp, *map(on, pair))
+        after = flags()
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        handle.remove()
+    log("evaluation_gpu_vs_cpu", max_abs_err=errors, rtol=GPU_CPU_RTOL, atol=GPU_CPU_ATOL,
+        clip_atol=CLIP_SCORE_ATOL, tf32_inside_call=seen, flags_after_call=after,
+        caller_flags=["high", True])
+    if seen != [("highest", False)] or after != ("high", True):
+        raise AssertionError(f"TF32 guard: inside {seen}, after {after}")
+
+
+def eval_sanity(dev, lp, a, out, files, fid_vs_img):
+    """(e) lpips(a, a), ssim(a, a) at [64, 512, 512, 3], and the FID of the
+    samples against themselves (timed: frechet_distance on the host) beside
+    their FID against img/."""
+    same = lpips_mod.lpips(lp, a, a)
+    ssim_aa = evaluation.ssim(a, a).item()
+    fa, _ = evaluate_fid.inception_outputs(os.path.join(out, "sample"), files["inception"],
+                                           device=dev)
+    mu, cov = evaluate_fid.stats(fa)
+    t0 = time.perf_counter()
+    self_fid = evaluate_fid.frechet_distance(mu, cov, mu, cov)
+    fd_s = time.perf_counter() - t0
+    trace = float(np.trace(cov))
+    checks = {"lpips_a_a_max": same.abs().max().item(), "lpips_a_a_exact_zero":
+              bool((same == 0).all()), "ssim_a_a": ssim_aa, "fid_self": self_fid,
+              "fid_self_over_trace": abs(self_fid) / trace, "fid_vs_img": fid_vs_img}
+    log("evaluation_sanity", **checks, trace_cov=trace, frechet_distance_host_s=fd_s,
+        feature_dim=int(fa.shape[1]), lpips_tol=1e-6, ssim_tol=1e-6,
+        self_fid_rel_tol=SELF_FID_REL_TOL)
+    if checks["lpips_a_a_max"] > 1e-6 or abs(ssim_aa - 1) > 1e-6 \
+            or checks["fid_self_over_trace"] > SELF_FID_REL_TOL or not self_fid < fid_vs_img:
+        raise AssertionError(f"evaluation sanity: {checks}")
+
+
+def evaluation_slice(dev, phase9_rates):
+    """Phase 14: the sample CLI writes sample/ control/ img/ prompt.txt, the
+    three evaluate CLIs score them, then the metrics' full-width
+    throughput, GPU against CPU, and sanity checks. Files under
+    runs/chip_smoke_eval, deleted at the end. Returns the sample CLI's
+    launches."""
+    root = os.path.join(ROOT, "runs", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        return _evaluation_slice(dev, root, phase9_rates)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _evaluation_slice(dev, root, phase9_rates):
+    t_phase = time.perf_counter()
+    launches, out = eval_sample(dev, root, phase9_rates)
+    gc.collect()  # the sample CLI's pipeline
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    t0 = time.perf_counter()
+    states = {"lpips": lpips_file_state(gen, dev), "inception": inception_file_state(gen, dev),
+              "clip": clip_file_state(gen, dev, **CLIP_L)}
+    files = {}
+    for name, sd in states.items():
+        files[name] = os.path.join(root, f"{name}.pth")
+        dtype = torch.float16 if name == "clip" else torch.float32
+        torch.save({k: v.to(dtype).cpu() if v.is_floating_point() else v.cpu()
+                    for k, v in sd.items()}, files[name])
+    del states
+    log("evaluation_files", write_s=time.perf_counter() - t0,
+        file_gb={k: os.path.getsize(v) / 2 ** 30 for k, v in files.items()},
+        clip_widths=CLIP_L, weights="seeded; the published files are not in the repository",
+        scipy=importlib.metadata.version("scipy"))
+    scores = eval_score(dev, root, out, files)
+
+    lp, scorer = evaluation.load_eval_models(files["lpips"], files["clip"], dev)
+    inc = inception_mod.FIDInceptionV3.from_state_dict(
+        inception_mod.convert_inception(ckpt_torch.load_torch_state_dict(files["inception"])), dev)
+    torch.manual_seed(SEED + 143)
+    with dev:
+        t5 = t5_mod.T5TextModel(t5_mod.T5Config()).eval().requires_grad_(False)
+    with counted("evaluation metrics", ()) as metric_launches:
+        a = eval_throughput(dev, lp, inc, scorer, t5)
+        torch.cuda.empty_cache()
+        clip_sd = ckpt_torch.load_torch_state_dict(files["clip"])
+        eval_gpu_vs_cpu(dev, lp, inc, scorer, clip_sd, t5)
+        del clip_sd
+        eval_sanity(dev, lp, a, out, files, scores["evaluate_fid"]["FID"])
+    if any(metric_launches.values()):
+        raise AssertionError(f"the metrics launched hand-written kernels: {metric_launches}")
+    del lp, scorer, inc, t5, a
+    torch.cuda.empty_cache()
+    log("evaluation", phase_s=time.perf_counter() - t_phase, hand_kernel_launches_scoring=0)
+    return launches
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
@@ -2929,7 +3439,7 @@ def main(argv) -> int:
     results = kernel_checks(dev, cfg)
     profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
     sampling, pipe, inputs, phase4_s_batch = slice_run(dev, cfg, profile_steps)
-    samplers = sampler_family(dev, pipe, *inputs)  # phase 9, on phase 4's pipeline
+    samplers, cli_rates = sampler_family(dev, pipe, *inputs)  # phase 9, on phase 4's pipeline
     del pipe, inputs
     torch.cuda.empty_cache()
     tiny_gpu_vs_cpu(dev)
@@ -2942,6 +3452,7 @@ def main(argv) -> int:
     baseline_runs = baselines_slice(dev)
     xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
     style_launches = style_slice(dev, phase4_s_batch)
+    eval_launches = evaluation_slice(dev, cli_rates)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2951,7 +3462,7 @@ def main(argv) -> int:
                    "train_cli": sum(r[name] for r in cli_runs.values()),
                    "baselines": sum(r[name] for r in baseline_runs.values()),
                    "xs": sum(r[name] for r in xs_runs.values()),
-                   "style": style_launches[name]}
+                   "style": style_launches[name], "evaluation": eval_launches[name]}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

@@ -9,6 +9,12 @@ the same in both packages and only the leaf's layout changes:
 * GroupNorm / LayerNorm ``scale``     -> ``weight`` (banked [n, C] kept)
 * ``bias``, ``lora_down`` [n, in, r], ``lora_up`` [n, r, out], the CLIP
   embeddings and the 0-d ``ip_scale`` keep their layout.
+* a per-channel ``kernel`` [C] (LPIPS's lin heads) -> ``weight`` [C].
+
+The evaluation towers map the same way: LPIPS and T5 through
+``params_from_jax``, the FID Inception (whose folded-BN convs hold
+``kernel``, ``scale`` and ``bias`` side by side) through
+``inception_from_jax``, which keeps ``scale`` by its name.
 
 A tree without LoRA or banks (a fused control tree, the UNet, VAE and CLIP)
 loads straight into the port's modules with ``load_state_dict(strict=True)``;
@@ -31,8 +37,10 @@ def port_key(path: Sequence[str]) -> str:
     return ".".join((*path[:-1], _LEAF_NAMES.get(path[-1], path[-1])))
 
 
-def _leaf(name: str, value: np.ndarray):
+def _leaf(name: str, value: np.ndarray, rename: Mapping[str, str] = _LEAF_NAMES):
     if name == "kernel":
+        if value.ndim == 1:
+            return "weight", value
         if value.ndim == 2:
             return "weight", value.T
         if value.ndim == 4:
@@ -40,12 +48,14 @@ def _leaf(name: str, value: np.ndarray):
         if value.ndim == 5:
             return "weight", value.transpose(0, 4, 3, 1, 2)
         raise ValueError(f"kernel of rank {value.ndim}")
-    return _LEAF_NAMES.get(name, name), value
+    return rename.get(name, name), value
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping[str, Any],
+                    rename: Mapping[str, str] = _LEAF_NAMES) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy-convertible arrays (a flax ``{'params': ...}``
-    subtree or its content) -> flat state dict of contiguous torch tensors."""
+    subtree or its content) -> flat state dict of contiguous torch tensors.
+    `rename` maps the leaf names other than ``kernel``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -55,9 +65,16 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(f"{prefix}{key}.", value)
                 continue
-            name, arr = _leaf(key, np.asarray(value))
+            name, arr = _leaf(key, np.asarray(value), rename)
             # reshape: ascontiguousarray makes a 0-d leaf (ip_scale) 1-d
             out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
 
     walk("", tree)
     return out
+
+
+def inception_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX FID Inception tree (``convert_inception``'s folded-BN
+    ``{kernel, scale, bias}`` per conv, the ``fc``) -> the port's
+    FIDInceptionV3 state dict: ``scale`` keeps its name."""
+    return params_from_jax(tree, rename={})

@@ -1,0 +1,88 @@
+"""Restoration evaluation with the PyTorch port (counterpart of
+``scripts/evaluate_restore.py``; reference scripts/evaluate_restore.py):
+compare each sample directly with its ground-truth image (inpainting /
+outpainting style tasks) by MSE / LPIPS / PSNR / SSIM, plus the CLIPScore
+of each sample against its prompt (reference lines 66-85). LPIPS and
+CLIPScore print when their pretrained checkpoints are given:
+
+  python -m ctrlora_tpu_torch.scripts.evaluate_restore --sample_dir out \\
+      [--lpips_ckpt vgg_lpips.pth] [--clip_ckpt clip-vit-large-patch14.ckpt]
+
+--sample_dir is the sample CLI's --save_dir (sample/, img/, prompt.txt).
+--device defaults to cuda; the script never falls back to the CPU, ask for
+it with --device cpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from ctrlora_tpu_torch.annotators.util import HWC3, resize_image
+from ctrlora_tpu_torch.data.datasets import imread_rgb
+from ctrlora_tpu_torch.evaluation import (
+    MetricAccumulator, cli_device, load_eval_models, read_prompts,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--sample_dir", required=True)
+    p.add_argument("--bs", type=int, default=64)
+    p.add_argument("--lpips_ckpt", default=None, help="VGG16+lin-head weights")
+    p.add_argument("--clip_ckpt", default=None, help="HF CLIPModel state dict")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to score on (no fallback to the CPU)")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Prints each metric as 'NAME: value' and returns them."""
+    args = build_parser().parse_args(argv)
+    device = cli_device(args.device)
+    sample_dir = os.path.join(args.sample_dir, "sample")
+    img_dir = os.path.join(args.sample_dir, "img")
+    names = sorted(os.listdir(sample_dir))
+    print("Dataset size:", len(names))
+    prompts = read_prompts(args.sample_dir)
+
+    lpips_model, scorer = load_eval_models(args.lpips_ckpt, args.clip_ckpt, device)
+    acc = MetricAccumulator(lpips_model, scorer, device)
+    batch_s, batch_g, batch_u8, batch_p = [], [], [], []
+
+    def flush():
+        samples = np.stack(batch_u8) if scorer is not None and batch_p else None
+        acc.update(np.stack(batch_s), np.stack(batch_g), sample=samples,
+                   prompts=batch_p or None)
+        for batch in (batch_s, batch_g, batch_u8, batch_p):
+            batch.clear()
+
+    for name in names:
+        raw = imread_rgb(os.path.join(sample_dir, name))
+        s = raw.astype(np.float32) / 255.0
+        g = imread_rgb(os.path.join(img_dir, name))
+        g = resize_image(HWC3(g), 512).astype(np.float32) / 255.0
+        if s.shape != g.shape:
+            s = resize_image(HWC3(raw), 512).astype(np.float32) / 255.0
+        batch_s.append(s)
+        batch_g.append(g)
+        stem = os.path.splitext(name)[0]
+        if scorer is not None and stem in prompts:
+            batch_u8.append(raw)
+            batch_p.append(prompts[stem])
+        if len(batch_s) >= args.bs:
+            flush()
+    if batch_s:
+        flush()
+
+    results = acc.compute()
+    for k, v in results.items():
+        print(f"{k.upper()}: {v:.4f}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

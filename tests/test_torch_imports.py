@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: the package and chip_smoke.py import
-no JAX, no flax, no PyYAML and nothing of ctrlora_tpu (the GPU host has none
-of them; the port reads YAML configs with its own reader), no module
+no JAX, no flax, no PyYAML, no transformers and nothing of ctrlora_tpu (the
+GPU host has none of them; the port reads YAML configs with its own
+reader), no module
 imports triton (every kernel is CUDA C++ built with nvcc), and the
 kernel build directory is ignored by git."""
 
@@ -40,7 +41,11 @@ def test_port_modules_cover_the_slice():
                 "data.loader", "training.ema", "training.latent_cache",
                 "scripts.train_common", "scripts.train_ctrlora_finetune",
                 "scripts.train_ctrlora_pretrain", "models.lite", "scripts.train_cn",
-                "models.xs", "models.ip_adapter", "models.openclip", "style"):
+                "models.xs", "models.ip_adapter", "models.openclip", "style",
+                "utils.precision", "models.lpips", "models.inception", "models.t5",
+                "evaluation", "annotators.util", "annotators.simple", "annotators.registry",
+                "scripts.evaluate_control", "scripts.evaluate_restore",
+                "scripts.evaluate_fid"):
         assert f"ctrlora_tpu_torch.{mod}" in names
 
 
@@ -49,7 +54,7 @@ def test_no_jax_in_port_or_chip_smoke():
         "import importlib, json, sys\n"
         f"for name in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ctrlora_tpu', 'yaml'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ctrlora_tpu', 'yaml', 'transformers'))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
