@@ -8,8 +8,10 @@ from dataset files, the ControlNet baselines (vanilla image-hint
 ControlNet and ControlNet-Lite) sampling and training through train_cn,
 ControlNet-XS sampling from configs/cnxs_sd15.yaml and training
 through train_cn --variant xs, style transfer with IP-Adapter
-(StyleCtrLoRA) from the style config file, and the evaluation protocol:
-the sample CLI's output scored by the evaluate_{control,restore,fid} CLIs.
+(StyleCtrLoRA) from the style config file, the evaluation protocol:
+the sample CLI's output scored by the evaluate_{control,restore,fid} CLIs,
+and the apps' logic at their one-sample defaults, the CNN detectors and
+the tools.
 
     python3 chip_smoke.py
 
@@ -85,7 +87,7 @@ the script exits non-zero:
    then under CTRLORA_KERNELS-equivalent gn1=1,hpack=2,qkvpack=0 (kernels A2
    and B6); one UNet + two-ControlNet evaluation with the flagged kernels
    against the plain versions; lora weights (1, 0) against (0, 1) must
-   differ. The files are deleted at the end;
+   differ. The files stay for phase 15;
 10. the training CLIs at SD1.5 width from reference-format files (SD and
    Base ControlNet in fp16 from a seeded ctrlora_finetune_config(128)
    model) and PNG datasets of random pixels, with CTRLORA_NATIVE_DATA=1
@@ -129,7 +131,8 @@ the script exits non-zero:
    time_embed alone stays as it was); (e) each baseline's tiny
    configuration: one evaluation and one train step, fp32, GPU against
    CPU within rtol 2e-3 / atol 2e-4 (and ControlNet-XS's at control ratio
-   0.5). The files are deleted at the end;
+   0.5). The datasets are deleted at the end, the SD and control files
+   stay for phase 15;
 12. ControlNet-XS at SD1.5 width, its config read from
    configs/cnxs_sd15.yaml by the port's YAML reader: (a) seeded random
    weights, the base stream (and VAE, CLIP) written as an fp16 SD-format
@@ -176,7 +179,7 @@ the script exits non-zero:
    every site within relative L2 5e-2 of a UNet
    without image tokens on the text alone; then a tiny style
    configuration on the GPU against the CPU (rtol 2e-3 / atol 2e-4). The
-   files are deleted at the end;
+   files stay for phase 15;
 14. (after phase 13) evaluation: (a) the sample CLI's main at its defaults
    (DDIM 50, CFG 7.5, --bs 4, 512^2) on fp16 reference-format files and a
    CustomDataset of 8 seeded items: s/batch, files written, its launches
@@ -198,7 +201,28 @@ the script exits non-zero:
    lpips(a, a) and ssim(a, a) at full width (within 1e-6 of 0 and 1), the
    FID of the samples against themselves (within 1e-3 of tr(C), timed on
    the host) below their FID against img/. The files are deleted at the
-   end.
+   end;
+15. (last) the apps, the tools and the CNN detectors: (a) kernels A, B
+   (fused qkv at D = 40/80/160, the VAE's BHSD D = 512), C at its four
+   sites and D at the one- and two-LoRA step tables, at the app's
+   one-sample shapes (CFG batch 2, the VAE at one sample), each against its
+   plain version as in phase 3; (b) apps/logic at the app's defaults (one
+   sample, 20 DDIM steps, CFG 7.5, 512^2, detector canny) from the files
+   phases 8, 11 and 13 leave: AppState.process with guess mode off and on
+   (s a call, launches, the decoded image against the plain versions',
+   one evaluation within relative L2 5e-2 of plain), process2 with two
+   LoRAs, process_controlnet on phase 11's SD and control files and
+   process_style on phase 13's files, each timed with its launches; (c)
+   each ported CNN detector (hed, hedsketch, lineart fine and coarse,
+   lineart_anime, its colour prompt, mlsd) through the registry on the
+   card at 512^2 from seeded files in the published layouts: ms an image,
+   fp32 GFLOP and share of the fp32 peak, the map against the same
+   detector on the CPU, no hand-written kernel launched; (d) the tools at
+   SD1.5 width: tool_make_control_init -> tool_combine_weights ->
+   tool_extract_weights (-t control, -t lora) with the round trip
+   bit-equal, tool_make_cond_images over 4 PNGs with hed and lineart, then
+   evaluate_lineart_is_coarse (it must find the coarse items) and
+   evaluate_lineart over 8 samples. Every file is deleted at the end.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -243,6 +267,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctrlora_tpu_torch import api as api_mod
+from ctrlora_tpu_torch.annotators import download as annot_download
+from ctrlora_tpu_torch.annotators import hed as hed_mod
+from ctrlora_tpu_torch.annotators import lineart as lineart_mod
+from ctrlora_tpu_torch.annotators import mlsd as mlsd_mod
+from ctrlora_tpu_torch.annotators import nets as annot_nets
+from ctrlora_tpu_torch.annotators import registry as annot_registry
+from ctrlora_tpu_torch.apps import logic as apps_logic
 from ctrlora_tpu_torch import configs, evaluation, lora_fuse
 from ctrlora_tpu_torch import style as style_mod
 from ctrlora_tpu_torch.models import inception as inception_mod
@@ -271,6 +302,10 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
 from ctrlora_tpu_torch.sampling.plms import plms_sample
 from ctrlora_tpu_torch.data import native as native_data
 from ctrlora_tpu_torch.scripts import evaluate_control, evaluate_fid, evaluate_restore
+from ctrlora_tpu_torch.scripts import evaluate_lineart, evaluate_lineart_is_coarse
+from ctrlora_tpu_torch.scripts import (
+    tool_combine_weights, tool_extract_weights, tool_make_cond_images, tool_make_control_init,
+)
 from ctrlora_tpu_torch.scripts import sample as sample_cli
 from ctrlora_tpu_torch.scripts import train_cn as train_cn_mod
 from ctrlora_tpu_torch.scripts import train_common
@@ -281,11 +316,13 @@ from ctrlora_tpu_torch.training import trainer as trainer_mod
 from ctrlora_tpu_torch.training.step import loss_for_batch
 from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
-from ctrlora_tpu_torch.utils.image import png_writer, write_png
+from ctrlora_tpu_torch.utils.image import HWC3, png_writer, write_png
 from ctrlora_tpu_torch.utils.loading import check_key, load_ctrlora
 from ctrlora_tpu_torch.utils.precision import fp32_exact
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the files phases 8, 11 and 13 write and phase 15 reads again
+KEPT = os.path.join(ROOT, "runs", "chip_smoke_kept")
 SEED = 0
 STEPS = 50
 BATCH, SIZE = 4, 512
@@ -535,12 +572,13 @@ def compare(got, want, rtol=RTOL, atol=ATOL):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def emb_row_sizes(cfg):
-    """Widths of the per-step emb_proj rows (UNet + one ControlNet)."""
+def emb_row_sizes(cfg, controls: int = 1):
+    """Widths of the per-step emb_proj rows (the UNet's, then each
+    ControlNet's)."""
     enc = [s.out_ch for s in encoder_plan(cfg.unet)[0] if s.kind == "res"]
     mid = [encoder_plan(cfg.unet)[2]] * 2
     dec = [s.out_ch for s in decoder_plan(cfg.unet)]
-    return enc + mid + dec + enc + mid
+    return enc + mid + dec + (enc + mid) * controls
 
 
 def group_norm_library(x, scale, bias, eps):
@@ -551,16 +589,23 @@ def group_norm_library(x, scale, bias, eps):
     return "F.group_norm", lambda: F.group_norm(xc, 32, sc, bi, eps)
 
 
-def device_kernels(fn) -> int:
-    """Device kernels that fn() launches, counted by torch.profiler."""
+def device_kernels(fn, at_least: int = 0, windows: int = 3) -> int:
+    """Device kernels that fn() launches, counted by torch.profiler. The
+    profiler can lose records (one window read 8 of 19 launches) but never
+    counts a kernel that did not run, so a window that counts fewer than
+    `at_least` is taken again, up to `windows` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if count >= at_least:
+            break
+    return count
 
 
 def kernel_checks(dev, cfg):
@@ -628,7 +673,8 @@ def kernel_checks(dev, cfg):
         x = rn(*shape, std=2.0, dt=dt) + 0.5
         sc, bi = rn(c, dt=torch.float32, std=0.1) + 1, rn(c, dt=torch.float32, std=0.1)
         gn_args.append((x, sc, bi, 32, eps, silu, rn(1, c, std=0.5, dt=dt) if row else None))
-    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm(*a) for a in gn_args]) \
+    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm(*a) for a in gn_args],
+                                      at_least=len(gn_args)) \
         / len(gn_args)
     if kernels_per_call != 1:
         raise AssertionError(f"group_norm: {kernels_per_call} device kernels per call, not 1")
@@ -667,7 +713,8 @@ def kernel_checks(dev, cfg):
                  (True, rn(8, c, std=0.5, dt=torch.float32)))
         a2_args += [(x, sc, bi, 32, 1e-5, silu, row) for silu, row in
                     (rows_ if dt == torch.bfloat16 else rows_[:2])]
-    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm_onepass(*a) for a in a2_args]) \
+    kernels_per_call = device_kernels(lambda: [gn_ops.group_norm_onepass(*a) for a in a2_args],
+                                      at_least=len(a2_args)) \
         / len(a2_args)
     if kernels_per_call != 1:
         raise AssertionError(f"group_norm_onepass: {kernels_per_call} device kernels per call")
@@ -1648,9 +1695,10 @@ def tiny_api_gpu_vs_cpu(dev):
 
 def api_slice(dev):
     """Phase 8: the two-LoRA API path at SD1.5 width under both kernel
-    settings. Returns the launches of each timed run."""
+    settings. Its files stay under KEPT for phase 15. Returns (the launches
+    of each timed run, the files' paths)."""
     cfg = configs.ctrlora_inference_config(lora_num=2, lora_rank=128)
-    outdir = os.path.join(ROOT, "runs", "chip_smoke_ckpts")
+    outdir = os.path.join(KEPT, "api")
     shutil.rmtree(outdir, ignore_errors=True)
     os.makedirs(outdir)
     log("api_2lora", disk_free_gb=shutil.disk_usage(outdir).free / 2 ** 30)
@@ -1669,7 +1717,6 @@ def api_slice(dev):
     api = api_mod.CtrLoRA(num_loras=2, lora_rank=128, device=dev)
     load_s, n_checked = create_checked(api, paths, written, cfg)
     del written
-    shutil.rmtree(outdir, ignore_errors=True)
     log("api_2lora", create_model_s=load_s, loaded_tensors_equal_written=n_checked)
 
     rng = np.random.default_rng(SEED)
@@ -1738,7 +1785,7 @@ def api_slice(dev):
     log("api_2lora", rel_l2_lora_weights_10_vs_01=swap)
     if not swap > 1e-3:
         raise AssertionError(f"lora_weights (1, 0) and (0, 1) give the same output: {swap}")
-    return launches
+    return launches, paths
 
 
 # ---------------------------------------------------------------------------
@@ -2290,8 +2337,9 @@ def tiny_baselines_gpu_vs_cpu(dev):
 def baselines_slice(dev):
     """Phase 11: vanilla and Lite sampling (11a, 11b), train_cn for both
     from PNG files (11c from an fp16 control file, 11d from the seeded
-    init), and the tiny GPU-vs-CPU checks (11e). The files are deleted at
-    the end. Returns the launches of each run."""
+    init), and the tiny GPU-vs-CPU checks (11e). The datasets are deleted
+    at the end; the SD and control files stay under KEPT for phase 15.
+    Returns (the launches of each run, {'sd': path, 'control': path})."""
     launches = {f"sample_{v}": baseline_sampling(dev, v) for v in BASELINES}
     root = os.path.join(ROOT, "runs", "chip_smoke_baselines")
     shutil.rmtree(root, ignore_errors=True)
@@ -2299,10 +2347,12 @@ def baselines_slice(dev):
     try:
         t0 = time.perf_counter()
         custom, _ = write_cli_datasets(root, np.random.default_rng(SEED + 11))
-        cn_file = os.path.join(root, "control_sd15.ckpt")
+        kept = os.path.join(KEPT, "baselines")
+        os.makedirs(kept, exist_ok=True)
+        cn_file = os.path.join(kept, "control_sd15.ckpt")
         written = write_control_file(configs.sd15_config(), dev, cn_file,
                                      torch.Generator(device=dev).manual_seed(SEED + 13))
-        sd_file = os.path.join(root, "sd15.ckpt")
+        sd_file = os.path.join(kept, "sd15.ckpt")
         src = CtrLoraPipeline(configs.sd15_config(), dev)
         gen = torch.Generator(device=dev).manual_seed(SEED + 14)
         for m in (src.unet, src.vae, src.clip):
@@ -2317,7 +2367,7 @@ def baselines_slice(dev):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     tiny_baselines_gpu_vs_cpu(dev)
-    return launches
+    return launches, {"sd": sd_file, "control": cn_file}
 
 
 # ---------------------------------------------------------------------------
@@ -2718,17 +2768,15 @@ def tiny_style_gpu_vs_cpu(dev):
 
 def style_slice(dev, phase4_s_batch):
     """Phase 13: StyleCtrLoRA at SD1.5 width from fp16 files of seeded
-    weights. Returns the launches of the timed txt2img run."""
+    weights, which stay under KEPT for phase 15. Returns (the launches of
+    the timed txt2img run, the files' paths)."""
     cfg = configs.load_model_config(os.path.join(ROOT, STYLE_CONFIG))
     if cfg != style_mod.style_config(1, 128, 4):
         raise AssertionError(f"{STYLE_CONFIG} reads as {cfg}, not style_config(1, 128, 4)")
-    root = os.path.join(ROOT, "runs", "chip_smoke_style")
+    root = os.path.join(KEPT, "style")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    try:
-        return _style_slice(dev, cfg, root, phase4_s_batch)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    return _style_slice(dev, cfg, root, phase4_s_batch)
 
 
 def _style_slice(dev, cfg, root, phase4_s_batch):
@@ -2883,7 +2931,7 @@ def _style_slice(dev, cfg, root, phase4_s_batch):
     del st, pipe, unet0, written
     torch.cuda.empty_cache()
     tiny_style_gpu_vs_cpu(dev)
-    return launches
+    return launches, paths
 
 
 # ---------------------------------------------------------------------------
@@ -3318,13 +3366,555 @@ def _evaluation_slice(dev, root, phase9_rates):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the apps, the tools, the CNN detectors and the lineart CLIs
+# ---------------------------------------------------------------------------
+
+# the published detector files the port reads: file -> the network it holds
+DETECTOR_FILES = {"ControlNetHED.pth": hed_mod.ControlNetHED,
+                  "sk_model.pth": lineart_mod.LineartGenerator,
+                  "sk_model2.pth": lineart_mod.LineartGenerator,
+                  "netG.pth": lineart_mod.AnimeUNet,
+                  "mlsd_large_512_fp32.pth": mlsd_mod.MobileV2MLSDLarge}
+
+
+def detector_file_state(name: str, gen: torch.Generator) -> dict:
+    """Seeded weights of published detector file `name` in its published
+    layout (CPU fp32): convs He-normal (MLSD's LeCun-normal: its residual
+    sums would grow He's) with N(0, 0.05) biases; HED's `norm` near an image
+    mean, its first conv scaled by 1/64 for the 0..255 input; MLSD's
+    BatchNorms unfolded (weight, bias, running_mean, running_var,
+    num_batches_tracked); netG's keys under 'module.', as a DataParallel
+    file holds them. Activations stay O(1), as a trained net's do."""
+    module = DETECTOR_FILES[name]()
+    randn = lambda shape, std=1.0: torch.randn(shape, generator=gen) * std
+    gain = 1.0 if isinstance(module, mlsd_mod.MobileV2MLSDLarge) else 2.0
+    sd = {}
+    for prefix, m in module.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            key = f"{prefix}.{pname}" if prefix else pname
+            c = p.shape[0]
+            if isinstance(m, mlsd_mod.FoldedBN):
+                if pname == "weight":
+                    sd[key] = 1 + randn(c, 0.1)
+                    sd[f"{prefix}.running_mean"] = randn(c, 0.1)
+                    sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+                    sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+                else:
+                    sd[key] = randn(c, 0.05)
+            elif pname == "norm":  # HED's input mean
+                sd[key] = 110 + randn(p.shape, 10.0)
+            elif p.ndim == 4:
+                fan = p.shape[0] * p.shape[2] * p.shape[3] if isinstance(
+                    m, nn.ConvTranspose2d) else p[0].numel()
+                sd[key] = randn(p.shape, (gain / fan) ** 0.5)
+            else:
+                sd[key] = randn(p.shape, 0.05)
+    if name == "ControlNetHED.pth":
+        sd["block1.convs.0.weight"] /= 64.0
+    if name == "netG.pth":
+        sd = {f"module.{k}": v for k, v in sd.items()}
+    return sd
+
+
+def write_detector_files(directory: str, seed: int = SEED) -> dict:
+    """The five published detector files, seeded, under `directory`;
+    returns {file: written state dict}."""
+    os.makedirs(directory, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    written = {}
+    for name in DETECTOR_FILES:
+        written[name] = detector_file_state(name, gen)
+        torch.save(written[name], os.path.join(directory, name))
+    return written
+
+
+# the app's defaults (app/gradio_ctrlora.py:96-97): one sample, 20 DDIM steps, CFG 7.5
+APP_SAMPLES, APP_STEPS, APP_SCALE = 1, 20, 7.5
+APP_KERNELS = SAMPLING_KERNELS
+APP_CONTROLNET_KERNELS = BASELINE_SAMPLING_KERNELS["controlnet"]
+# kernel A at the app's sites: the UNet's at the CFG batch of 2 (the
+# ResBlocks' out_norm with row and SiLU, a transformer norm, the decoder's
+# 960-channel in_norm) and the VAE's at one sample (the hint's encode and
+# the decode at 512^2); the build phase holds A's plan at each
+APP_GN_CASES = (
+    ((2, 64, 64, 320), torch.bfloat16, 1e-5, True, True),
+    ((2, 32, 32, 640), torch.bfloat16, 1e-5, True, True),
+    ((2, 16, 16, 1280), torch.bfloat16, 1e-5, True, True),
+    ((2, 8, 8, 1280), torch.bfloat16, 1e-5, True, True),
+    ((2, 64, 64, 320), torch.bfloat16, 1e-6, False, False),
+    ((2, 64, 64, 960), torch.bfloat16, 1e-5, True, False),
+    ((1, 512, 512, 128), torch.bfloat16, 1e-6, True, False),
+    ((1, 64, 64, 512), torch.bfloat16, 1e-6, False, False),
+)
+APP_ATTN_SITES = ((4096, 8, 40), (1024, 8, 80), (256, 8, 160))  # (S, heads, D), CFG batch 2
+APP_GEGLU_SITES = ((2 * 4096, 320), (2 * 1024, 640), (2 * 256, 1280), (2 * 64, 1280))
+# each ported detector -> its network (for its FLOP count)
+DETECTOR_NETS = {"hed": lambda d: d.model, "hedsketch": lambda d: d.hed.model,
+                 "lineart": lambda d: d.models["fine"], "lineart_anime": lambda d: d.model,
+                 "lineart_anime_with_color_prompt": lambda d: d.anime.model,
+                 "mlsd": lambda d: d.model}
+FP32_PEAK_FLOPS = 67e12  # the H100 SXM's fp32 (non-tensor) rate: the detectors run TF32 off
+LINEART_ITEMS, COND_IMAGES = 8, 4
+# the detectors that threshold a network's map: a pixel one level off at
+# the threshold flips (hedsketch's binary map, blurred; the colour prompt's
+# dark test), so only the share of differing pixels is bounded
+THRESHOLDED = ("hedsketch", "lineart_anime_with_color_prompt")
+
+
+def app_kernel_checks(dev) -> None:
+    """Kernels A, B (fused-qkv at D = 40/80/160, the VAE's BHSD D = 512), C
+    at its four sites and D at the one- and two-LoRA step tables, at the
+    app's one-sample shapes, each against its plain version within phase
+    3's tolerances: max error, ms and b2b ms (20 calls queued behind a
+    sleep kernel: the one-sample sites run shorter than their launch) beside
+    the plain version's, the bound and the library call's ms."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(SEED + 150)
+    rn = lambda *s, dt=torch.bfloat16, std=1.0: (torch.randn(s, generator=g, device=dev) * std).to(dt)
+
+    def check(kernel, label, got, want, fn_k, fn_p, work, library=None, extra=None, **beside):
+        err = compare(got, want)
+        if extra is not None:
+            err = max(err, compare(*extra))
+        ms, pms = time_ms(fn_k), time_ms(fn_p)
+        bms, by = bound_ms(*work)
+        row = {"kernel": kernel, "shape": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+               "b2b_ms": time_b2b(fn_k), "plain_b2b_ms": time_b2b(fn_p), "bound_ms": bms,
+               "bound_by": by,
+               "pct_of_bound": 100.0 * bms / ms, "library": library[0] if library else "—",
+               "library_ms": time_ms(library[1]) if library else None, **beside}
+        log("apps_kernels", **row)
+
+    for shape, dt, eps, silu, row in APP_GN_CASES:
+        c = shape[-1]
+        x = rn(*shape, std=2.0, dt=dt) + 0.5
+        sc, bi = rn(c, dt=torch.float32, std=0.1) + 1, rn(c, dt=torch.float32, std=0.1)
+        args = (x, sc, bi, 32, eps, silu, rn(1, c, std=0.5, dt=dt) if row else None)
+        check("group_norm", f"{list(shape)} eps={eps} silu={silu} add_row={row}",
+              gn_ops.group_norm(*args), gn_ops.group_norm_plain(*args),
+              lambda: gn_ops.group_norm(*args), lambda: gn_ops.group_norm_plain(*args),
+              gn_ops.group_norm_work(shape[0], shape[1] * shape[2], c, x.element_size(),
+                                     1 if row else 0),
+              library=None if silu or row else group_norm_library(x, sc, bi, eps),
+              plan=dataclasses.asdict(gn_ops.group_norm_plan(
+                  shape[0], shape[1] * shape[2], c, 32, x.element_size(), sms)))
+    for s, h, d in APP_ATTN_SITES:
+        qkv = rn(2, s, 3 * h * d)
+        out, lse = fa_ops.flash_attention_qkv(qkv, h, d)
+        pout, plse = fa_ops.flash_attention_qkv_plain(qkv, h, d)
+        check("flash_attention_qkv", f"[2, {s}, 3*{h}*{d}]", out, pout,
+              lambda: fa_ops.flash_attention_qkv(qkv, h, d),
+              lambda: fa_ops.flash_attention_qkv_plain(qkv, h, d),
+              fa_ops.flash_forward_work(2, h, s, s, d),
+              library=("F.scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(
+                  *(t.unflatten(-1, (h, d)).transpose(1, 2) for t in qkv.split(h * d, -1)))),
+              extra=(lse, plse))
+    q, k, v = (rn(1, 1, 4096, 512) for _ in range(3))
+    out, lse = fa_ops.flash_attention(q, k, v)
+    pout, plse = fa_ops.attention_plain(q, k, v)
+    check("flash_attention", "[1, 1, 4096, 512]", out, pout,
+          lambda: fa_ops.flash_attention(q, k, v), lambda: fa_ops.attention_plain(q, k, v),
+          fa_ops.flash_forward_work(1, 1, 4096, 4096, 512),
+          library=("F.scaled_dot_product_attention",
+                   lambda: F.scaled_dot_product_attention(q, k, v)), extra=(lse, plse))
+    for rows_, c in APP_GEGLU_SITES:
+        f = 4 * c
+        args = (rn(rows_, c), rn(2 * f, c, std=c ** -0.5), rn(2 * f, std=0.1),
+                rn(c, f, std=f ** -0.5), rn(c, std=0.1))
+        check("geglu_ffn", f"rows={rows_} C={c} F={f}", geglu_ops.geglu_ffn(*args),
+              geglu_ops.geglu_ffn_plain(*args), lambda: geglu_ops.geglu_ffn(*args),
+              lambda: geglu_ops.geglu_ffn_plain(*args), geglu_ops.geglu_ffn_work(rows_, c, f),
+              plan=dataclasses.asdict(geglu_ops.geglu_plan(rows_, c, f, sms)))
+    cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
+    for controls in (1, 2):
+        sizes = emb_row_sizes(cfg, controls)
+        block = rn(len(sizes), max(sizes))
+        got = torch.cat(unpack_ops.unpack_rows(block, sizes), 1)
+        want = torch.cat(unpack_ops.unpack_rows_plain(block, sizes), 1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"unpack_rows at {len(sizes)} rows differs from plain")
+        index = torch.cat([torch.arange(c, device=dev) + i * block.stride(0)
+                           for i, c in enumerate(sizes)])
+        check("unpack_rows", f"[{len(sizes)}, {max(sizes)}] ({controls} LoRA)", got, want,
+              lambda: unpack_ops.unpack_rows(block, sizes),
+              lambda: unpack_ops.unpack_rows_plain(block, sizes),
+              unpack_ops.unpack_rows_work(sizes),
+              library=("torch.take (cached flat index)", lambda: torch.take(block, index)),
+              bit_equal=True)
+
+
+def one_evaluation_rel(model: api_mod.CtrLoRA, images, weights, gen) -> float:
+    """One UNet + ControlNet(s) evaluation at the app's CFG batch of 2 (t =
+    981) with the kernels against the plain versions: relative L2."""
+    pipe, dev = model.pipe, model.device
+    ctx, unc = pipe.encode_text_cond_uncond(model.token_ids(PROMPT, APP_SAMPLES),
+                                            model.token_ids(N_PROMPT, APP_SAMPLES))
+    conds = [dataclasses.replace(c, hint=torch.cat([c.hint, c.hint]))
+             for c in model.conditions(images, APP_SAMPLES, weights)]
+    lat = images[0].shape[0] // 2 ** (len(model.cfg.vae.ch_mult) - 1)
+    x = torch.randn((APP_SAMPLES, lat, images[0].shape[1] * lat // images[0].shape[0], 4),
+                    generator=gen, device=dev)
+    ts = torch.tensor([981], dtype=torch.int32, device=dev)
+    tvec = torch.full((2 * APP_SAMPLES,), 981, dtype=torch.int32, device=dev)
+
+    def evaluate():
+        packed, rows_of = make_emb_row_tables(pipe, conds, ts)
+        return pipe.apply_model(torch.cat([x, x]), tvec, torch.cat([ctx, unc]), conds,
+                                emb_rows=rows_of(packed[0]))
+
+    out_k = evaluate()
+    with plain_versions():
+        out_p = evaluate()
+    return rel_l2(out_k, out_p)
+
+
+def app_call(path: str, required, call) -> tuple:
+    """call() with every launch count zeroed before and read after: (its
+    result, seconds, launches)."""
+    with counted(f"apps {path}", required) as launches:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, seconds, launches
+
+
+def check_samples(path, out, n_conditions, size):
+    """The app's output: its condition image(s), then APP_SAMPLES uint8
+    samples at `size`, not constant."""
+    samples = out[n_conditions:]
+    ok = len(samples) == APP_SAMPLES and all(
+        o.shape == (*size, 3) and o.dtype == np.uint8 and o.std() > 0 for o in samples)
+    if not ok:
+        raise AssertionError(f"apps {path}: {[(o.shape, o.dtype) for o in out]}")
+
+
+def app_ctrlora(dev, api_paths, image, image2):
+    """AppState.process (guess mode off and on) and process2 at the app's
+    defaults on phase 8's files, through `detect` (canny). Returns the
+    launches of each timed call."""
+    state = apps_logic.AppState(device=dev)
+    sd, cn, loras = api_paths["sd"], api_paths["basecn"], api_paths["loras"]
+    detected, detect_ms = timed(lambda: apps_logic.detect("canny", image, device=dev), dev)
+    detected2 = apps_logic.detect("canny", image2, device=dev)
+    model, create_ms = timed(lambda: state.build_model(sd, cn, [loras[0]]), dev)
+    call = lambda guess, steps=APP_STEPS: state.process(
+        "canny", detected, PROMPT, N_PROMPT, APP_SAMPLES, steps, guess, 1.0, APP_SCALE, SEED,
+        0.0, sd, cn, loras[0])
+    _, warm_ms = timed(lambda: call(False, 2), dev)
+    runs, images = {}, {}
+    for guess in (False, True):
+        out, seconds, runs[f"process_guess_{guess}"] = app_call(
+            f"process guess_mode={guess}", APP_KERNELS, lambda: call(guess))
+        check_samples("process", out, 1, detected.shape[:2])
+        images[guess] = out[1]
+        log("apps", path="process", guess_mode=guess, samples=APP_SAMPLES, steps=APP_STEPS,
+            scale=APP_SCALE, size=list(detected.shape[:2]), s_per_call=seconds,
+            launches=runs[f"process_guess_{guess}"],
+            launches_per_step={k: v / APP_STEPS for k, v in
+                               runs[f"process_guess_{guess}"].items()},
+            image_mean=float(out[1].mean()), image_std=float(out[1].std()))
+    with plain_versions():
+        plain = call(False)[1]
+    rel_image = rel_l2(torch.from_numpy(images[False]), torch.from_numpy(plain))
+    rel_guess = rel_l2(torch.from_numpy(images[True]), torch.from_numpy(images[False]))
+    rel_eval = one_evaluation_rel(model, [detected], (1.0,),
+                                  torch.Generator(device=dev).manual_seed(SEED + 151))
+    log("apps", path="process", detect_canny_ms=detect_ms, create_model_s=create_ms / 1e3,
+        warmup_2_steps_ms=warm_ms, rel_l2_decoded_image_kernels_vs_plain=rel_image,
+        rel_l2_guess_vs_not=rel_guess, rel_l2_one_evaluation_kernels_vs_plain=rel_eval,
+        bound=MODEL_REL_TOL)
+    if not rel_eval <= MODEL_REL_TOL or not rel_guess > 1e-3:
+        raise AssertionError(f"apps process: one evaluation {rel_eval} from plain, guess mode "
+                             f"moved the image {rel_guess}")
+
+    model2, create2_ms = timed(lambda: state.build_model(sd, cn, loras), dev)
+    del model
+    call2 = lambda steps=APP_STEPS: state.process2(
+        detected, detected2, PROMPT, N_PROMPT, APP_SAMPLES, steps, 1.0, APP_SCALE, SEED, 0.0,
+        sd, cn, loras[0], loras[1], *LORA_WEIGHTS)
+    call2(2)
+    out, seconds, runs["process2"] = app_call("process2", APP_KERNELS, call2)
+    check_samples("process2", out, 2, out[0].shape[:2])
+    rel_eval2 = one_evaluation_rel(model2, out[:2], LORA_WEIGHTS,
+                                   torch.Generator(device=dev).manual_seed(SEED + 152))
+    log("apps", path="process2", samples=APP_SAMPLES, steps=APP_STEPS, scale=APP_SCALE,
+        sizes=[list(o.shape) for o in out[:2]], create_model_s=create2_ms / 1e3,
+        s_per_call=seconds, launches=runs["process2"],
+        launches_per_step={k: v / APP_STEPS for k, v in runs["process2"].items()},
+        rel_l2_one_evaluation_kernels_vs_plain=rel_eval2, bound=MODEL_REL_TOL,
+        image_mean=float(out[2].mean()), image_std=float(out[2].std()))
+    if not rel_eval2 <= MODEL_REL_TOL or out[0].shape != out[1].shape:
+        raise AssertionError(f"apps process2: one evaluation {rel_eval2} from plain, crops "
+                             f"{out[0].shape} {out[1].shape}")
+    return runs
+
+
+def app_controlnet(dev, files, image):
+    """process_controlnet at the app's defaults on phase 11's SD and
+    control files. Returns the launches of the timed call."""
+    cache = apps_logic.ModelCache()
+    _, create_ms = timed(lambda: apps_logic.build_controlnet(
+        files["sd"], files["control"], dev, cache), dev)
+    call = lambda steps=APP_STEPS: apps_logic.process_controlnet(
+        "canny", image, PROMPT, N_PROMPT, APP_SAMPLES, steps, 1.0, APP_SCALE, SEED,
+        files["sd"], files["control"], dev, cache)
+    call(2)
+    out, seconds, launches = app_call("process_controlnet", APP_CONTROLNET_KERNELS, call)
+    check_samples("process_controlnet", out, 1, out[0].shape[:2])
+    log("apps", path="process_controlnet", samples=APP_SAMPLES, steps=APP_STEPS,
+        scale=APP_SCALE, size=list(out[0].shape[:2]), create_s=create_ms / 1e3,
+        s_per_call=seconds, launches=launches,
+        launches_per_step={k: v / APP_STEPS for k, v in launches.items()},
+        image_mean=float(out[1].mean()), image_std=float(out[1].std()))
+    return launches
+
+
+def app_style(dev, paths, image, style_image):
+    """process_style at the app's defaults ('Load only style blocks', IP
+    scale 1) on phase 13's files. Returns the launches of the timed call."""
+    cache = apps_logic.ModelCache()
+    args = (paths["sd"], paths["basecn"], paths["loras"][0], paths["ip"], 1.0,
+            apps_logic.STYLE_TARGETS["Load only style blocks"])
+    _, create_ms = timed(lambda: apps_logic.build_style(
+        *args, image_encoder_ckpt=paths["vision"], device=dev, cache=cache), dev)
+    call = lambda steps=APP_STEPS: apps_logic.process_style(
+        "canny", image, style_image, PROMPT, N_PROMPT, APP_SAMPLES, steps, APP_SCALE, SEED,
+        *args, image_encoder_ckpt=paths["vision"], device=dev, cache=cache)
+    call(2)
+    out, seconds, launches = app_call("process_style", STYLE_KERNELS, call)
+    check_samples("process_style", out, 2, out[0].shape[:2])
+    log("apps", path="process_style", samples=APP_SAMPLES, steps=APP_STEPS, scale=APP_SCALE,
+        size=list(out[0].shape[:2]), style_image=list(style_image.shape),
+        create_s=create_ms / 1e3, s_per_call=seconds, launches=launches,
+        launches_per_step={k: v / APP_STEPS for k, v in launches.items()},
+        image_mean=float(out[2].mean()), image_std=float(out[2].std()))
+    return launches
+
+
+def uint8_diff(got, want) -> tuple:
+    """(largest level difference, share of pixels that differ)."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def app_detectors(dev, image):
+    """Each ported CNN detector through the registry on the card at 512^2
+    from seeded published-layout files: ms an image (median of 3 after a
+    first call), its network's fp32 GFLOP and share of the fp32 peak, and
+    its map against the same detector on the CPU (within 1 level on 0.1% of
+    pixels; the THRESHOLDED ones: 0.1% of pixels differing; MLSD: its
+    network map within rtol 1e-4 / atol 1e-5 and 99% of the drawn pixels);
+    no hand-written kernel launched."""
+    with counted("apps detectors", ()) as launches:
+        for name in annot_registry.CNN:
+            det, cpu = annot_registry.get(name, dev), annot_registry.get(name, "cpu")
+            kw = lambda: {"rng": np.random.default_rng(SEED)} if name in (
+                "hedsketch", "lineart_anime_with_color_prompt") else {}
+            _, first_ms = timed(lambda: det(image, **kw()), dev)
+            times = []
+            for _ in range(3):
+                got, ms = timed(lambda: det(image, **kw()), dev)
+                times.append(ms)
+            t0 = time.perf_counter()
+            want = cpu(image, **kw())
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            net = DETECTOR_NETS[name](det)
+            cin = net.backbone.features[0][0].in_channels if name == "mlsd" else 3
+            hw = [-(-n // 256) * 256 for n in image.shape[:2]] if "anime" in name \
+                else list(image.shape[:2])  # the anime UNet's input: multiples of 256
+            x = np.zeros((1, *hw, cin), np.float32)
+            gflop = flops_of(lambda: annot_nets.forward(net, x)) / 1e9
+            level, share = uint8_diff(got, want)
+            row = {"detector": name, "size": list(image.shape[:2]),
+                   "ms_per_image": sorted(times)[1], "first_ms": first_ms, "cpu_ms": cpu_ms,
+                   "gflop": gflop, "pct_fp32_peak": 100 * gflop * 1e9 / FP32_PEAK_FLOPS
+                   / (sorted(times)[1] / 1e3), "gpu_vs_cpu_max_levels": level,
+                   "gpu_vs_cpu_pixels_differing": share}
+            if name == "mlsd":
+                tp, tp_cpu = det.tp_map(image), cpu.tp_map(image)
+                row["tp_map_max_abs_err"] = float(np.abs(tp - tp_cpu).max())
+                ok = np.allclose(tp, tp_cpu, rtol=1e-4, atol=1e-5) and (got == want).mean() >= 0.99
+            elif name in THRESHOLDED:  # a level across the threshold flips a pixel
+                ok = share <= 1e-3
+            else:
+                ok = level <= 1 and share <= 1e-3
+            if name == "lineart":  # the coarse weights too
+                row["coarse_levels_share"] = uint8_diff(det(image, coarse=True),
+                                                        cpu(image, coarse=True))
+                ok = ok and row["coarse_levels_share"][0] <= 1 and \
+                    row["coarse_levels_share"][1] <= 1e-3
+            log("apps_detectors", **row, tol="1 level on 0.1% of pixels")
+            if not ok or got.dtype != np.uint8 or not got.any():
+                raise AssertionError(f"detector {name} on the card departs from the CPU: {row}")
+    if any(launches.values()):
+        raise AssertionError(f"the detectors launched hand-written kernels: {launches}")
+
+
+def quiet(fn, *args):
+    """fn(*args) with its prints captured: (result, printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def app_tools(dev, root, api_paths, rng):
+    """The tools at SD1.5 width on phase 8's files: tool_make_control_init
+    from the SD file, tool_combine_weights of it with the SD file and LoRA 0,
+    tool_extract_weights -t control and -t lora from the combined file (the
+    round trip bit-equal: the LoRA file back, the control init back with
+    LoRA 0's zero convs and norms); tool_make_cond_images over
+    COND_IMAGES PNGs with hed and lineart on the card; then
+    evaluate_lineart_is_coarse and evaluate_lineart over LINEART_ITEMS
+    samples whose conditions are the card's lineart, coarse for odd items
+    (the flags must find them)."""
+    p = {k: os.path.join(root, f"{k}.ckpt") for k in ("init", "combined", "control", "lora")}
+    sd, lora0 = api_paths["sd"], api_paths["loras"][0]
+    t = {}
+    t0 = time.perf_counter()
+    init, printed = quiet(tool_make_control_init.main, ["--sd_ckpt", sd, "--output_path",
+                                                        p["init"]])
+    t["make_control_init_s"] = time.perf_counter() - t0
+    sd_file = ckpt_torch.load_torch_state_dict(sd)
+    new = [ln for ln in printed if "newly added" in ln]
+    copied = [k for k in init if "model.diffusion_model." + k[len("control_model."):] in sd_file]
+    zero = [k for k in init if k.startswith(("control_model.zero_convs",
+                                             "control_model.middle_block_out"))]
+    bad = [k for k in copied if not np.array_equal(
+        init[k], sd_file["model.diffusion_model." + k[len("control_model."):]])]
+    bad += [k for k in zero if init[k].any()]
+    del sd_file
+    t0 = time.perf_counter()
+    combined, _ = quiet(tool_combine_weights.main, ["--sd_ckpt", sd, "--base_ckpt", p["init"],
+                                                    "--lora_ckpt", lora0, "--save_path",
+                                                    p["combined"]])
+    t["combine_s"] = time.perf_counter() - t0
+    n_combined = len(combined)
+    del combined
+    extracted = {}
+    for kind in ("control", "lora"):
+        t0 = time.perf_counter()
+        out, _ = quiet(tool_extract_weights.main, ["-t", kind, "--ckpt", p["combined"],
+                                                   "--save_path", p[kind]])
+        t[f"extract_{kind}_s"] = time.perf_counter() - t0
+        extracted[kind] = out[p[kind]]
+    lora_file = ckpt_torch.load_torch_state_dict(lora0)
+    want_control = {k: lora_file.get(k, v) for k, v in init.items()}
+    round_trip = {kind: sorted(got) == sorted(want) and all(
+        np.array_equal(got[k], want[k]) for k in want)
+        for kind, got, want in (("lora", extracted["lora"], lora_file),
+                                ("control", extracted["control"], want_control))}
+    log("apps_tools", **t, file_gb={k: os.path.getsize(v) / 2 ** 30 for k, v in p.items()},
+        init_keys=len(init), copied_from_sd=len(copied), newly_added=len(new),
+        zero_conv_keys=len(zero), combined_keys=n_combined, lora_keys=len(lora_file),
+        mismatched=bad[:5], round_trip_bit_equal=round_trip)
+    if bad or not copied or not zero or not all(round_trip.values()) or \
+            len(copied) + len(new) != len(init):
+        raise AssertionError(f"tools: mismatched {bad[:5]}, round trip {round_trip}")
+    del init, extracted, lora_file, want_control
+    for f in p.values():
+        os.remove(f)
+
+    import cv2
+
+    src = os.path.join(root, "images")
+    os.makedirs(src)
+    for i in range(COND_IMAGES):
+        cv2.imwrite(os.path.join(src, f"{i}.jpg"), smooth_image(rng, 480, 640)[..., ::-1])
+    for det in ("hed", "lineart"):
+        out_dir = os.path.join(root, f"cond_{det}")
+        t0 = time.perf_counter()
+        results, _ = quiet(tool_make_cond_images.main, ["--input_dir", src, "--output_dir",
+                                                        out_dir, "--detector", det,
+                                                        "--device", dev.type])
+        seconds = time.perf_counter() - t0
+        shapes = {png_shape(os.path.join(out_dir, f"{i}.png")) == [512, 704, 3]
+                  for i in range(COND_IMAGES)}
+        log("apps_tools", tool="tool_make_cond_images", detector=det, images=COND_IMAGES,
+            seconds=seconds, written=sum(ok for _, ok in results), pngs_512x704=shapes == {True})
+        if sum(ok for _, ok in results) != COND_IMAGES or shapes != {True}:
+            raise AssertionError(f"tool_make_cond_images {det}: {results}, shapes {shapes}")
+
+    sample_dir = os.path.join(root, "lineart_eval")
+    for sub in ("img", "control", "sample"):
+        os.makedirs(os.path.join(sample_dir, sub))
+    det = annot_registry.get("lineart", dev)
+    for i in range(LINEART_ITEMS):
+        img = smooth_image(rng, SIZE, SIZE)
+        write_png(os.path.join(sample_dir, "img", f"{i:06d}.png"), img)
+        write_png(os.path.join(sample_dir, "control", f"{i:06d}.png"),
+                  HWC3(det(img, coarse=i % 2 == 1)))
+        noisy = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+        write_png(os.path.join(sample_dir, "sample", f"{i:06d}.png"), noisy)
+    flags_file = os.path.join(root, "is_coarse.txt")
+    t0 = time.perf_counter()
+    flags, _ = quiet(evaluate_lineart_is_coarse.main, ["--sample_dir", sample_dir, "--out",
+                                                       flags_file, "--device", dev.type])
+    coarse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results, printed = quiet(evaluate_lineart.main, ["--sample_dir", sample_dir, "--is_coarse",
+                                                     flags_file, "--device", dev.type])
+    lineart_s = time.perf_counter() - t0
+    want_flags = [i % 2 == 1 for i in range(LINEART_ITEMS)]
+    log("apps_tools", tool="evaluate_lineart", items=LINEART_ITEMS, is_coarse_s=coarse_s,
+        evaluate_s=lineart_s, flags=flags, flags_found_the_coarse_items=flags == want_flags,
+        printed=printed, results=results)
+    if flags != want_flags or set(results) != {"mse", "psnr", "ssim"} or not all(
+            math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"lineart CLIs: flags {flags}, results {results}")
+
+
+def apps_slice(dev, api_paths, baseline_files, style_paths):
+    """Phase 15: the app logic's paths at the app's defaults (one sample,
+    20 steps, CFG 7.5, 512^2) after kernels A, B, C and D at their shapes,
+    then the detectors and the tools. Deletes every file phases 8, 11, 13
+    and 15 left. Returns the launches of each app call."""
+    root = os.path.join(ROOT, "runs", "chip_smoke_apps")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved = os.environ.get(annot_download.CKPT_ENV)
+    try:
+        t_phase = time.perf_counter()
+        with counted("apps kernel checks", ()):
+            app_kernel_checks(dev)
+        rng = np.random.default_rng(SEED + 15)
+        image, image2 = smooth_image(rng, SIZE, SIZE), smooth_image(rng, SIZE + 64, SIZE)
+        launches = app_ctrlora(dev, api_paths, image, image2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["process_controlnet"] = app_controlnet(dev, baseline_files, image)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["process_style"] = app_style(dev, style_paths, image,
+                                              smooth_image(rng, *STYLE_IMAGE_HW))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt_dir = os.path.join(root, "detector_ckpts")
+        write_detector_files(ckpt_dir, SEED + 15)
+        os.environ[annot_download.CKPT_ENV] = ckpt_dir
+        app_detectors(dev, image)
+        app_tools(dev, root, api_paths, rng)
+        log("apps", phase_s=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        if saved is None:
+            os.environ.pop(annot_download.CKPT_ENV, None)
+        else:
+            os.environ[annot_download.CKPT_ENV] = saved
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(KEPT, ignore_errors=True)
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
     nothing and ptxas serialises none of their wgmmas for accumulator
     accesses (C7514/C7515: a plain instruction touching an accumulator
     inside a batch); A (and so A2, the same kernel) and D spill nothing;
-    A's, A2's, B6's and B4/B5's tilings are what their Python mirrors say,
+    A's (at phase 3's and phase 15's shapes), A2's, B6's and B4/B5's
+    tilings are what their Python mirrors say,
     with the waves A2's plan makes; and D's layout holds as many rows as
     its Python mirror says."""
     for what, name in (("geglu", "geglu"), ("flash_bwd", "flash_bwd"),
@@ -3367,7 +3957,7 @@ def build_gates(dev) -> None:
     # its clusters the card holds at once (cudaOccupancyMaxActiveClusters)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gn_plans = []
-    for shape, dt, *_ in GN_CASES:
+    for shape, dt, *_ in GN_CASES + APP_GN_CASES:
         b, hw, c = shape[0], shape[1] * shape[2], shape[-1]
         item = torch.empty((), dtype=dt).element_size()
         out = (ctypes.c_int * 9)()
@@ -3446,13 +4036,18 @@ def main(argv) -> int:
     tiny_api_gpu_vs_cpu(dev)
     training, phase6_s_step = train_slice(dev, profile=bool(profile_steps))
     tiny_train_gpu_vs_cpu(dev)
-    api_runs = api_slice(dev)
-    torch.cuda.empty_cache()
-    cli_runs = train_cli_slice(dev, phase6_s_step)
-    baseline_runs = baselines_slice(dev)
-    xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
-    style_launches = style_slice(dev, phase4_s_batch)
-    eval_launches = evaluation_slice(dev, cli_rates)
+    shutil.rmtree(KEPT, ignore_errors=True)
+    try:
+        api_runs, api_paths = api_slice(dev)
+        torch.cuda.empty_cache()
+        cli_runs = train_cli_slice(dev, phase6_s_step)
+        baseline_runs, baseline_files = baselines_slice(dev)
+        xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
+        style_launches, style_paths = style_slice(dev, phase4_s_batch)
+        eval_launches = evaluation_slice(dev, cli_rates)
+        app_runs = apps_slice(dev, api_paths, baseline_files, style_paths)
+    finally:
+        shutil.rmtree(KEPT, ignore_errors=True)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -3462,7 +4057,8 @@ def main(argv) -> int:
                    "train_cli": sum(r[name] for r in cli_runs.values()),
                    "baselines": sum(r[name] for r in baseline_runs.values()),
                    "xs": sum(r[name] for r in xs_runs.values()),
-                   "style": style_launches[name], "evaluation": eval_launches[name]}
+                   "style": style_launches[name], "evaluation": eval_launches[name],
+                   "apps": sum(r[name] for r in app_runs.values())}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

@@ -3,18 +3,24 @@
 
 The names are the JAX registry's, the preprocessor set of the reference
 apps (app/gradio_ctrlora.py:36-40). The numpy/cv2 detectors of
-``simple.py`` are here under JAX's names. The CNN detectors (hed, lineart,
-mlsd, openpose, pidinet, midas, depth/normal, the segmenters, densepose,
-normalbae, zoe, bbox) are registered too, and asking for one raises
-NotImplementedError: they are ROADMAP queue 1 item 14, not ported yet.
+``simple.py`` are here under JAX's names, and so are the CNN detectors the
+port has (``CNN``: HED and its sketch, the three lineart detectors, MLSD),
+which run on ``device`` (the card unless the caller asks for the CPU). The
+other CNN detectors (openpose, pidinet, midas, depth/normal, the
+segmenters, densepose, normalbae, zoe, bbox) are registered too, and asking
+for one raises NotImplementedError: they are ROADMAP queue 1 item 14, not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import importlib
+from typing import Callable, Dict, Tuple
+
+import torch
 
 _FACTORIES: Dict[str, Callable] = {}
-_CACHE: Dict[str, object] = {}
+_CACHE: Dict[Tuple[str, str], object] = {}
 
 
 def register(name: str):
@@ -29,16 +35,19 @@ def available() -> list:
     return sorted(_FACTORIES)
 
 
-def get(name: str):
-    if name not in _CACHE:
+def get(name: str, device="cuda"):
+    """The detector `name`, built once for each device it is asked for (the
+    numpy/cv2 detectors ignore the device)."""
+    key = (name, str(torch.device(device)))
+    if key not in _CACHE:
         if name not in _FACTORIES:
             raise KeyError(f"unknown annotator {name!r}; available: {available()}")
-        _CACHE[name] = _FACTORIES[name]()
-    return _CACHE[name]
+        _CACHE[key] = _FACTORIES[name](device)
+    return _CACHE[key]
 
 
 def _simple(cls_name: str):
-    def factory():
+    def factory(device):
         from ctrlora_tpu_torch.annotators import simple
 
         return getattr(simple, cls_name)()
@@ -67,20 +76,41 @@ SIMPLE = {
 for _name, _cls in SIMPLE.items():
     _FACTORIES[_name] = _simple(_cls)
 
-# the JAX registry's Flax CNN detectors, not ported yet
-CNN = ("hed", "hedsketch", "lineart", "lineart_anime", "lineart_anime_with_color_prompt",
-       "mlsd", "openpose", "pidinet", "midas", "depth", "normal", "seg", "seg_ofcoco",
-       "seg_ofade20k", "densepose", "normalbae", "zoe", "bbox")
+# the CNN detectors of the port: name -> (module, class)
+CNN = {
+    "hed": ("hed", "HEDdetector"),
+    "hedsketch": ("hed", "HEDSketchDetector"),
+    "lineart": ("lineart", "LineartDetector"),
+    "lineart_anime": ("lineart", "LineartAnimeDetector"),
+    "lineart_anime_with_color_prompt": ("lineart", "LineartAnimeWithColorPromptDetector"),
+    "mlsd": ("mlsd", "MLSDdetector"),
+}
 
 
-def _not_ported(name: str):
-    def factory():
-        raise NotImplementedError(
-            f"annotator {name!r} is a CNN detector the PyTorch port does not have yet "
-            f"(ROADMAP queue 1 item 14); the port has: {sorted(SIMPLE)}")
+def _cnn(module: str, cls_name: str):
+    def factory(device):
+        mod = importlib.import_module(f"ctrlora_tpu_torch.annotators.{module}")
+        return getattr(mod, cls_name)(device=device)
 
     return factory
 
 
-for _name in CNN:
+for _name, (_module, _cls) in CNN.items():
+    _FACTORIES[_name] = _cnn(_module, _cls)
+
+# the JAX registry's Flax CNN detectors, not ported yet
+NOT_PORTED = ("openpose", "pidinet", "midas", "depth", "normal", "seg", "seg_ofcoco",
+              "seg_ofade20k", "densepose", "normalbae", "zoe", "bbox")
+
+
+def _not_ported(name: str):
+    def factory(device):
+        raise NotImplementedError(
+            f"annotator {name!r} is a CNN detector the PyTorch port does not have yet "
+            f"(ROADMAP queue 1 item 14); the port has: {sorted(SIMPLE) + sorted(CNN)}")
+
+    return factory
+
+
+for _name in NOT_PORTED:
     _FACTORIES[_name] = _not_ported(_name)

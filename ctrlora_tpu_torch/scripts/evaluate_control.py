@@ -9,10 +9,11 @@ of each sample against its prompt (reference lines 65-69):
       [--clip_ckpt clip-vit-large-patch14.ckpt]
 
 --sample_dir is the sample CLI's --save_dir (sample/, control/,
-prompt.txt). --detector is a name of ``annotators.registry``; the CNN
-detectors are not ported yet and raise. LPIPS and CLIPScore print when
-their pretrained checkpoints are given. --device defaults to cuda; the
-script never falls back to the CPU, ask for it with --device cpu.
+prompt.txt). --detector is a name of ``annotators.registry``; a CNN
+detector runs on --device too, and one the port does not have yet raises.
+LPIPS and CLIPScore print when their pretrained checkpoints are given.
+--device defaults to cuda; the script never falls back to the CPU, ask for
+it with --device cpu.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Prints each metric as 'NAME: value' and returns them."""
     args = build_parser().parse_args(argv)
     device = cli_device(args.device)
-    det = registry.get(args.detector)
+    det = registry.get(args.detector, device)
     if args.detector == "canny":
         det = partial(det, low_threshold=100, high_threshold=200)
 

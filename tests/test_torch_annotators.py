@@ -1,13 +1,18 @@
-"""The port's numpy/cv2 annotators and the evaluate_control /
-evaluate_restore CLIs against the JAX package on the CPU.
+"""The port's annotator registry and the evaluate_control /
+evaluate_restore / evaluate_lineart(_is_coarse) CLIs against the JAX
+package on the CPU.
 
 Every simple detector of the registry gives JAX's output bit for bit on a
 seeded image (the stochastic ones from equal numpy generators, ``pixel``
 with a given palette), as do ``resize_image`` (up and down) and the other
-helpers of ``util.py``; a CNN detector's name raises NotImplementedError.
-The two CLIs, on a directory laid out as the sample CLI writes it (3
-items, 64 px, prompt.txt) with seeded tiny LPIPS and CLIP files, print the
-values JAX's MetricAccumulator gives on the same arrays.
+helpers of ``util.py``. Each ported CNN detector's name builds its
+detector on the CPU from seeded published-layout files
+(``chip_smoke.write_detector_files``) and gives JAX's map within 1 level
+on 0.1% of pixels (MLSD's drawn segments: 99% of pixels equal); the other
+CNN names raise NotImplementedError. The CLIs, on a directory laid out as
+the sample CLI writes it (3 items, 64 px, prompt.txt) with seeded tiny
+LPIPS and CLIP files, print the values JAX's MetricAccumulator gives on
+the same arrays; the lineart CLIs print JAX's flags and values.
 """
 
 import os
@@ -23,10 +28,14 @@ from ctrlora_tpu.annotators import registry as jreg
 from ctrlora_tpu.annotators import simple as jsimple
 from ctrlora_tpu.annotators import util as jutil
 from ctrlora_tpu.models.lpips import convert_lpips as jconvert_lpips
+import chip_smoke
+from ctrlora_tpu_torch.annotators import download
 from ctrlora_tpu_torch.annotators import registry as treg
 from ctrlora_tpu_torch.annotators import simple as tsimple
 from ctrlora_tpu_torch.annotators import util as tutil
-from ctrlora_tpu_torch.scripts import evaluate_control, evaluate_restore
+from ctrlora_tpu_torch.scripts import (
+    evaluate_control, evaluate_lineart, evaluate_lineart_is_coarse, evaluate_restore,
+)
 from ctrlora_tpu_torch.utils.image import write_png
 
 from test_torch_evaluation import lpips_sd, tiny_clip_sd
@@ -102,11 +111,42 @@ def test_util_helpers_equal_to_jax():
         np.testing.assert_array_equal(tutil.HWC3(a), jutil.HWC3(a))
 
 
-@pytest.mark.parametrize("name", sorted(treg.CNN))
+@pytest.mark.parametrize("name", sorted(treg.NOT_PORTED))
 def test_cnn_detector_names_raise_not_implemented(name):
     assert name in jreg.available() and name in treg.available()
     with pytest.raises(NotImplementedError, match="item 14"):
         treg.get(name)
+
+
+@pytest.fixture(scope="module")
+def detector_ckpts(tmp_path_factory):
+    """A CTRLORA_ANNOTATOR_CKPTS directory of seeded published-layout files
+    for both packages, and empty registry caches (restored after)."""
+    d = tmp_path_factory.mktemp("detector_ckpts")
+    chip_smoke.write_detector_files(str(d))
+    mp = pytest.MonkeyPatch()
+    mp.setenv(download.CKPT_ENV, str(d))
+    mp.setattr(jreg, "_CACHE", {})
+    mp.setattr(treg, "_CACHE", {})
+    yield str(d)
+    mp.undo()
+
+
+@pytest.mark.parametrize("name", sorted(treg.CNN))
+def test_ported_cnn_detector_builds_on_cpu_and_matches_jax(detector_ckpts, name):
+    img = image(12, (64, 64))
+    det = treg.get(name, "cpu")
+    assert treg.get(name, torch.device("cpu")) is det
+    assert type(det).__name__ == type(jreg.get(name)).__name__
+    kw = lambda: {"rng": np.random.default_rng(5)} if name in (
+        "hedsketch", "lineart_anime_with_color_prompt") else {}
+    got, want = det(img.copy(), **kw()), jreg.get(name)(img.copy(), **kw())
+    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
+    if name == "mlsd":
+        assert want.any() and (got == want).mean() >= 0.99
+        return
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
 
 
 def test_registry_names_are_jax_names():
@@ -212,3 +252,55 @@ def test_evaluate_restore_reads_bare_prompt_lines(sample_dir, tmp_path):
     got = evaluate_restore.main(["--sample_dir", str(tmp_path), "--device", "cpu",
                                  "--clip_ckpt", str(root / "clip.pth")])
     assert set(got) == {"mse", "psnr", "ssim", "clip score"}
+
+
+# ---------------------------------------------------------------------------
+# evaluate_lineart_is_coarse and evaluate_lineart
+# ---------------------------------------------------------------------------
+
+def _jax_script(name):
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(f"jax_{name}",
+                                                  os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_lineart_clis_print_jax_values(sample_dir, detector_ckpts, tmp_path, monkeypatch,
+                                       capsys):
+    """On the 3-item sample directory, with the seeded sk_model*.pth: the
+    coarse flags file equals JAX's, and evaluate_lineart prints JAX's MSE,
+    PSNR and SSIM (4 decimals, within 1e-4) with and without the flags."""
+    import sys
+
+    root, _, _ = sample_dir
+    flags = {}
+    for who in ("port", "jax"):
+        out = str(tmp_path / f"{who}_flags.txt")
+        if who == "port":
+            evaluate_lineart_is_coarse.main(["--sample_dir", str(root), "--out", out,
+                                             "--device", "cpu"])
+        else:
+            monkeypatch.setattr(sys, "argv", ["x", "--sample_dir", str(root), "--out", out])
+            _jax_script("evaluate_lineart_is_coarse").main()
+        with open(out) as f:
+            flags[who] = f.read()
+    assert flags["port"] == flags["jax"] and len(flags["port"].splitlines()) == 3
+    capsys.readouterr()
+    for is_coarse in (str(tmp_path / "port_flags.txt"), str(tmp_path / "none.txt")):
+        args = ["--sample_dir", str(root), "--is_coarse", is_coarse, "--bs", "2"]
+        got = evaluate_lineart.main(args + ["--device", "cpu"])
+        printed = capsys.readouterr().out
+        monkeypatch.setattr(sys, "argv", ["x"] + args)
+        _jax_script("evaluate_lineart").main()
+        jprinted = capsys.readouterr().out
+        parse = lambda text: dict(re.match(r"([A-Z ]+): (-?[0-9.]+)$", ln).groups()
+                                  for ln in text.splitlines())
+        p, j = parse(printed), parse(jprinted)
+        assert set(p) == set(j) == {"MSE", "PSNR", "SSIM"} and set(got) == {"mse", "psnr",
+                                                                            "ssim"}
+        for k in j:
+            assert abs(float(p[k]) - float(j[k])) <= 1e-4, (k, p[k], j[k])

@@ -1,8 +1,8 @@
 """Kernel C's host side on the CPU: the tiling that ``geglu_plan`` hands the
 two CUDA launches (``ctrlora_geglu_up``, ``ctrlora_geglu_down``) covers
 every output tile of h [rows, F] and y [rows, C] exactly once (at the
-SD1.5 widths and at ControlNet-XS's 64/128/256, whose down tiles are 64 and
-128 columns wide), its split-K factor divides the F / 64 boxes of K, every
+SD1.5 widths, at the app's one-sample CFG batch of 2, and at ControlNet-XS's
+64/128/256, whose down tiles are 64 and 128 columns wide), its split-K factor divides the F / 64 boxes of K, every
 launch at the SD1.5 sites fills the H100's 132 SMs or its case says why
 not, and the static dispatch admits what it admitted, and the XS widths.
 The kernels themselves run only on the card (chip_smoke.py phase 3)."""
@@ -19,7 +19,9 @@ from ctrlora_tpu_torch.ops.geglu_ffn import BM, DOWN_TILES, K_BOX, H100_SMS, geg
 SAMPLING = [(8 * 4096, 320), (8 * 1024, 640), (8 * 256, 1280), (8 * 64, 1280)]
 FINETUNE = [(4 * 4096, 320), (4 * 1024, 640), (4 * 256, 1280), (4 * 64, 1280)]
 RAGGED = [(1000, 320), (77 * 2, 640), (300, 1280)]
-SHAPES = SAMPLING + FINETUNE + RAGGED
+# the app's one-sample sampling: the CFG batch of 2 at the four sites
+APP = [(2 * 4096, 320), (2 * 1024, 640), (2 * 256, 1280), (2 * 64, 1280)]
+SHAPES = SAMPLING + FINETUNE + RAGGED + APP
 # ControlNet-XS's control stream (0.2x: C = 64/128/256) at the same sites
 XS = [(8 * 4096, 64), (8 * 1024, 128), (8 * 256, 256), (8 * 64, 256),
       (4 * 4096, 64), (4 * 1024, 128), (4 * 256, 256), (4 * 64, 256)]
@@ -88,6 +90,12 @@ UNDER_A_WAVE = {
     ((77 * 2, 640), "down"): "2 row tiles x 4 split 10 ways, 80 units, one round",
     ((300, 1280), "up"): "3 row tiles x 40: one round; 64-column tiles need two",
     ((300, 1280), "down"): "24 tiles split 5 ways, 120 units; 8 ways needs two rounds",
+    ((2 * 4096, 320), "down"): "128 tiles of K = 1280; a split of 2 gives 256 units, two "
+                               "rounds of half the work each",
+    ((2 * 1024, 640), "down"): "64 tiles split 2 ways, 128 units; 4 ways needs two rounds",
+    ((2 * 256, 1280), "down"): "32 tiles split 4 ways, 128 units; 5 ways needs two rounds",
+    ((2 * 64, 1280), "up"): "one row tile: 80 tiles of 64 columns, the narrowest up tile",
+    ((2 * 64, 1280), "down"): "8 tiles split 16 ways, 128 units; 20 ways needs two rounds",
 }
 
 
@@ -113,7 +121,18 @@ def test_plan_at_the_sampling_sites():
         assert (plan.bn_up, plan.split) == (bn_up, split)
 
 
-@pytest.mark.parametrize("rows, c", SAMPLING + XS)
+def test_plan_at_the_app_sites():
+    """One sample at CFG 2: the split-K deepens as the rows shrink, to 16
+    at the 8^2 site's single 128-row tile (one tile a 160-column slice of
+    C), and the up launch narrows its tiles to 64 columns from 16^2 down."""
+    expect = {(2 * 4096, 320): (128, 1), (2 * 1024, 640): (128, 2),
+              (2 * 256, 1280): (64, 4), (2 * 64, 1280): (64, 16)}
+    for (rows, c), (bn_up, split) in expect.items():
+        plan = geglu_plan(rows, c, 4 * c)
+        assert (plan.bn_up, plan.split, plan.bn_down) == (bn_up, split, 160)
+
+
+@pytest.mark.parametrize("rows, c", SAMPLING + XS + APP)
 def test_down_tile_is_the_widest_that_divides_c(rows, c):
     """160 at the SD1.5 widths; 64 at C = 64 and 128 at 128 and 256, where
     160 does not divide C."""

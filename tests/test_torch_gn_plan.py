@@ -6,7 +6,8 @@ other on the card). Here it is checked at every GroupNorm shape of the three
 paths, the VAE and ControlNet-XS (its 64/128/256-channel control stream and
 the 384/768/1536 channels of its `cat` infusion), read off the models
 themselves: a forward on the meta
-device records each GroupNorm's input. At each shape, in bf16 and fp32:
+device records each GroupNorm's input (the app's one-sample path too: the
+UNet at the CFG batch of 2, the VAE at one sample). At each shape, in bf16 and fp32:
 each slab holds whole groups and a run of >= 128 contiguous bytes (or the
 whole row), the block's shared memory stays within the H100's 232,448 bytes,
 a cluster has at most 8 blocks, the blocks' rows cover the sample, and the
@@ -75,8 +76,14 @@ def path_shapes():
             model(torch.empty(b, 64, 64, 4), torch.zeros(b, dtype=torch.int32),
                   torch.empty(b, 77, ucfg.context_dim), hint=torch.empty(b, 512, 512, 3))
 
+    def app_vae():  # one sample: the hint's encode and the decode
+        model = AutoencoderKL(vcfg)
+        model.encode(torch.empty(1, 512, 512, 3))
+        model.decode(torch.empty(1, 64, 64, 4))
+
     return {"sampling": _recorded_shapes(unet(8)), "finetune": _recorded_shapes(unet(4)),
-            "vae": _recorded_shapes(vae), "xs": _recorded_shapes(xs)}
+            "vae": _recorded_shapes(vae), "xs": _recorded_shapes(xs),
+            "app": _recorded_shapes(unet(2)) + _recorded_shapes(app_vae)}
 
 
 def test_the_paths_reach_the_decoder_concat_widths(path_shapes):
@@ -95,7 +102,7 @@ def test_xs_reaches_its_control_widths(path_shapes):
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs", "app"])
 def test_slabs_hold_whole_groups(path_shapes, path, itemsize):
     for b, hw, c, groups, _ in path_shapes[path]:
         plan = gn.group_norm_plan(b, hw, c, groups, itemsize, SMS)
@@ -112,7 +119,7 @@ def test_slabs_hold_whole_groups(path_shapes, path, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs", "app"])
 def test_cluster_and_shared_memory_fit_the_card(path_shapes, path, itemsize):
     for b, hw, c, groups, _ in path_shapes[path]:
         plan = gn.group_norm_plan(b, hw, c, groups, itemsize, SMS)
@@ -123,7 +130,7 @@ def test_cluster_and_shared_memory_fit_the_card(path_shapes, path, itemsize):
 
 
 @pytest.mark.parametrize("itemsize", ITEMSIZES)
-@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs"])
+@pytest.mark.parametrize("path", ["sampling", "finetune", "vae", "xs", "app"])
 def test_staged_or_reread_follows_the_bytes(path_shapes, path, itemsize):
     """Staged: the block's rows of the slab sit in its shared memory. Re-read:
     not even a cluster of 8 would fit them, and the ring of chunks does."""
@@ -146,6 +153,19 @@ def test_grid_covers_the_sms_at_the_unet_sites(path_shapes, path, batch):
     for b, hw, c, groups, _ in sites:
         plan = gn.group_norm_plan(b, hw, c, groups, 2, SMS)
         assert plan.blocks(b) >= 128, (b, hw, c, plan)
+
+
+def test_app_batch_fills_half_the_card_at_320_channels(path_shapes):
+    """The app's CFG batch of 2: the 320-channel sites (64^2 and the 32^2
+    decoder's) make 64 blocks (2 samples x 4 slabs of 8 groups x a cluster
+    of 8), under half the 132 SMs; every other UNet site 128. The VAE at
+    one sample and 512^2 x 128 re-reads with 16 blocks."""
+    blocks = {(b, hw, c): gn.group_norm_plan(b, hw, c, groups, 2, SMS).blocks(b)
+              for b, hw, c, groups, _ in path_shapes["app"]}
+    assert blocks[(2, 64 * 64, 320)] == blocks[(2, 32 * 32, 320)] == 64
+    assert all(n == (64 if c == 320 else 128) for (b, hw, c), n in blocks.items() if b == 2)
+    assert blocks[(1, 512 * 512, 128)] == 16
+    assert not gn.group_norm_plan(1, 512 * 512, 128, 32, 2, SMS).staged
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():

@@ -3,7 +3,9 @@ no JAX, no flax, no PyYAML, no transformers and nothing of ctrlora_tpu (the
 GPU host has none of them; the port reads YAML configs with its own
 reader), no module
 imports triton (every kernel is CUDA C++ built with nvcc), and the
-kernel build directory is ignored by git."""
+kernel build directory is ignored by git. The gradio front ends
+(``ctrlora_tpu_torch/app/gradio_*.py``) exit at import without gradio, so
+their sources are scanned instead of imported."""
 
 import ast
 import json
@@ -17,10 +19,16 @@ import ctrlora_tpu_torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+GRADIO = ("ctrlora_tpu_torch.app.gradio_ctrlora", "ctrlora_tpu_torch.app.gradio_controlnet",
+          "ctrlora_tpu_torch.app.gradio_ctrlora_style_transfer")
+
+
 def _modules():
+    """Every module of the port but the gradio front ends."""
     names = ["ctrlora_tpu_torch"]
     for info in pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch."):
-        names.append(info.name)
+        if info.name not in GRADIO:
+            names.append(info.name)
     return names
 
 
@@ -45,8 +53,31 @@ def test_port_modules_cover_the_slice():
                 "utils.precision", "models.lpips", "models.inception", "models.t5",
                 "evaluation", "annotators.util", "annotators.simple", "annotators.registry",
                 "scripts.evaluate_control", "scripts.evaluate_restore",
-                "scripts.evaluate_fid"):
+                "scripts.evaluate_fid", "annotators.download", "annotators.nets",
+                "annotators.hed", "annotators.lineart", "annotators.mlsd", "apps.logic",
+                "app", "scripts.tool_make_control_init", "scripts.tool_combine_weights",
+                "scripts.tool_extract_weights", "scripts.tool_make_cond_images",
+                "scripts.evaluate_lineart_is_coarse", "scripts.evaluate_lineart"):
         assert f"ctrlora_tpu_torch.{mod}" in names
+    found = {info.name for info in
+             pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}
+    assert set(GRADIO) <= found
+
+
+def test_gradio_front_ends_import_no_jax():
+    """The three gradio modules' imports, read from their sources: gradio,
+    the standard library and the port only."""
+    for name in GRADIO:
+        path = os.path.join(ROOT, *name.split(".")) + ".py"
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        imported = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+                    for a in node.names]
+        imported += [node.module or "" for node in ast.walk(tree)
+                     if isinstance(node, ast.ImportFrom)]
+        roots = {m.split(".")[0] for m in imported}
+        assert "gradio" in roots and "ctrlora_tpu_torch" in roots
+        assert not roots & {"jax", "jaxlib", "flax", "ctrlora_tpu"}, (name, roots)
 
 
 def test_no_jax_in_port_or_chip_smoke():
