@@ -214,10 +214,16 @@ the script exits non-zero:
    LoRAs, process_controlnet on phase 11's SD and control files and
    process_style on phase 13's files, each timed with its launches; (c)
    each ported CNN detector (hed, hedsketch, lineart fine and coarse,
-   lineart_anime, its colour prompt, mlsd) through the registry on the
-   card at 512^2 from seeded files in the published layouts: ms an image,
-   fp32 GFLOP and share of the fp32 peak, the map against the same
-   detector on the CPU, no hand-written kernel launched; (d) the tools at
+   lineart_anime, its colour prompt, mlsd, midas with depth and normal on
+   DPT-Large, seg on UniFormer-S + UPerNet, openpose) through the registry
+   on the card at 512^2 from seeded files in the published layouts and
+   widths: ms an image, fp32 GFLOP and share of the fp32 peak, the map
+   against the same detector on the CPU (seg's logits, OpenPose's heatmaps
+   and PAFs within rtol 1e-4), OpenPose's body net alone, its hand net at
+   its four scales and face net at 384^2 against the CPU, the detector with
+   hands and faces, on the seeded body's maps and on a drawn person's,
+   apps_logic.detect for depth, normal, seg and openpose, no hand-written
+   kernel launched; (d) the tools at
    SD1.5 width: tool_make_control_init -> tool_combine_weights ->
    tool_extract_weights (-t control, -t lora) with the round trip
    bit-equal, tool_make_cond_images over 4 PNGs with hed and lineart, then
@@ -270,8 +276,12 @@ from ctrlora_tpu_torch import api as api_mod
 from ctrlora_tpu_torch.annotators import download as annot_download
 from ctrlora_tpu_torch.annotators import hed as hed_mod
 from ctrlora_tpu_torch.annotators import lineart as lineart_mod
+from ctrlora_tpu_torch.annotators import midas as midas_mod
 from ctrlora_tpu_torch.annotators import mlsd as mlsd_mod
 from ctrlora_tpu_torch.annotators import nets as annot_nets
+from ctrlora_tpu_torch.annotators import openpose as openpose_mod
+from ctrlora_tpu_torch.annotators import uniformer as uniformer_mod
+from ctrlora_tpu_torch.annotators.openpose import models as openpose_models
 from ctrlora_tpu_torch.annotators import registry as annot_registry
 from ctrlora_tpu_torch.apps import logic as apps_logic
 from ctrlora_tpu_torch import configs, evaluation, lora_fuse
@@ -3375,17 +3385,33 @@ DETECTOR_FILES = {"ControlNetHED.pth": hed_mod.ControlNetHED,
                   "sk_model.pth": lineart_mod.LineartGenerator,
                   "sk_model2.pth": lineart_mod.LineartGenerator,
                   "netG.pth": lineart_mod.AnimeUNet,
-                  "mlsd_large_512_fp32.pth": mlsd_mod.MobileV2MLSDLarge}
+                  "mlsd_large_512_fp32.pth": mlsd_mod.MobileV2MLSDLarge,
+                  "dpt_large_384.pt": midas_mod.DPT,
+                  "upernet_global_small.pth": uniformer_mod.UperNetUniFormer,
+                  "body_pose_model.pth": openpose_models.BodyNet,
+                  "hand_pose_model.pth": openpose_models.HandNet,
+                  "facenet.pth": openpose_models.FaceNet}
+# the body net's heatmap head is scaled by this much in its seeded file, so
+# the maps of a 512^2 image cross the decode's threshold at tens to a
+# hundred peaks, not thousands (the limb matching is quadratic in them, in
+# Python)
+BODY_HEATMAP_SCALE = ("Mconv7_stage6_L2.weight", 0.2)
 
 
 def detector_file_state(name: str, gen: torch.Generator) -> dict:
     """Seeded weights of published detector file `name` in its published
     layout (CPU fp32): convs He-normal (MLSD's LeCun-normal: its residual
-    sums would grow He's) with N(0, 0.05) biases; HED's `norm` near an image
-    mean, its first conv scaled by 1/64 for the 0..255 input; MLSD's
-    BatchNorms unfolded (weight, bias, running_mean, running_var,
-    num_batches_tracked); netG's keys under 'module.', as a DataParallel
-    file holds them. Activations stay O(1), as a trained net's do."""
+    sums would grow He's) with N(0, 0.05) biases, linear layers LeCun-normal,
+    LayerNorms' scales 1 + N(0, 0.1); HED's `norm` near an image mean, its
+    first conv scaled by 1/64 for the 0..255 input; every BatchNorm unfolded
+    (weight, bias, running_mean, running_var, num_batches_tracked); netG's
+    keys under 'module.', as a DataParallel file holds them; the body net's
+heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
+    with the ViT's final norm and classifier, which the detector leaves out;
+    the UPerNet file as mmseg saves it, under 'state_dict' beside a 'meta'
+    dict and with an auxiliary head. DPT and UniFormer take the widths of
+    their modules' constants. Activations stay O(1), as a trained net's
+    do."""
     module = DETECTOR_FILES[name]()
     randn = lambda shape, std=1.0: torch.randn(shape, generator=gen) * std
     gain = 1.0 if isinstance(module, mlsd_mod.MobileV2MLSDLarge) else 2.0
@@ -3402,28 +3428,48 @@ def detector_file_state(name: str, gen: torch.Generator) -> dict:
                     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
                 else:
                     sd[key] = randn(c, 0.05)
+            elif isinstance(m, nn.LayerNorm) and pname == "weight":
+                sd[key] = 1 + randn(c, 0.1)
             elif pname == "norm":  # HED's input mean
                 sd[key] = 110 + randn(p.shape, 10.0)
             elif p.ndim == 4:
                 fan = p.shape[0] * p.shape[2] * p.shape[3] if isinstance(
                     m, nn.ConvTranspose2d) else p[0].numel()
                 sd[key] = randn(p.shape, (gain / fan) ** 0.5)
+            elif isinstance(m, nn.Linear) and pname == "weight":
+                sd[key] = randn(p.shape, p.shape[1] ** -0.5)
             else:
                 sd[key] = randn(p.shape, 0.05)
     if name == "ControlNetHED.pth":
         sd["block1.convs.0.weight"] /= 64.0
     if name == "netG.pth":
         sd = {f"module.{k}": v for k, v in sd.items()}
+    if name == "body_pose_model.pth":
+        sd[BODY_HEATMAP_SCALE[0]] *= BODY_HEATMAP_SCALE[1]
+    if name == "dpt_large_384.pt":
+        dim = module.pretrained.model.cls_token.shape[-1]
+        sd.update({"pretrained.model.norm.weight": 1 + randn(dim, 0.1),
+                   "pretrained.model.norm.bias": randn(dim, 0.05),
+                   "pretrained.model.head.weight": randn((1000, dim), dim ** -0.5),
+                   "pretrained.model.head.bias": randn(1000, 0.05)})
+    if name == "upernet_global_small.pth":
+        sd.update({"auxiliary_head.conv_seg.weight": randn((150, 256, 1, 1), 256 ** -0.5),
+                   "auxiliary_head.conv_seg.bias": randn(150, 0.05)})
+        sd = {"state_dict": sd, "meta": {"mmseg_version": "0.11.0", "iter": 160000}}
     return sd
 
 
-def write_detector_files(directory: str, seed: int = SEED) -> dict:
-    """The five published detector files, seeded, under `directory`;
-    returns {file: written state dict}."""
+def write_detector_files(directory: str, seed: int = SEED, names=None) -> dict:
+    """The published detector files `names` (default all of
+    DETECTOR_FILES), seeded, under `directory`; returns {file: written state
+    dict}. DPT and UniFormer are written at the widths of the
+    ``annotators.midas`` / ``annotators.uniformer`` constants (a CPU test
+    patches them small): DPT-Large's published widths make a 1.37 GB
+    file."""
     os.makedirs(directory, exist_ok=True)
     gen = torch.Generator().manual_seed(seed)
     written = {}
-    for name in DETECTOR_FILES:
+    for name in DETECTOR_FILES if names is None else names:
         written[name] = detector_file_state(name, gen)
         torch.save(written[name], os.path.join(directory, name))
     return written
@@ -3449,11 +3495,6 @@ APP_GN_CASES = (
 )
 APP_ATTN_SITES = ((4096, 8, 40), (1024, 8, 80), (256, 8, 160))  # (S, heads, D), CFG batch 2
 APP_GEGLU_SITES = ((2 * 4096, 320), (2 * 1024, 640), (2 * 256, 1280), (2 * 64, 1280))
-# each ported detector -> its network (for its FLOP count)
-DETECTOR_NETS = {"hed": lambda d: d.model, "hedsketch": lambda d: d.hed.model,
-                 "lineart": lambda d: d.models["fine"], "lineart_anime": lambda d: d.model,
-                 "lineart_anime_with_color_prompt": lambda d: d.anime.model,
-                 "mlsd": lambda d: d.model}
 FP32_PEAK_FLOPS = 67e12  # the H100 SXM's fp32 (non-tensor) rate: the detectors run TF32 off
 LINEART_ITEMS, COND_IMAGES = 8, 4
 # the detectors that threshold a network's map: a pixel one level off at
@@ -3699,55 +3740,246 @@ def uint8_diff(got, want) -> tuple:
     return int(diff.max()), float((diff > 0).mean())
 
 
+def median_ms(fn, dev, reps: int = 3) -> tuple:
+    """(fn()'s last result, its median wall ms over `reps` calls after a
+    first call, the first call's ms); each call ended by a synchronise."""
+    _, first_ms = timed(fn, dev)
+    times = []
+    for _ in range(reps):
+        out, ms = timed(fn, dev)
+        times.append(ms)
+    return out, sorted(times)[len(times) // 2], first_ms
+
+
+def gflop_row(fn, ms) -> dict:
+    """fn()'s fp32 GFLOP (its networks' convolutions and matmuls) and
+    their share of the fp32 peak at `ms` a call."""
+    gflop = flops_of(fn) / 1e9
+    return {"gflop": gflop, "pct_fp32_peak": 100 * gflop * 1e9 / FP32_PEAK_FLOPS / (ms / 1e3)}
+
+
+def net_inputs(net, fn) -> list:
+    """The NHWC float32 inputs that fn() gives `net`, a call each, so the
+    detector's own resizes set the shapes."""
+    seen = []
+    hook = net.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        fn()
+    finally:
+        hook.remove()
+    return [x.permute(0, 2, 3, 1).cpu().numpy() for x in seen]
+
+
+def maps_close(got, want, rtol=1e-4) -> tuple:
+    """(largest difference over the largest |want|, within rtol of it)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    return err, err <= rtol
+
+
+def pose_close(got, want, hw) -> bool:
+    """As many people and candidates, each candidate within 1 px of an
+    image of size `hw` (the pose holds them as fractions of it)."""
+    g, w = np.asarray(got["bodies"]["candidate"]), np.asarray(want["bodies"]["candidate"])
+    return len(got["bodies"]["subset"]) == len(want["bodies"]["subset"]) and \
+        g.shape == w.shape and (not len(w) or (np.abs(g - w) * hw[::-1]).max() <= 1.0)
+
+
+def detector_check(name, det, cpu, image, got, want, dev) -> tuple:
+    """(the row's extra fields, ok) of the card's output `got` against the
+    CPU's `want`, by the tolerance of detector `name`."""
+    if name == "midas":
+        (level, share), (n_level, n_share) = uint8_diff(got[0], want[0]), \
+            normal_diff(got[1], want[1])
+        return ({"gpu_vs_cpu_max_levels": level, "gpu_vs_cpu_pixels_differing": share,
+                 "normal_pixels_over_1_level": n_level, "normal_pixels_differing": n_share},
+                level <= 1 and share <= 1e-3 and n_level <= 1e-3 and n_share <= 1e-3)
+    level, share = uint8_diff(got, want)
+    row = {"gpu_vs_cpu_max_levels": level, "gpu_vs_cpu_pixels_differing": share}
+    if name == "mlsd":
+        tp, tp_cpu = det.tp_map(image), cpu.tp_map(image)
+        row["tp_map_max_abs_err"] = float(np.abs(tp - tp_cpu).max())
+        return row, np.allclose(tp, tp_cpu, rtol=1e-4, atol=1e-5) and (got == want).mean() >= 0.99
+    if name in THRESHOLDED:  # a level across the threshold flips a pixel
+        return row, share <= 1e-3
+    if name == "normal":  # the bg_th mask flips a pixel; truncation moves a level
+        row["pixels_over_1_level"], row["pixels_differing"] = normal_diff(got, want)
+        return row, row["pixels_over_1_level"] <= 1e-3 and row["pixels_differing"] <= 1e-3
+    if name == "seg":  # an argmax near a tie flips a pixel
+        row["logits_rel_err"], ok = maps_close(det.logits(image).cpu(), cpu.logits(image))
+        return row, ok and share <= 1e-3
+    if name == "openpose":
+        # the body net alone, timed as the hand and face nets are; the
+        # detector's fp32 share is the net's, the rest of its image is host time
+        bgr = image[:, :, ::-1].copy()
+        net = det.body.model
+        x, = net_inputs(net, lambda: det.body.maps(bgr))
+        _, net_ms, _ = median_ms(lambda: annot_nets.forward(net, x), dev)
+        row.update(body_net_input=list(x.shape[1:3]), body_net_ms=net_ms,
+                   **gflop_row(lambda: annot_nets.forward(net, x), net_ms))
+        maps, maps_cpu = det.body.maps(bgr), cpu.body.maps(bgr)
+        errs = [maps_close(g, w) for g, w in zip(maps, maps_cpu)]
+        row["heatmap_rel_err"], row["paf_rel_err"] = errs[0][0], errs[1][0]
+        pose, pose_cpu = det(image, return_is_index=True), cpu(image, return_is_index=True)
+        peaks = sum(len(p) for p in openpose_mod.decode.find_peaks(maps[0]))
+        t0 = time.perf_counter()
+        people = openpose_mod.decode.body_decode(*maps)[1]
+        row.update(peaks=peaks, people=len(people), decode_ms=(time.perf_counter() - t0) * 1e3,
+                   candidates=len(pose["bodies"]["candidate"]))
+        return row, (errs[0][1] and errs[1][1] and share <= 1e-3
+                     and pose_close(pose, pose_cpu, image.shape[:2]))
+    if name == "lineart":  # the coarse weights too
+        row["coarse_levels_share"] = uint8_diff(det(image, coarse=True),
+                                                cpu(image, coarse=True))
+        return row, level <= 1 and share <= 1e-3 and row["coarse_levels_share"][0] <= 1 and \
+            row["coarse_levels_share"][1] <= 1e-3
+    return row, level <= 1 and share <= 1e-3
+
+
+def normal_diff(got, want) -> tuple:
+    """(share of pixels more than 1 level apart, share of pixels differing)."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16)).max(axis=-1)
+    return float((diff > 1).mean()), float((diff > 0).mean())
+
+
+# a person on a 128 x 128 image: (x, y) of the 18 COCO parts
+PERSON = [(64, 20), (64, 34), (50, 34), (44, 50), (40, 66), (78, 34), (84, 50), (88, 66),
+          (56, 70), (54, 90), (54, 110), (72, 70), (74, 90), (74, 110), (60, 16), (68, 16),
+          (56, 18), (72, 18)]
+
+
+def person_maps(size: int = 128) -> tuple:
+    """Body maps of PERSON scaled to a `size` x `size` image: heatmaps
+    [size, size, 19] with a Gaussian at each part, PAFs [size, size, 38] of
+    unit vectors along each limb, 2 px wide at 128 (decode's layout)."""
+    k = size / 128
+    person = [(x * k, y * k) for x, y in PERSON]
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    hm = np.zeros((size, size, 19), np.float32)
+    for p, (x, y) in enumerate(person):
+        hm[:, :, p] = np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / (8.0 * k * k))
+    paf = np.zeros((size, size, 38), np.float32)
+    for (a, b), (cx, cy) in zip(openpose_mod.decode.LIMB_SEQ, openpose_mod.decode.MAP_IDX):
+        (xa, ya), (xb, yb) = person[a - 1], person[b - 1]
+        n = math.hypot(xb - xa, yb - ya)
+        ux, uy = (xb - xa) / n, (yb - ya) / n
+        t = np.clip(((xx - xa) * ux + (yy - ya) * uy) / n, 0, 1)
+        near = np.hypot(xx - (xa + t * (xb - xa)), yy - (ya + t * (yb - ya))) <= 2 * k
+        paf[near, cx - 19] = ux
+        paf[near, cy - 19] = uy
+    return hm, paf
+
+
+def peaks_px(parts, hw) -> np.ndarray:
+    """Hand or face peaks (fractions of the image, -1 where none) in pixels."""
+    return np.asarray(parts, np.float64).reshape(-1, 2) * hw[::-1]
+
+
+def openpose_person(det, cpu, dev, image) -> None:
+    """OpenposeDetector(hand_and_face=True) on the card and the CPU with the
+    body's maps replaced by PERSON's at the image's size (the seeded body
+    net finds no one): the people assembled from them, the hand and face
+    crops through their seeded nets on each device and the pose drawn. Held:
+    one person of 18 parts on both, two hands and a face, their peaks within
+    1 px of the CPU's, the canvas at most 0.1% of pixels differing."""
+    hw = image.shape[:2]
+    maps = person_maps(hw[0])
+    run = lambda d: d(image, hand_and_face=True, return_is_index=True)
+    with mock.patch.object(det.body, "maps", lambda img: maps):
+        pose, ms = timed(lambda: run(det), dev)
+    with mock.patch.object(cpu.body, "maps", lambda img: maps):
+        pose_cpu = run(cpu)
+    canvas, canvas_cpu = openpose_mod.draw_pose(pose, *hw), openpose_mod.draw_pose(pose_cpu, *hw)
+    subsets = [np.asarray(p["bodies"]["subset"]) for p in (pose, pose_cpu)]
+    parts = [(pose[k], pose_cpu[k]) for k in ("hands", "faces")]
+    shift = max([float(np.abs(peaks_px(g, hw) - peaks_px(w, hw)).max())
+                 for gs, ws in parts for g, w in zip(gs, ws)], default=0.0)
+    row = {"people": len(subsets[0]), "parts": int(subsets[0][0][-1]) if len(subsets[0]) else 0,
+           "hands": len(pose["hands"]), "faces": len(pose["faces"]), "peaks_max_px": shift,
+           "pixels_differing": uint8_diff(canvas, canvas_cpu)[1]}
+    log("apps_detectors", detector="openpose person", size=list(hw), ms_per_image=ms, **row,
+        tol="1 person of 18 parts, 2 hands and a face, peaks within 1 px, 0.1% of pixels")
+    if not (row["people"] == len(subsets[1]) == 1 and row["parts"] == 18
+            and np.array_equal(*subsets) and pose_close(pose, pose_cpu, hw)
+            and row["hands"] == len(pose_cpu["hands"]) == 2
+            and row["faces"] == len(pose_cpu["faces"]) == 1 and shift <= 1.0
+            and canvas.any() and row["pixels_differing"] <= 1e-3):
+        raise AssertionError(f"openpose on a person departs from the CPU: {row}")
+
+
+def openpose_parts(dev, image) -> None:
+    """(c) OpenPose's hand net at its four padded scales and its face net at
+    384^2, on the inputs the detector makes of a 256^2 crop of `image` (a
+    seeded body may find no person, whose crops would call them): each
+    timed, its GFLOP and share of the fp32 peak, its heatmaps card against
+    CPU within rtol 1e-4; then the detector once with hand_and_face=True,
+    and once on a person (``openpose_person``)."""
+    det, cpu = annot_registry.get("openpose", dev), annot_registry.get("openpose", "cpu")
+    crop = image[:256, :256, ::-1].copy()
+    cases = [("hand", det.hand.model, cpu.hand.model, x)
+             for x in net_inputs(det.hand.model, lambda: det.hand.heatmap(crop))]
+    cases += [("face", det.face.model, cpu.face.model, x)
+              for x in net_inputs(det.face.model, lambda: det.face(crop))]
+    for part, net, net_cpu, x in cases:
+        got, ms, first_ms = median_ms(lambda: annot_nets.forward(net, x), dev)
+        t0 = time.perf_counter()
+        want = annot_nets.forward(net_cpu, x)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err, ok = maps_close(got, want)
+        log("apps_detectors", detector=f"openpose {part}", size=list(x.shape[1:3]),
+            ms_per_image=ms, first_ms=first_ms, cpu_ms=cpu_ms,
+            **gflop_row(lambda: annot_nets.forward(net, x), ms),
+            heatmap_rel_err=err, tol="heatmaps rtol 1e-4")
+        if not ok:
+            raise AssertionError(f"openpose {part} at {x.shape[1:3]}: heatmaps {err}")
+    (out, ms), want = timed(lambda: det(image, hand_and_face=True), dev), \
+        cpu(image, hand_and_face=True)
+    log("apps_detectors", detector="openpose hand_and_face", size=list(image.shape[:2]),
+        ms_per_image=ms, pixels_differing=uint8_diff(out, want)[1])
+    if out.shape != image.shape or uint8_diff(out, want)[1] > 1e-3:
+        raise AssertionError(f"openpose hand_and_face: {uint8_diff(out, want)}")
+    openpose_person(det, cpu, dev, image)
+
+
 def app_detectors(dev, image):
     """Each ported CNN detector through the registry on the card at 512^2
     from seeded published-layout files: ms an image (median of 3 after a
-    first call), its network's fp32 GFLOP and share of the fp32 peak, and
-    its map against the same detector on the CPU (within 1 level on 0.1% of
+    first call), the fp32 GFLOP of its call and their share of the fp32
+    peak (OpenPose's: its body net's, timed alone), and its map against the
+    same detector on the CPU (``detector_check``: within 1 level on 0.1% of
     pixels; the THRESHOLDED ones: 0.1% of pixels differing; MLSD: its
-    network map within rtol 1e-4 / atol 1e-5 and 99% of the drawn pixels);
-    no hand-written kernel launched."""
+    network map within rtol 1e-4 / atol 1e-5 and 99% of the drawn pixels;
+    normal: 1 level but on 0.1% of pixels (the bg_th mask), 0.1% differing;
+    seg: its logits within rtol 1e-4, 0.1% of pixels differing; openpose:
+    heatmaps and PAFs within rtol 1e-4, as many people and candidates each
+    within 1 px, 0.1% of pixels differing); then OpenPose's hand and face
+    nets and a person (``openpose_parts``) and ``detect`` for depth, normal,
+    seg and openpose; no hand-written kernel launched."""
     with counted("apps detectors", ()) as launches:
         for name in annot_registry.CNN:
             det, cpu = annot_registry.get(name, dev), annot_registry.get(name, "cpu")
             kw = lambda: {"rng": np.random.default_rng(SEED)} if name in (
                 "hedsketch", "lineart_anime_with_color_prompt") else {}
-            _, first_ms = timed(lambda: det(image, **kw()), dev)
-            times = []
-            for _ in range(3):
-                got, ms = timed(lambda: det(image, **kw()), dev)
-                times.append(ms)
+            got, ms, first_ms = median_ms(lambda: det(image, **kw()), dev)
             t0 = time.perf_counter()
             want = cpu(image, **kw())
             cpu_ms = (time.perf_counter() - t0) * 1e3
-            net = DETECTOR_NETS[name](det)
-            cin = net.backbone.features[0][0].in_channels if name == "mlsd" else 3
-            hw = [-(-n // 256) * 256 for n in image.shape[:2]] if "anime" in name \
-                else list(image.shape[:2])  # the anime UNet's input: multiples of 256
-            x = np.zeros((1, *hw, cin), np.float32)
-            gflop = flops_of(lambda: annot_nets.forward(net, x)) / 1e9
-            level, share = uint8_diff(got, want)
-            row = {"detector": name, "size": list(image.shape[:2]),
-                   "ms_per_image": sorted(times)[1], "first_ms": first_ms, "cpu_ms": cpu_ms,
-                   "gflop": gflop, "pct_fp32_peak": 100 * gflop * 1e9 / FP32_PEAK_FLOPS
-                   / (sorted(times)[1] / 1e3), "gpu_vs_cpu_max_levels": level,
-                   "gpu_vs_cpu_pixels_differing": share}
-            if name == "mlsd":
-                tp, tp_cpu = det.tp_map(image), cpu.tp_map(image)
-                row["tp_map_max_abs_err"] = float(np.abs(tp - tp_cpu).max())
-                ok = np.allclose(tp, tp_cpu, rtol=1e-4, atol=1e-5) and (got == want).mean() >= 0.99
-            elif name in THRESHOLDED:  # a level across the threshold flips a pixel
-                ok = share <= 1e-3
-            else:
-                ok = level <= 1 and share <= 1e-3
-            if name == "lineart":  # the coarse weights too
-                row["coarse_levels_share"] = uint8_diff(det(image, coarse=True),
-                                                        cpu(image, coarse=True))
-                ok = ok and row["coarse_levels_share"][0] <= 1 and \
-                    row["coarse_levels_share"][1] <= 1e-3
+            extra, ok = detector_check(name, det, cpu, image, got, want, dev)
+            row = {"detector": name, "size": list(image.shape[:2]), "ms_per_image": ms,
+                   "first_ms": first_ms, "cpu_ms": cpu_ms,
+                   **gflop_row(lambda: det(image, **kw()), ms), **extra}
             log("apps_detectors", **row, tol="1 level on 0.1% of pixels")
-            if not ok or got.dtype != np.uint8 or not got.any():
+            outs = got if name == "midas" else (got,)
+            # a seeded body net finds peaks but no person: its canvas stays black
+            drawn = row["peaks"] > 0 if name == "openpose" else all(o.any() for o in outs)
+            if not ok or not drawn or any(o.dtype != np.uint8 for o in outs):
                 raise AssertionError(f"detector {name} on the card departs from the CPU: {row}")
+        openpose_parts(dev, image)
+        for name in ("depth", "normal", "seg", "openpose"):
+            out, ms = timed(lambda: apps_logic.detect(name, image, SIZE, SIZE, device=dev), dev)
+            log("apps_detectors", detect=name, ms=ms, shape=list(out.shape))
+            if out.shape != (SIZE, SIZE, 3) or out.dtype != np.uint8:
+                raise AssertionError(f"detect({name!r}): {out.shape} {out.dtype}")
     if any(launches.values()):
         raise AssertionError(f"the detectors launched hand-written kernels: {launches}")
 

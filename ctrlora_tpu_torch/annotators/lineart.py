@@ -14,7 +14,11 @@
 The modules' parameter names are the published files' (sk_model*.pth,
 netG.pth with 'module.' stripped), so the files load with
 ``load_state_dict``. The UNet's skip connections carry the features before
-the next level's LeakyReLU, as the JAX package's ``AnimeUNet`` does.
+the next level's LeakyReLU, as the JAX package's ``AnimeUNet`` does. The
+reference's LeakyReLU is in place, so its skips carry the features after
+it; each skip goes straight into the parent level's ReLU, which gives the
+same output for both, so the skips match the reference's output (bit for
+bit with every LeakyReLU switched to in place, on one thread).
 """
 
 from __future__ import annotations

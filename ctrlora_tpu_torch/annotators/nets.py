@@ -1,5 +1,6 @@
-"""What the port's CNN detectors (``hed.py``, ``lineart.py``, ``mlsd.py``)
-share: the device they run on, their weights and the fp32 forward.
+"""What the port's CNN detectors (``hed.py``, ``lineart.py``, ``mlsd.py``,
+``midas.py``, ``uniformer.py``, ``openpose/``) share: the device they run
+on, their weights and the fp32 forward.
 
 Device: the card unless the caller asks for the CPU; a detector asked for
 ``cuda`` on a host without one raises (no fallback). Weights: the published
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,17 +41,23 @@ def net_device(device) -> torch.device:
     return device
 
 
-def read_weights(name: str, ckpt_dir: Optional[str] = None,
-                 strip_module: bool = False) -> Optional[StateDict]:
+def read_weights(name: str, ckpt_dir: Optional[str] = None, strip_module: bool = False,
+                 drop: Tuple[str, ...] = ()) -> Optional[StateDict]:
     """The tensors of weight file `name` in `ckpt_dir` (default
-    ``ckpts_dir()``), or None where it is absent. ``strip_module`` drops
-    every 'module.' from the keys (files saved from DataParallel)."""
+    ``ckpts_dir()``), or None where it is absent. A checkpoint that nests
+    its tensors under 'state_dict' (MiDaS's, mmseg's beside a 'meta' dict)
+    is unwrapped, as the JAX package's loaders do. ``strip_module`` drops
+    every 'module.' from the keys (files saved from DataParallel); keys
+    that start with a prefix in ``drop`` are left out (parts of the
+    published network the detector never runs)."""
     path = ensure_ckpt(name, os.path.join(ckpt_dir or ckpts_dir(), name))
     if not os.path.exists(path):
         return None
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
     return {(k.replace("module.", "") if strip_module else k): v for k, v in sd.items()
-            if isinstance(v, torch.Tensor)}
+            if isinstance(v, torch.Tensor) and not k.startswith(drop)}
 
 
 def build(factory: Callable[[], nn.Module], state: Optional[StateDict], what: str,

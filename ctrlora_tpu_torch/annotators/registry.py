@@ -4,9 +4,10 @@
 The names are the JAX registry's, the preprocessor set of the reference
 apps (app/gradio_ctrlora.py:36-40). The numpy/cv2 detectors of
 ``simple.py`` are here under JAX's names, and so are the CNN detectors the
-port has (``CNN``: HED and its sketch, the three lineart detectors, MLSD),
-which run on ``device`` (the card unless the caller asks for the CPU). The
-other CNN detectors (openpose, pidinet, midas, depth/normal, the
+port has (``CNN``: HED and its sketch, the three lineart detectors, MLSD,
+MiDaS with its depth and normal channels, UniFormer's segmentation and
+OpenPose), which run on ``device`` (the card unless the caller asks for the
+CPU). The other CNN detectors (``NOT_PORTED``: pidinet, the OneFormer
 segmenters, densepose, normalbae, zoe, bbox) are registered too, and asking
 for one raises NotImplementedError: they are ROADMAP queue 1 item 14, not
 ported yet.
@@ -76,16 +77,6 @@ SIMPLE = {
 for _name, _cls in SIMPLE.items():
     _FACTORIES[_name] = _simple(_cls)
 
-# the CNN detectors of the port: name -> (module, class)
-CNN = {
-    "hed": ("hed", "HEDdetector"),
-    "hedsketch": ("hed", "HEDSketchDetector"),
-    "lineart": ("lineart", "LineartDetector"),
-    "lineart_anime": ("lineart", "LineartAnimeDetector"),
-    "lineart_anime_with_color_prompt": ("lineart", "LineartAnimeWithColorPromptDetector"),
-    "mlsd": ("mlsd", "MLSDdetector"),
-}
-
 
 def _cnn(module: str, cls_name: str):
     def factory(device):
@@ -95,19 +86,49 @@ def _cnn(module: str, cls_name: str):
     return factory
 
 
-for _name, (_module, _cls) in CNN.items():
-    _FACTORIES[_name] = _cnn(_module, _cls)
+class _MidasChannel:
+    """One of MidasDetector's (depth, normal) maps as a detector, on the
+    'midas' net the registry keeps for the same device (JAX's
+    ``_MidasChannel``: the two names share one net)."""
+
+    def __init__(self, index: int, device):
+        self.det = get("midas", device)
+        self.index = index
+
+    def __call__(self, img, **kw):
+        return self.det(img, **kw)[self.index]
+
+
+def _midas_channel(index: int):
+    return lambda device: _MidasChannel(index, device)
+
+
+# the CNN detectors of the port: name -> factory
+CNN = {
+    "hed": _cnn("hed", "HEDdetector"),
+    "hedsketch": _cnn("hed", "HEDSketchDetector"),
+    "lineart": _cnn("lineart", "LineartDetector"),
+    "lineart_anime": _cnn("lineart", "LineartAnimeDetector"),
+    "lineart_anime_with_color_prompt": _cnn("lineart", "LineartAnimeWithColorPromptDetector"),
+    "mlsd": _cnn("mlsd", "MLSDdetector"),
+    "midas": _cnn("midas", "MidasDetector"),
+    "depth": _midas_channel(0),
+    "normal": _midas_channel(1),
+    "seg": _cnn("uniformer", "UniformerDetector"),
+    "openpose": _cnn("openpose", "OpenposeDetector"),
+}
+_FACTORIES.update(CNN)
 
 # the JAX registry's Flax CNN detectors, not ported yet
-NOT_PORTED = ("openpose", "pidinet", "midas", "depth", "normal", "seg", "seg_ofcoco",
-              "seg_ofade20k", "densepose", "normalbae", "zoe", "bbox")
+NOT_PORTED = ("pidinet", "seg_ofcoco", "seg_ofade20k", "densepose", "normalbae", "zoe", "bbox")
 
 
 def _not_ported(name: str):
     def factory(device):
         raise NotImplementedError(
             f"annotator {name!r} is a CNN detector the PyTorch port does not have yet "
-            f"(ROADMAP queue 1 item 14); the port has: {sorted(SIMPLE) + sorted(CNN)}")
+            f"(ROADMAP queue 1 item 14: {', '.join(NOT_PORTED)}); the port has: "
+            f"{sorted(SIMPLE) + sorted(CNN)}")
 
     return factory
 

@@ -73,7 +73,9 @@ def detector_env(tmp_path_factory):
     """One directory of seeded detector files for both packages, and empty
     registry caches (restored after the module)."""
     d = tmp_path_factory.mktemp("app_ckpts")
-    chip_smoke.write_detector_files(str(d))
+    chip_smoke.write_detector_files(str(d), names=["ControlNetHED.pth", "sk_model.pth",
+                                                   "sk_model2.pth", "netG.pth",
+                                                   "mlsd_large_512_fp32.pth"])
     mp = pytest.MonkeyPatch()
     mp.setenv(download.CKPT_ENV, str(d))
     mp.setattr(jreg, "_CACHE", {})

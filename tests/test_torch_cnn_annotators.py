@@ -45,10 +45,15 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+# the files of this module's detectors (not DPT-Large's 1.4 GB one)
+FILES = ["ControlNetHED.pth", "sk_model.pth", "sk_model2.pth", "netG.pth",
+         "mlsd_large_512_fp32.pth"]
+
+
 @pytest.fixture(scope="module")
 def ckpt_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("detector_ckpts")
-    chip_smoke.write_detector_files(str(d))
+    chip_smoke.write_detector_files(str(d), names=FILES)
     return str(d)
 
 
@@ -118,6 +123,26 @@ def test_anime_unet_matches_jax(jax_dets, port_dets):
     want = jax_dets["anime"]._apply(jax_dets["anime"].params, jnp.asarray(x))
     got = nets.forward(port_dets["anime"].model, x)
     np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_anime_unet_in_place_leaky_relu_gives_the_same_bits(port_dets):
+    """The reference's LeakyReLU(0.2, True) overwrites each inner level's
+    input before the skip concatenates it; every skip goes straight into the
+    parent's ReLU, which gives the same output for x and LeakyReLU(x). So the
+    port's skips (the features before the LeakyReLU) give the reference's
+    output: bit-equal on one thread."""
+    import copy
+
+    model = port_dets["anime"].model
+    in_place = copy.deepcopy(model)
+    leaky = [m for m in in_place.modules() if isinstance(m, torch.nn.LeakyReLU)]
+    assert len(leaky) == len(tlin.ANIME_LEVELS) - 1
+    for m in leaky:
+        m.inplace = True
+    x = image(12, (256, 256))[None].astype(np.float32) / 127.5 - 1.0
+    got = nets.forward(in_place, x)
+    want = nets.forward(model, x)
+    assert got.shape == (1, 1, 256, 256) and torch.equal(got, want)
 
 
 def test_mlsd_network_matches_jax(jax_dets, port_dets):

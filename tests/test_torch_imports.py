@@ -57,7 +57,10 @@ def test_port_modules_cover_the_slice():
                 "annotators.hed", "annotators.lineart", "annotators.mlsd", "apps.logic",
                 "app", "scripts.tool_make_control_init", "scripts.tool_combine_weights",
                 "scripts.tool_extract_weights", "scripts.tool_make_cond_images",
-                "scripts.evaluate_lineart_is_coarse", "scripts.evaluate_lineart"):
+                "scripts.evaluate_lineart_is_coarse", "scripts.evaluate_lineart",
+                "annotators.midas", "annotators.uniformer", "annotators.ade_palette",
+                "annotators.openpose", "annotators.openpose.models",
+                "annotators.openpose.decode"):
         assert f"ctrlora_tpu_torch.{mod}" in names
     found = {info.name for info in
              pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}
