@@ -215,15 +215,22 @@ the script exits non-zero:
    process_style on phase 13's files, each timed with its launches; (c)
    each ported CNN detector (hed, hedsketch, lineart fine and coarse,
    lineart_anime, its colour prompt, mlsd, midas with depth and normal on
-   DPT-Large, seg on UniFormer-S + UPerNet, openpose) through the registry
-   on the card at 512^2 from seeded files in the published layouts and
-   widths: ms an image, fp32 GFLOP and share of the fp32 peak, the map
-   against the same detector on the CPU (seg's logits, OpenPose's heatmaps
-   and PAFs within rtol 1e-4), OpenPose's body net alone, its hand net at
-   its four scales and face net at 384^2 against the CPU, the detector with
-   hands and faces, on the seeded body's maps and on a drawn person's,
-   apps_logic.detect for depth, normal, seg and openpose, no hand-written
-   kernel launched; (d) the tools at
+   DPT-Large, seg on UniFormer-S + UPerNet, openpose, pidinet, bbox on a
+   darknet YOLO cfg of every section kind with three heads at strides
+   8/16/32, densepose on R_101_FPN_DL) through the registry on the card at
+   512^2 from seeded files in the published layouts and widths (YOLO's
+   objectness and DensePose's person bias tuned to the image on the card,
+   so that a few boxes pass): ms an image, fp32 GFLOP and share of the
+   fp32 peak, the map against the same detector on the CPU (seg's logits,
+   OpenPose's heatmaps and PAFs, the raw yolo maps within rtol 1e-4, the
+   same boxes; DensePose stage by stage on the CPU's inputs, FPN, RPN, box
+   head, decoder, ROIAlign and chart head within rtol 1e-4, the proposals
+   differing counted, 1-10 persons, and the card alone at MAX_DET
+   persons), OpenPose's body net alone, its hand net at its four scales
+   and face net at 384^2 against the CPU, the detector with hands and
+   faces, on the seeded body's maps and on a drawn person's,
+   apps_logic.detect for depth, normal, seg, openpose, bbox and densepose,
+   no hand-written kernel launched; (d) the tools at
    SD1.5 width: tool_make_control_init -> tool_combine_weights ->
    tool_extract_weights (-t control, -t lora) with the round trip
    bit-equal, tool_make_cond_images over 4 PNGs with hed and lineart, then
@@ -260,6 +267,7 @@ import io
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -273,6 +281,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ctrlora_tpu_torch import api as api_mod
+from ctrlora_tpu_torch.annotators import bbox as bbox_mod
+from ctrlora_tpu_torch.annotators import densepose as densepose_mod
 from ctrlora_tpu_torch.annotators import download as annot_download
 from ctrlora_tpu_torch.annotators import hed as hed_mod
 from ctrlora_tpu_torch.annotators import lineart as lineart_mod
@@ -280,6 +290,7 @@ from ctrlora_tpu_torch.annotators import midas as midas_mod
 from ctrlora_tpu_torch.annotators import mlsd as mlsd_mod
 from ctrlora_tpu_torch.annotators import nets as annot_nets
 from ctrlora_tpu_torch.annotators import openpose as openpose_mod
+from ctrlora_tpu_torch.annotators import pidinet as pidinet_mod
 from ctrlora_tpu_torch.annotators import uniformer as uniformer_mod
 from ctrlora_tpu_torch.annotators.openpose import models as openpose_models
 from ctrlora_tpu_torch.annotators import registry as annot_registry
@@ -3459,19 +3470,256 @@ heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
     return sd
 
 
-def write_detector_files(directory: str, seed: int = SEED, names=None) -> dict:
+PIDINET_RESIDUAL_STD = 0.25
+
+
+def pidinet_file_state(gen: torch.Generator) -> dict:
+    """Seeded table5_pidinet.pth as published: the pdc kernels unconverted
+    ([c, 1, 3, 3] for rd too), every key under 'module.' in 'state_dict'.
+    Convs He-normal, each block's 1x1 conv2 at PIDINET_RESIDUAL_STD of it
+    (the residual sums of 15 blocks stay O(1)), biases N(0, 0.05)."""
+    ops = pidinet_mod.block_ops()
+    sd = {}
+    for key, v in pidinet_mod.PiDiNet().state_dict().items():
+        shape = (*v.shape[:2], 3, 3) if key in ops else tuple(v.shape)
+        if len(shape) == 4:
+            std = (2.0 / math.prod(shape[1:])) ** 0.5
+            if key.endswith(".conv2.weight") and key.startswith("block"):
+                std *= PIDINET_RESIDUAL_STD
+            sd[key] = torch.randn(shape, generator=gen) * std
+        else:
+            sd[key] = torch.randn(shape, generator=gen) * 0.05
+    return {"state_dict": {f"module.{k}": v for k, v in sd.items()}}
+
+
+def _cfg_section(kind: str, **opts) -> str:
+    return f"[{kind}]\n" + "".join(f"{k}={v}\n" for k, v in opts.items())
+
+
+def _cfg_conv(filters: int, size: int, stride: int = 1, act: str = "leaky", bn: int = 1) -> str:
+    return _cfg_section("convolutional", batch_normalize=bn, filters=filters, size=size,
+                        stride=stride, pad=1, activation=act)
+
+
+def _cfg_head(mask: str, scale_x_y: float) -> str:
+    return _cfg_conv(255, 1, act="linear", bn=0) + _cfg_section(
+        "yolo", mask=mask, anchors="12,16, 19,36, 40,28, 36,75, 76,55, 72,146, 142,110, "
+        "192,243, 459,401", classes=80, num=9, scale_x_y=scale_x_y)
+
+
+# A darknet detection cfg with every section kind the port's YoloV4 builds
+# (convolutional with and without BatchNorm, mish / leaky / linear, stride-2
+# convs down to /32, a shortcut, SPP maxpools 5/9/13 at stride 1, one- and
+# multi-layer routes, nearest upsamples) and three [yolo] heads of 255
+# filters at strides 32, 16 and 8 on a 416^2 net, with YOLOv4's anchors and
+# scale_x_y. It is not YOLOv4's 163-section net (yolov4.cfg is not in the
+# repo); it stands in for it as yolov4.cfg beside a seeded yolov4.weights.
+# Section indices (routes count them from 0): 8 is the /8 map, 11 the /16.
+YOLO_CFG = "\n".join([
+    _cfg_section("net", width=416, height=416, channels=3),
+    _cfg_conv(32, 3, act="mish"), _cfg_conv(64, 3, 2, "mish"), _cfg_conv(32, 1, act="mish"),
+    _cfg_conv(64, 3, act="mish"), _cfg_section("shortcut", **{"from": -3}, activation="linear"),
+    _cfg_conv(128, 3, 2, "mish"), _cfg_conv(256, 3, 2), _cfg_conv(128, 1), _cfg_conv(256, 3),
+    _cfg_conv(512, 3, 2), _cfg_conv(256, 1), _cfg_conv(512, 3),
+    _cfg_conv(1024, 3, 2), _cfg_conv(512, 1),
+    _cfg_section("maxpool", stride=1, size=5), _cfg_section("route", layers=-2),
+    _cfg_section("maxpool", stride=1, size=9), _cfg_section("route", layers=-4),
+    _cfg_section("maxpool", stride=1, size=13), _cfg_section("route", layers="-1,-3,-5,-6"),
+    _cfg_conv(512, 1), _cfg_conv(1024, 3), _cfg_head("6,7,8", 1.05),
+    _cfg_section("route", layers=-4), _cfg_conv(256, 1), _cfg_section("upsample", stride=2),
+    _cfg_section("route", layers="-1,11"), _cfg_conv(256, 1), _cfg_conv(512, 3),
+    _cfg_head("3,4,5", 1.1),
+    _cfg_section("route", layers=-4), _cfg_conv(128, 1), _cfg_section("upsample", stride=2),
+    _cfg_section("route", layers="-1,8"), _cfg_conv(128, 1), _cfg_conv(256, 3),
+    _cfg_head("0,1,2", 1.2),
+])
+# the seeded yolo heads: their kernels at YOLO_HEAD_STD of LeCun's std, each
+# anchor's objectness bias at YOLO_OBJECTNESS_BIAS until write_detector_files
+# moves it for an image (a fixed bias lets through no box or hundreds)
+YOLO_HEAD_STD, YOLO_OBJECTNESS_BIAS = 0.5, -3.0
+
+
+def write_darknet_files(directory: str, gen: torch.Generator, cfg: str = YOLO_CFG,
+                        objectness_bias: float = YOLO_OBJECTNESS_BIAS) -> np.ndarray:
+    """`cfg` as yolov4.cfg and seeded yolov4.weights for it in darknet's
+    format: the header of a version 0.2 file (major, minor, revision as
+    int32, the images seen as int64), then each convolutional section's
+    bias, its BatchNorm's scale / mean / var where it has one, and its
+    kernel [f, cin, k, k], as float32. Kernels He-normal (the yolo heads'
+    at YOLO_HEAD_STD of LeCun's), BatchNorms as detector_file_state's, the
+    heads' biases N(0, 0.05) with each anchor's objectness at
+    `objectness_bias`. Returns the floats written."""
+    cfg_path = os.path.join(directory, bbox_mod.CFG_FILE)
+    with open(cfg_path, "w") as f:
+        f.write(cfg)
+    with torch.device("meta"):
+        net = bbox_mod.YoloV4(cfg_path)
+    randn = lambda n, std: (torch.randn(n, generator=gen) * std).numpy()
+    parts = []
+    for spec in net.conv_specs:
+        f, fan = spec["filters"], spec["in"] * spec["size"] ** 2
+        bias = randn(f, 0.05)
+        if spec["bn"]:
+            parts += [bias, 1 + randn(f, 0.1), randn(f, 0.1),
+                      0.5 + torch.rand(f, generator=gen).numpy()]
+            parts.append(randn(f * fan, (2.0 / fan) ** 0.5))
+        else:
+            bias.reshape(-1, f // 3)[:, 4] = objectness_bias
+            parts += [bias, randn(f * fan, YOLO_HEAD_STD * fan ** -0.5)]
+    buf = np.concatenate(parts).astype(np.float32)
+    with open(os.path.join(directory, bbox_mod.WEIGHTS_FILE), "wb") as f:
+        np.asarray([0, 2, 5], np.int32).tofile(f)
+        np.asarray([32013312], np.int64).tofile(f)
+        buf.tofile(f)
+    return buf
+
+
+# the seeded box predictor's person logit bias (the background's is 0) until
+# write_detector_files moves it for an image, so that a handful of the
+# proposals pass SCORE_THRESH, not hundreds (each person runs the chart head,
+# 32 GFLOP at the published widths)
+DENSEPOSE_PERSON_BIAS = -4.0
+# the seeded bottlenecks' last BatchNorm scale: 33 residual sums stay O(1)
+DENSEPOSE_RESIDUAL_SCALE = 0.2
+# the layers seeded as detectron2 initialises them: N(0, std) weights, zero biases
+DENSEPOSE_DETECTRON2_INIT = {"proposal_generator.rpn_head.conv": 0.01,
+                             "proposal_generator.rpn_head.objectness_logits": 0.01,
+                             "proposal_generator.rpn_head.anchor_deltas": 0.01,
+                             "roi_heads.box_predictor.cls_score": 0.01,
+                             "roi_heads.box_predictor.bbox_pred": 0.001}
+
+
+def densepose_file_state(gen: torch.Generator, person_bias: float = DENSEPOSE_PERSON_BIAS,
+                         stages=densepose_mod.R101_STAGES) -> dict:
+    """Seeded model_final_844d15.pkl as detectron2 saves it, {'model':
+    {name: float32 ndarray}, '__author__': ...}, with the keys JAX's
+    convert_densepose reads at the widths of the ``annotators.densepose``
+    constants: every FrozenBN unfolded (weight, bias, running_mean,
+    running_var; each bottleneck's conv3 norm scaled by
+    DENSEPOSE_RESIDUAL_SCALE), GroupNorms' scales 1 + N(0, 0.1), convs
+    He-normal (the stem's by 1/64 for the 0..255 input, as HED's),
+    linear layers LeCun-normal, biases N(0, 0.05), the RPN head and the box
+    predictor as detectron2 initialises them (DENSEPOSE_DETECTRON2_INIT),
+    the person logit's bias at `person_bias`."""
+    with torch.device("meta"):
+        module = densepose_mod.DensePoseRCNN(stages)
+    randn = lambda shape, std=1.0: (torch.randn(shape, generator=gen) * std).numpy()
+    sd = {}
+    for prefix, m in module.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            key, shape, c = f"{prefix}.{pname}", tuple(p.shape), p.shape[0]
+            if isinstance(m, mlsd_mod.FoldedBN):
+                if pname == "weight":
+                    scale = DENSEPOSE_RESIDUAL_SCALE if prefix.endswith("conv3.norm") else 1.0
+                    sd[key] = scale * (1 + randn(c, 0.1))
+                    sd[f"{prefix}.running_mean"] = randn(c, 0.1)
+                    sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=gen).numpy()
+                else:
+                    sd[key] = randn(c, 0.05)
+            elif isinstance(m, nn.GroupNorm) and pname == "weight":
+                sd[key] = 1 + randn(c, 0.1)
+            elif len(shape) == 4:
+                sd[key] = randn(shape, (2.0 / (shape[0 if isinstance(
+                    m, nn.ConvTranspose2d) else 1] * shape[2] * shape[3])) ** 0.5)
+            elif isinstance(m, nn.Linear) and pname == "weight":
+                sd[key] = randn(shape, shape[1] ** -0.5)
+            else:
+                sd[key] = randn(shape, 0.05)
+    sd["backbone.bottom_up.stem.conv1.weight"] /= 64.0  # mean-subtracted pixels, not O(1)
+    for key, std in DENSEPOSE_DETECTRON2_INIT.items():  # else the boxes fly off the image
+        sd[f"{key}.weight"] = randn(sd[f"{key}.weight"].shape, std)
+        sd[f"{key}.bias"] = np.zeros_like(sd[f"{key}.bias"])
+    sd["roi_heads.box_predictor.cls_score.bias"] = np.asarray([person_bias, 0.0], np.float32)
+    return {"model": {k: v.astype(np.float32) for k, v in sd.items()},
+            "__author__": "seeded"}
+
+
+# the published detector files whose layout is not a port module's torch
+# state dict (write_detector_files writes each its own way)
+OTHER_DETECTOR_FILES = ("table5_pidinet.pth", "yolov4.weights", "model_final_844d15.pkl")
+
+
+def pass_shift(need: np.ndarray, k_range=(3, 8)) -> float:
+    """The shift of a logit that lets k of the items through, for the k in
+    `k_range` whose neighbours in `need` (each item passes once the shift
+    exceeds its entry) lie furthest apart: the midpoint of that gap, so no
+    item sits near the threshold."""
+    s = np.sort(need[np.isfinite(need)])
+    if len(s) <= k_range[0]:
+        raise AssertionError(f"only {len(s)} items can pass at any shift")
+    k = max(range(k_range[0], min(k_range[1], len(s) - 1) + 1), key=lambda k: s[k] - s[k - 1])
+    return float((s[k - 1] + s[k]) / 2)
+
+
+def yolo_objectness_shift(det, image, confidence: float = 0.4) -> float:
+    """How far the objectness biases of `det`'s file must move for 3-8 of
+    the boxes of `image` to pass `confidence` (``pass_shift``)."""
+    need = []
+    for raw, meta in zip(det.raw_maps(image), det.yolo_meta):
+        r = raw.reshape(*raw.shape[:2], len(meta["mask"]), 5 + meta["classes"])
+        best = (1 / (1 + np.exp(-r[..., 5:].astype(np.float64)))).max(-1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            q = confidence / best
+            need.append(np.where(q < 1, np.log(q) - np.log1p(-q), np.inf) - r[..., 4])
+    return pass_shift(np.concatenate([n.ravel() for n in need]))
+
+
+def densepose_person_shift(det, image) -> float:
+    """How far the person logit's bias of `det`'s file must move for 3-8
+    of the proposals of `image` to pass SCORE_THRESH (``pass_shift``)."""
+    x, hw = det.prepare(image)
+    ps, rpn = det.trunk(x)
+    proposals, _ = densepose_mod.rpn_proposals(rpn, densepose_mod.STRIDES, hw)
+    p = det.box_scores(ps, proposals)[0].astype(np.float64)
+    t = densepose_mod.SCORE_THRESH
+    return pass_shift(math.log(t / (1 - t)) - (np.log(p) - np.log1p(-p)))
+
+
+def write_detector_files(directory: str, seed: int = SEED, names=None, image=None,
+                         device="cpu") -> dict:
     """The published detector files `names` (default all of
-    DETECTOR_FILES), seeded, under `directory`; returns {file: written state
-    dict}. DPT and UniFormer are written at the widths of the
-    ``annotators.midas`` / ``annotators.uniformer`` constants (a CPU test
-    patches them small): DPT-Large's published widths make a 1.37 GB
-    file."""
+    DETECTOR_FILES and OTHER_DETECTOR_FILES), seeded, under `directory`;
+    returns {file: what was written}. DETECTOR_FILES and table5_pidinet.pth
+    are torch files (``torch.save``); yolov4.weights is darknet's binary,
+    written beside YOLO_CFG as yolov4.cfg (``write_darknet_files``: the
+    floats); model_final_844d15.pkl is detectron2's pickle of numpy arrays
+    (``densepose_file_state``, protocol 2). Given an `image`, the seeded
+    objectness and person biases are moved (by the port's detectors on
+    `device`) so that 3-8 boxes and proposals of that image pass the
+    detectors' thresholds, and the two files are written again with the
+    same draws. DPT, UniFormer and DensePose are written at the widths of
+    the ``annotators.midas`` / ``annotators.uniformer`` /
+    ``annotators.densepose`` constants (a CPU test patches them small):
+    DPT-Large's published widths make a 1.37 GB file."""
     os.makedirs(directory, exist_ok=True)
     gen = torch.Generator().manual_seed(seed)
     written = {}
-    for name in DETECTOR_FILES if names is None else names:
-        written[name] = detector_file_state(name, gen)
-        torch.save(written[name], os.path.join(directory, name))
+    for name in (*DETECTOR_FILES, *OTHER_DETECTOR_FILES) if names is None else names:
+        path = os.path.join(directory, name)
+        if name == "yolov4.weights":
+            draws = gen.get_state()
+            written[name] = write_darknet_files(directory, gen)
+            if image is not None:
+                shift = yolo_objectness_shift(bbox_mod.BBoxDetector(
+                    device=device, ckpt_dir=directory), image)
+                gen.set_state(draws)
+                written[name] = write_darknet_files(
+                    directory, gen, objectness_bias=YOLO_OBJECTNESS_BIAS + shift)
+            continue
+        if name == "model_final_844d15.pkl":
+            written[name] = state = densepose_file_state(gen)
+            with open(path, "wb") as f:
+                pickle.dump(state, f, protocol=2)
+            if image is not None:
+                state["model"]["roi_heads.box_predictor.cls_score.bias"][0] += \
+                    densepose_person_shift(densepose_mod.DenseposeDetector(
+                        device=device, ckpt_dir=directory), image)
+                with open(path, "wb") as f:
+                    pickle.dump(state, f, protocol=2)
+            continue
+        written[name] = (pidinet_file_state(gen) if name == "table5_pidinet.pth"
+                         else detector_file_state(name, gen))
+        torch.save(written[name], path)
     return written
 
 
@@ -3828,12 +4076,88 @@ def detector_check(name, det, cpu, image, got, want, dev) -> tuple:
                    candidates=len(pose["bodies"]["candidate"]))
         return row, (errs[0][1] and errs[1][1] and share <= 1e-3
                      and pose_close(pose, pose_cpu, image.shape[:2]))
+    if name == "bbox":
+        errs = [maps_close(g, w)[0] for g, w in zip(det.raw_maps(image), cpu.raw_maps(image))]
+        (boxes, labels, _), (boxes_cpu, labels_cpu, _) = det.detect(image), cpu.detect(image)
+        row.update(yolo_maps_rel_err=max(errs), boxes=len(boxes), labels=labels,
+                   same_boxes_and_labels=boxes == boxes_cpu and labels == labels_cpu)
+        return row, (max(errs) <= 1e-4 and row["same_boxes_and_labels"] and len(boxes) >= 1
+                     and share <= 1e-3)
+    if name == "densepose":
+        row.update(densepose_stages(det, cpu, image, dev))
+        return row, (row["fpn_rel_err"] <= 1e-4 and row["rpn_rel_err"] <= 1e-4
+                     and row["proposals_differing"] <= 0.01 * row["proposals"]
+                     and row["box_head_rel_err"] <= 1e-4 and row["decoder_rel_err"] <= 1e-4
+                     and row["roi_align_rel_err"] <= 1e-4 and row["chart_head_rel_err"] <= 1e-4
+                     and 1 <= row["persons"] <= 10 and row["part_labels_drawn"]
+                     and share <= 1e-3)
     if name == "lineart":  # the coarse weights too
         row["coarse_levels_share"] = uint8_diff(det(image, coarse=True),
                                                 cpu(image, coarse=True))
         return row, level <= 1 and share <= 1e-3 and row["coarse_levels_share"][0] <= 1 and \
             row["coarse_levels_share"][1] <= 1e-3
     return row, level <= 1 and share <= 1e-3
+
+
+def rows_differing(got, want, atol: float = 1e-2) -> int:
+    """How many rows of `got` [N, 4] have no row of `want` within `atol`,
+    plus the difference in count."""
+    if not len(got) or not len(want):
+        return max(len(got), len(want))
+    near = np.abs(got[:, None, :] - want[None, :, :]).max(-1).min(1) <= atol
+    return int((~near).sum()) + max(len(want) - len(got), 0)
+
+
+def densepose_stages(det, cpu, image, dev) -> dict:
+    """DensePose on the card against the CPU stage by stage, each stage fed
+    the CPU's input: the FPN levels and RPN maps of the same image (rtol
+    1e-4); the proposal sets of each device's own maps (how many differ, by
+    more than 0.01 px); the box head on the CPU's 7x7 ROIAlign of the CPU's
+    proposals; the decoder on the CPU's FPN levels; ROIAlign 28x28 of the
+    CPU's decoder map at the CPU's person boxes; the chart head on the
+    CPU's pooled features (each rtol 1e-4). Then the persons the CPU finds,
+    its part labels drawn, and the card alone at MAX_DET persons (every
+    proposal passing: SCORE_THRESH 0)."""
+    x, hw = det.prepare(image)
+    ps, rpn = det.trunk(x)
+    ps_cpu, rpn_cpu = cpu.trunk(x)
+    out = {"fpn_rel_err": max(maps_close(g.cpu(), w)[0] for g, w in zip(ps, ps_cpu)),
+           "rpn_rel_err": max(maps_close(g, w)[0] for a, b in zip(rpn, rpn_cpu)
+                              for g, w in zip(a, b))}
+    props = densepose_mod.rpn_proposals(rpn, densepose_mod.STRIDES, hw)[0]
+    props_cpu = densepose_mod.rpn_proposals(rpn_cpu, densepose_mod.STRIDES, hw)[0]
+    out.update(proposals=len(props_cpu), proposals_card=len(props),
+               proposals_differing=rows_differing(props, props_cpu))
+    boxes_cpu = torch.from_numpy(props_cpu.astype(np.float32))
+    levels = densepose_mod.assign_levels(props_cpu)
+    with torch.inference_mode(), fp32_exact():
+        pooled = torch.zeros((len(props_cpu), ps_cpu[0].shape[1], densepose_mod.POOL_BOX,
+                              densepose_mod.POOL_BOX))
+        for lv in np.unique(levels):
+            sel = torch.from_numpy(np.where(levels == lv)[0])
+            pooled[sel] = densepose_mod.roi_align(ps_cpu[lv - 2], boxes_cpu[sel],
+                                                  1.0 / densepose_mod.STRIDES[lv - 2],
+                                                  densepose_mod.POOL_BOX, 2)
+        got, want = det.model.box_head(pooled.to(dev)), cpu.model.box_head(pooled)
+        out["box_head_rel_err"] = max(maps_close(g.cpu(), w)[0] for g, w in zip(got, want))
+        scores, deltas = (t.numpy() for t in want)
+        persons = cpu.select(props_cpu, scores, deltas, hw)
+        dec_cpu = cpu.model.roi_heads.decoder(ps_cpu)
+        dec = det.model.roi_heads.decoder([p.to(dev) for p in ps_cpu])
+        out["decoder_rel_err"] = maps_close(dec.cpu(), dec_cpu)[0]
+        b = torch.from_numpy(persons.astype(np.float32))
+        pooled = densepose_mod.roi_align(dec_cpu, b, 0.25, densepose_mod.POOL_CHART, 2)
+        out["roi_align_rel_err"] = maps_close(densepose_mod.roi_align(
+            dec_cpu.to(dev), b.to(dev), 0.25, densepose_mod.POOL_CHART, 2).cpu(), pooled)[0]
+        got, want = det.model.chart_head(pooled.to(dev)), cpu.model.chart_head(pooled)
+        out["chart_head_rel_err"] = max(maps_close(got[k].cpu(), want[k])[0] for k in want)
+        out["persons"] = len(persons)
+        out["part_labels_drawn"] = bool(len(persons) and cpu.part_labels(want).max() > 0)
+    with mock.patch.object(densepose_mod, "SCORE_THRESH", 0.0):
+        boxes, _, _ = det.detect(image)
+        _, out["max_det_ms"], _ = median_ms(lambda: det(image), dev)
+    out["max_det_persons"] = len(boxes)
+    return out
 
 
 def normal_diff(got, want) -> tuple:
@@ -3941,6 +4265,14 @@ def openpose_parts(dev, image) -> None:
     openpose_person(det, cpu, dev, image)
 
 
+# the card against the CPU, where a detector's row is not held to 1 level on 0.1% of pixels
+DETECTOR_TOL = {
+    "bbox": "yolo maps rtol 1e-4, the same boxes and labels, 0.1% of pixels",
+    "densepose": "FPN, RPN, box head, decoder, ROIAlign, chart head rtol 1e-4 on the CPU's "
+                 "inputs; proposals 1% differing; 1-10 persons; 0.1% of pixels",
+}
+
+
 def app_detectors(dev, image):
     """Each ported CNN detector through the registry on the card at 512^2
     from seeded published-layout files: ms an image (median of 3 after a
@@ -3952,9 +4284,15 @@ def app_detectors(dev, image):
     normal: 1 level but on 0.1% of pixels (the bg_th mask), 0.1% differing;
     seg: its logits within rtol 1e-4, 0.1% of pixels differing; openpose:
     heatmaps and PAFs within rtol 1e-4, as many people and candidates each
-    within 1 px, 0.1% of pixels differing); then OpenPose's hand and face
-    nets and a person (``openpose_parts``) and ``detect`` for depth, normal,
-    seg and openpose; no hand-written kernel launched."""
+    within 1 px, 0.1% of pixels differing; pidinet: 1 level on 0.1%; bbox:
+    the raw yolo maps within rtol 1e-4, the same boxes and labels (at least
+    one), 0.1% of the mask's pixels differing; densepose: stage by stage,
+    ``densepose_stages``, 1-10 persons, 0.1% of the canvas's pixels
+    differing); then OpenPose's hand and face nets and a person
+    (``openpose_parts``) and ``detect`` for depth, normal, seg, openpose,
+    bbox and densepose; no hand-written kernel launched. The files' YOLO
+    objectness and DensePose person biases were tuned to `image`
+    (``write_detector_files``)."""
     with counted("apps detectors", ()) as launches:
         for name in annot_registry.CNN:
             det, cpu = annot_registry.get(name, dev), annot_registry.get(name, "cpu")
@@ -3968,14 +4306,14 @@ def app_detectors(dev, image):
             row = {"detector": name, "size": list(image.shape[:2]), "ms_per_image": ms,
                    "first_ms": first_ms, "cpu_ms": cpu_ms,
                    **gflop_row(lambda: det(image, **kw()), ms), **extra}
-            log("apps_detectors", **row, tol="1 level on 0.1% of pixels")
+            log("apps_detectors", **row, tol=DETECTOR_TOL.get(name, "1 level on 0.1% of pixels"))
             outs = got if name == "midas" else (got,)
             # a seeded body net finds peaks but no person: its canvas stays black
             drawn = row["peaks"] > 0 if name == "openpose" else all(o.any() for o in outs)
             if not ok or not drawn or any(o.dtype != np.uint8 for o in outs):
                 raise AssertionError(f"detector {name} on the card departs from the CPU: {row}")
         openpose_parts(dev, image)
-        for name in ("depth", "normal", "seg", "openpose"):
+        for name in ("depth", "normal", "seg", "openpose", "bbox", "densepose"):
             out, ms = timed(lambda: apps_logic.detect(name, image, SIZE, SIZE, device=dev), dev)
             log("apps_detectors", detect=name, ms=ms, shape=list(out.shape))
             if out.shape != (SIZE, SIZE, 3) or out.dtype != np.uint8:
@@ -4124,7 +4462,7 @@ def apps_slice(dev, api_paths, baseline_files, style_paths):
         gc.collect()
         torch.cuda.empty_cache()
         ckpt_dir = os.path.join(root, "detector_ckpts")
-        write_detector_files(ckpt_dir, SEED + 15)
+        write_detector_files(ckpt_dir, SEED + 15, image=image, device=dev)
         os.environ[annot_download.CKPT_ENV] = ckpt_dir
         app_detectors(dev, image)
         app_tools(dev, root, api_paths, rng)

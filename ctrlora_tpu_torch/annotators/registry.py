@@ -5,12 +5,12 @@ The names are the JAX registry's, the preprocessor set of the reference
 apps (app/gradio_ctrlora.py:36-40). The numpy/cv2 detectors of
 ``simple.py`` are here under JAX's names, and so are the CNN detectors the
 port has (``CNN``: HED and its sketch, the three lineart detectors, MLSD,
-MiDaS with its depth and normal channels, UniFormer's segmentation and
-OpenPose), which run on ``device`` (the card unless the caller asks for the
-CPU). The other CNN detectors (``NOT_PORTED``: pidinet, the OneFormer
-segmenters, densepose, normalbae, zoe, bbox) are registered too, and asking
-for one raises NotImplementedError: they are ROADMAP queue 1 item 14, not
-ported yet.
+MiDaS with its depth and normal channels, UniFormer's segmentation,
+OpenPose, PiDiNet, the darknet YOLO bbox detector and DensePose), which run
+on ``device`` (the card unless the caller asks for the CPU). The other CNN
+detectors (``NOT_PORTED``: the OneFormer segmenters, normalbae, zoe) are
+registered too, and asking for one raises NotImplementedError: they are
+ROADMAP queue 1 item 14 f, g and i, not ported yet.
 """
 
 from __future__ import annotations
@@ -116,18 +116,21 @@ CNN = {
     "normal": _midas_channel(1),
     "seg": _cnn("uniformer", "UniformerDetector"),
     "openpose": _cnn("openpose", "OpenposeDetector"),
+    "pidinet": _cnn("pidinet", "PidiNetDetector"),
+    "bbox": _cnn("bbox", "BBoxDetector"),
+    "densepose": _cnn("densepose", "DenseposeDetector"),
 }
 _FACTORIES.update(CNN)
 
 # the JAX registry's Flax CNN detectors, not ported yet
-NOT_PORTED = ("pidinet", "seg_ofcoco", "seg_ofade20k", "densepose", "normalbae", "zoe", "bbox")
+NOT_PORTED = ("seg_ofcoco", "seg_ofade20k", "normalbae", "zoe")
 
 
 def _not_ported(name: str):
     def factory(device):
         raise NotImplementedError(
             f"annotator {name!r} is a CNN detector the PyTorch port does not have yet "
-            f"(ROADMAP queue 1 item 14: {', '.join(NOT_PORTED)}); the port has: "
+            f"(ROADMAP queue 1 item 14 f, g and i: {', '.join(NOT_PORTED)}); the port has: "
             f"{sorted(SIMPLE) + sorted(CNN)}")
 
     return factory

@@ -3,7 +3,9 @@
 ``app/gradio_controlnet.py`` and ``app/gradio_ctrlora_style_transfer.py``;
 reference app/gradio_ctrlora.py minus the UI).
 
-* the preprocessor choices, their default parameters and ``detect``;
+* the preprocessor choices, their default parameters and ``detect``
+  (every one of the 22 choices runs in the port, bbox and densepose
+  included);
 * the prompt preset library and ``reformat_prompt``;
 * ``AppState``: the CtrLoRA model cached on its checkpoint paths, and the
   single- and two-condition ``process`` / ``process2``;

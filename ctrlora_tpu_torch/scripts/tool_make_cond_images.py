@@ -7,6 +7,8 @@ generator seeded by the file's name, written as PNG under --output_dir.
   python -m ctrlora_tpu_torch.scripts.tool_make_cond_images --input_dir imgs \\
       --output_dir source --detector hed [--n_processes 4] [--device cpu]
 
+Every detector of CHOICES runs in the port, bbox and densepose included
+(the CNN ones read their published files from $CTRLORA_ANNOTATOR_CKPTS).
 A CNN detector runs on --device (default cuda; no fallback to the CPU).
 --n_processes > 1 starts a 'spawn' pool (a fork after CUDA's
 initialisation breaks), each worker building its own detector.

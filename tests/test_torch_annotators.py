@@ -7,11 +7,12 @@ seeded image (the stochastic ones from equal numpy generators, ``pixel``
 with a given palette), as do ``resize_image`` (up and down) and the other
 helpers of ``util.py``. Each ported CNN detector's name builds its
 detector on the CPU from seeded published-layout files
-(``chip_smoke.write_detector_files``; DPT and UniFormer at small widths)
-and gives JAX's map within 1 level on 0.1% of pixels (MLSD's drawn
-segments: 99% of pixels equal; the normal, seg and openpose maps as
-``test_ported_cnn_detector_builds_on_cpu_and_matches_jax`` says); the
-other CNN names raise NotImplementedError. The CLIs, on a directory laid out as
+(``chip_smoke.write_detector_files``; DPT, UniFormer and DensePose at small
+widths) and gives JAX's map within 1 level on 0.1% of pixels (MLSD's drawn
+segments: 99% of pixels equal; the normal, seg, openpose, bbox and
+densepose maps as ``test_ported_cnn_detector_builds_on_cpu_and_matches_jax``
+says); the other CNN names (OneFormer's two, normalbae, zoe) raise
+NotImplementedError. The CLIs, on a directory laid out as
 the sample CLI writes it (3 items, 64 px, prompt.txt) with seeded tiny
 LPIPS and CLIP files, print the values JAX's MetricAccumulator gives on
 the same arrays; the lineart CLIs print JAX's flags and values.
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from ctrlora_tpu import evaluation as jev
+from ctrlora_tpu.annotators import densepose as jdensepose
 from ctrlora_tpu.annotators import midas as jmidas
 from ctrlora_tpu.annotators import registry as jreg
 from ctrlora_tpu.annotators import simple as jsimple
@@ -33,6 +35,7 @@ from ctrlora_tpu.annotators import uniformer as juni
 from ctrlora_tpu.annotators import util as jutil
 from ctrlora_tpu.models.lpips import convert_lpips as jconvert_lpips
 import chip_smoke
+from ctrlora_tpu_torch.annotators import densepose as tdensepose
 from ctrlora_tpu_torch.annotators import download
 from ctrlora_tpu_torch.annotators import midas as tmidas
 from ctrlora_tpu_torch.annotators import registry as treg
@@ -44,6 +47,8 @@ from ctrlora_tpu_torch.scripts import (
 )
 from ctrlora_tpu_torch.utils.image import write_png
 
+from test_torch_densepose import SIZES as DENSEPOSE_SIZES
+from test_torch_densepose import SMALL as DENSEPOSE_SMALL
 from test_torch_evaluation import lpips_sd, tiny_clip_sd
 from test_torch_midas import SMALL as DPT_SMALL
 from test_torch_uniformer import SMALL as UNIFORMER_SMALL
@@ -129,15 +134,19 @@ def test_cnn_detector_names_raise_not_implemented(name):
 @pytest.fixture(scope="module")
 def detector_ckpts(tmp_path_factory):
     """A CTRLORA_ANNOTATOR_CKPTS directory of seeded published-layout files
-    for both packages (DPT and UniFormer at small widths, both packages'
-    width constants patched), and empty registry caches (restored after)."""
+    for both packages (DPT, UniFormer and DensePose at small widths, both
+    packages' width and DensePose's size constants patched; the YOLO and
+    DensePose biases tuned to the 64^2 test image), and empty registry
+    caches (restored after)."""
     d = tmp_path_factory.mktemp("detector_ckpts")
     mp = pytest.MonkeyPatch()
-    for mods, widths in (((jmidas, tmidas), DPT_SMALL), ((juni, tuni), UNIFORMER_SMALL)):
+    for mods, widths in (((jmidas, tmidas), DPT_SMALL), ((juni, tuni), UNIFORMER_SMALL),
+                         ((tdensepose,), DENSEPOSE_SMALL),
+                         ((jdensepose, tdensepose), DENSEPOSE_SIZES)):
         for k, v in widths.items():
             for mod in mods:
                 mp.setattr(mod, k, v)
-    chip_smoke.write_detector_files(str(d))
+    chip_smoke.write_detector_files(str(d), image=image(12, (64, 64)))
     mp.setenv(download.CKPT_ENV, str(d))
     mp.setattr(jreg, "_CACHE", {})
     mp.setattr(treg, "_CACHE", {})
@@ -149,8 +158,9 @@ def detector_ckpts(tmp_path_factory):
 def test_ported_cnn_detector_builds_on_cpu_and_matches_jax(detector_ckpts, name):
     """Maps within 1 level on 0.1% of pixels; MLSD's drawn segments: 99% of
     pixels equal; the normal map: within 1 level on all but 0.1% of pixels,
-    0.5% differing (tests/test_torch_midas.py); seg and openpose: 0.1% of
-    pixels differing (an argmax near a tie, a peak near the threshold).
+    0.5% differing (tests/test_torch_midas.py); seg, openpose, bbox and
+    densepose: 0.1% of pixels differing (an argmax near a tie, a peak or a
+    box near a threshold).
     MiDaS at 384 px, the least input at which JAX resizes the position
     grid as the reference does."""
     midas = name in ("midas", "depth", "normal")
@@ -167,7 +177,7 @@ def test_ported_cnn_detector_builds_on_cpu_and_matches_jax(detector_ckpts, name)
         diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
         if kind == "mlsd":
             assert want.any() and (got == want).mean() >= 0.99
-        elif kind in ("seg", "openpose"):
+        elif kind in ("seg", "openpose", "bbox", "densepose"):
             assert (diff.max(axis=-1) > 0).mean() <= 1e-3
         elif kind == "normal":
             diff = diff.max(axis=-1)

@@ -5,7 +5,8 @@ front ends against the JAX package's on the CPU.
   for 'none', 'canny' and each ported CNN name with both packages reading
   one CTRLORA_ANNOTATOR_CKPTS directory of seeded files
   (``chip_smoke.write_detector_files``), uint8 maps within 1 level on 0.1%
-  of pixels (MLSD's drawn segments: 99% of pixels equal);
+  of pixels (MLSD's drawn segments: 99% of pixels equal); ``detect`` for
+  'bbox' and 'densepose' gives a [512, 512, 3] uint8 map with colour;
 * ``AppState.process`` / ``process2`` with a fake model pass
   ``_sample_images`` the same images, prompts, ``control_scales``,
   ``lora_weights``, seed and guess mode as JAX's AppState
@@ -102,6 +103,27 @@ def test_detect_equals_jax(detector_env, monkeypatch, det):
         return
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
+
+
+@pytest.mark.parametrize("det", ["bbox", "densepose"])
+def test_detect_bbox_and_densepose(tmp_path, monkeypatch, det):
+    """The two app choices ported last, on the CPU from seeded files (the
+    YOLO cfg of chip_smoke, DensePose at small widths and sizes), tuned so
+    that a few boxes of the image pass: [512, 512, 3] uint8 with colour."""
+    from ctrlora_tpu_torch.annotators import densepose as tdensepose
+
+    from test_torch_densepose import SIZES, SMALL
+
+    for k, v in {**SMALL, **SIZES}.items():
+        monkeypatch.setattr(tdensepose, k, v)
+    img = image(9)
+    name = {"bbox": "yolov4.weights", "densepose": tdensepose.FILE}[det]
+    chip_smoke.write_detector_files(str(tmp_path), names=[name], image=img)
+    monkeypatch.setenv(download.CKPT_ENV, str(tmp_path))
+    monkeypatch.setattr(treg, "_CACHE", {})
+    out = logic.detect(det, img, 64, 512, device="cpu")
+    assert out.dtype == np.uint8 and out.shape == (512, 512, 3)
+    assert (out != out[0, 0]).any() if det == "densepose" else out.any()
 
 
 def test_detect_builds_cnn_detectors_on_the_card_by_default(tmp_path, monkeypatch):

@@ -60,7 +60,8 @@ def test_port_modules_cover_the_slice():
                 "scripts.evaluate_lineart_is_coarse", "scripts.evaluate_lineart",
                 "annotators.midas", "annotators.uniformer", "annotators.ade_palette",
                 "annotators.openpose", "annotators.openpose.models",
-                "annotators.openpose.decode"):
+                "annotators.openpose.decode", "annotators.pidinet", "annotators.bbox",
+                "annotators.densepose"):
         assert f"ctrlora_tpu_torch.{mod}" in names
     found = {info.name for info in
              pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}
