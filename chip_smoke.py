@@ -217,8 +217,10 @@ the script exits non-zero:
    lineart_anime, its colour prompt, mlsd, midas with depth and normal on
    DPT-Large, seg on UniFormer-S + UPerNet, openpose, pidinet, bbox on a
    darknet YOLO cfg of every section kind with three heads at strides
-   8/16/32, densepose on R_101_FPN_DL) through the registry on the card at
-   512^2 from seeded files in the published layouts and widths (YOLO's
+   8/16/32, densepose on R_101_FPN_DL, zoe on BEiT-L/16, normalbae on
+   tf_efficientnet_b5_ap, seg_ofcoco and seg_ofade20k on Swin-L OneFormer)
+   through the registry on the card at 512^2 from seeded files in the
+   published layouts and widths (YOLO's
    objectness and DensePose's person bias tuned to the image on the card,
    so that a few boxes pass): ms an image, fp32 GFLOP and share of the
    fp32 peak, the map against the same detector on the CPU (seg's logits,
@@ -226,7 +228,12 @@ the script exits non-zero:
    same boxes; DensePose stage by stage on the CPU's inputs, FPN, RPN, box
    head, decoder, ROIAlign and chart head within rtol 1e-4, the proposals
    differing counted, 1-10 persons, and the card alone at MAX_DET
-   persons), OpenPose's body net alone, its hand net at its four scales
+   persons; ZoeDepth's raw metric depth within rtol 1e-4 and its range
+   logged; NormalBAE's normals within rtol 1e-4; OneFormer stage by stage
+   on the CPU's inputs, Swin, pixel decoder, each masked layer and
+   prediction head and the class scores within rtol 1e-4, its class map's
+   share of differing pixels), OpenPose's
+   body net alone, its hand net at its four scales
    and face net at 384^2 against the CPU, the detector with hands and
    faces, on the seeded body's maps and on a drawn person's,
    apps_logic.detect for depth, normal, seg, openpose, bbox and densepose,
@@ -289,9 +296,12 @@ from ctrlora_tpu_torch.annotators import lineart as lineart_mod
 from ctrlora_tpu_torch.annotators import midas as midas_mod
 from ctrlora_tpu_torch.annotators import mlsd as mlsd_mod
 from ctrlora_tpu_torch.annotators import nets as annot_nets
+from ctrlora_tpu_torch.annotators import normalbae as normalbae_mod
+from ctrlora_tpu_torch.annotators import oneformer as oneformer_mod
 from ctrlora_tpu_torch.annotators import openpose as openpose_mod
 from ctrlora_tpu_torch.annotators import pidinet as pidinet_mod
 from ctrlora_tpu_torch.annotators import uniformer as uniformer_mod
+from ctrlora_tpu_torch.annotators import zoe as zoe_mod
 from ctrlora_tpu_torch.annotators.openpose import models as openpose_models
 from ctrlora_tpu_torch.annotators import registry as annot_registry
 from ctrlora_tpu_torch.apps import logic as apps_logic
@@ -3401,7 +3411,30 @@ DETECTOR_FILES = {"ControlNetHED.pth": hed_mod.ControlNetHED,
                   "upernet_global_small.pth": uniformer_mod.UperNetUniFormer,
                   "body_pose_model.pth": openpose_models.BodyNet,
                   "hand_pose_model.pth": openpose_models.HandNet,
-                  "facenet.pth": openpose_models.FaceNet}
+                  "facenet.pth": openpose_models.FaceNet,
+                  zoe_mod.FILE: zoe_mod.ZoeDepth,
+                  normalbae_mod.FILE: normalbae_mod.NNET,
+                  oneformer_mod.COCO_FILE: lambda: oneformer_mod.OneFormer(
+                      oneformer_mod.coco_config()),
+                  oneformer_mod.ADE20K_FILE: lambda: oneformer_mod.OneFormer(
+                      oneformer_mod.ade20k_config())}
+ONEFORMER_FILES = (oneformer_mod.COCO_FILE, oneformer_mod.ADE20K_FILE)
+# the seeded scannet.pt's BatchNorms that close a residual block (the
+# MBConvs' bn3, the first stage's bn2) are scaled by this much, so 39 blocks
+# keep their sums O(1)
+NORMALBAE_RESIDUAL_SCALE = 0.2
+
+
+def closes_residual(prefix: str) -> bool:
+    """Whether the BatchNorm `prefix` of NNET closes an encoder block."""
+    parts = prefix.split(".")
+    return parts[:3] == ["encoder", "original_model", "blocks"] and (
+        parts[-1] == "bn3" or (parts[3] == "0" and parts[-1] == "bn2"))
+# the seeded OneFormer decoders' attention query and key projections are at
+# this many times LeCun's scale: peaked attention, as a trained net's, so
+# the queries tell apart and the class map holds several classes (at 1 every
+# query averages the same memory and one class fills the map)
+ONEFORMER_QK_SCALE = 3.0
 # the body net's heatmap head is scaled by this much in its seeded file, so
 # the maps of a 512^2 image cross the decode's threshold at tens to a
 # hundred peaks, not thousands (the limb matching is quadratic in them, in
@@ -3412,18 +3445,26 @@ BODY_HEATMAP_SCALE = ("Mconv7_stage6_L2.weight", 0.2)
 def detector_file_state(name: str, gen: torch.Generator) -> dict:
     """Seeded weights of published detector file `name` in its published
     layout (CPU fp32): convs He-normal (MLSD's LeCun-normal: its residual
-    sums would grow He's) with N(0, 0.05) biases, linear layers LeCun-normal,
-    LayerNorms' scales 1 + N(0, 0.1); HED's `norm` near an image mean, its
-    first conv scaled by 1/64 for the 0..255 input; every BatchNorm unfolded
-    (weight, bias, running_mean, running_var, num_batches_tracked); netG's
-    keys under 'module.', as a DataParallel file holds them; the body net's
-heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
-    with the ViT's final norm and classifier, which the detector leaves out;
-    the UPerNet file as mmseg saves it, under 'state_dict' beside a 'meta'
-    dict and with an auxiliary head. DPT and UniFormer take the widths of
-    their modules' constants. Activations stay O(1), as a trained net's
-    do."""
-    module = DETECTOR_FILES[name]()
+    sums would grow He's; NormalBAE's Conv1d pixel MLPs too) with N(0, 0.05)
+    biases, linear layers and attention input projections LeCun-normal,
+    embeddings N(0, 1), LayerNorms' and GroupNorms' scales 1 + N(0, 0.1); HED's `norm` near an
+    image mean, its first conv scaled by 1/64 for the 0..255 input; every
+    BatchNorm unfolded (weight, bias, running_mean, running_var,
+    num_batches_tracked; NormalBAE's block-closing ones at
+    NORMALBAE_RESIDUAL_SCALE); netG's keys under 'module.', as a
+    DataParallel file holds them; the body net's heatmap head scaled by
+    BODY_HEATMAP_SCALE; the DPT file with the ViT's final norm and
+    classifier, which the detector leaves out; the UPerNet file as mmseg
+    saves it, under 'state_dict' beside a 'meta' dict and with an auxiliary
+    head; ZoeDepth's under 'model' with BEiT's classifier (``zoe_file``);
+    scannet.pt under 'model' with 'module.' keys and the conv_head's unused
+    BatchNorm; OneFormer's as detectron2 saves them, under 'model' beside
+    'iteration', with a training-only text projector and the decoders'
+    query and key projections at ONEFORMER_QK_SCALE. DPT, UniFormer,
+    ZoeDepth and OneFormer take the widths of their modules' constants and
+    configs. Activations stay O(1), as a trained net's do."""
+    with torch.device("meta"):
+        module = DETECTOR_FILES[name]()
     randn = lambda shape, std=1.0: torch.randn(shape, generator=gen) * std
     gain = 1.0 if isinstance(module, mlsd_mod.MobileV2MLSDLarge) else 2.0
     sd = {}
@@ -3433,13 +3474,15 @@ heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
             c = p.shape[0]
             if isinstance(m, mlsd_mod.FoldedBN):
                 if pname == "weight":
-                    sd[key] = 1 + randn(c, 0.1)
+                    scale = NORMALBAE_RESIDUAL_SCALE if isinstance(
+                        module, normalbae_mod.NNET) and closes_residual(prefix) else 1.0
+                    sd[key] = scale * (1 + randn(c, 0.1))
                     sd[f"{prefix}.running_mean"] = randn(c, 0.1)
                     sd[f"{prefix}.running_var"] = 0.5 + torch.rand(c, generator=gen)
                     sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
                 else:
                     sd[key] = randn(c, 0.05)
-            elif isinstance(m, nn.LayerNorm) and pname == "weight":
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)) and pname == "weight":
                 sd[key] = 1 + randn(c, 0.1)
             elif pname == "norm":  # HED's input mean
                 sd[key] = 110 + randn(p.shape, 10.0)
@@ -3447,7 +3490,11 @@ heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
                 fan = p.shape[0] * p.shape[2] * p.shape[3] if isinstance(
                     m, nn.ConvTranspose2d) else p[0].numel()
                 sd[key] = randn(p.shape, (gain / fan) ** 0.5)
-            elif isinstance(m, nn.Linear) and pname == "weight":
+            elif isinstance(m, nn.Conv1d):
+                sd[key] = randn(p.shape, p[0].numel() ** -0.5)
+            elif isinstance(m, nn.Embedding):  # N(0, 1), torch's init: the queries differ
+                sd[key] = randn(p.shape)
+            elif (isinstance(m, nn.Linear) and pname == "weight") or pname == "in_proj_weight":
                 sd[key] = randn(p.shape, p.shape[1] ** -0.5)
             else:
                 sd[key] = randn(p.shape, 0.05)
@@ -3467,7 +3514,36 @@ heatmap head scaled by BODY_HEATMAP_SCALE; the DPT file
         sd.update({"auxiliary_head.conv_seg.weight": randn((150, 256, 1, 1), 256 ** -0.5),
                    "auxiliary_head.conv_seg.bias": randn(150, 0.05)})
         sd = {"state_dict": sd, "meta": {"mmseg_version": "0.11.0", "iter": 160000}}
+    if name == zoe_mod.FILE:
+        sd = zoe_file(sd, gen)
+    if name == normalbae_mod.FILE:
+        c = normalbae_mod.round_ch(1280)
+        sd.update({"encoder.original_model.bn2.weight": 1 + randn(c, 0.1),
+                   "encoder.original_model.bn2.bias": randn(c, 0.05),
+                   "encoder.original_model.bn2.running_mean": randn(c, 0.1),
+                   "encoder.original_model.bn2.running_var": 0.5 + torch.rand(c, generator=gen),
+                   "encoder.original_model.bn2.num_batches_tracked": torch.tensor(1000)})
+        sd = {"model": {f"module.{k}": v for k, v in sd.items()}}
+    if name in ONEFORMER_FILES:
+        c = module.sem_seg_head.predictor.cfg.hidden_dim
+        for key in [k for k in sd if k.endswith("in_proj_weight")]:
+            sd[key][:2 * c] *= ONEFORMER_QK_SCALE
+        sd.update({"text_projector.layers.0.weight": randn((c, c), c ** -0.5),
+                   "text_projector.layers.0.bias": randn(c, 0.05)})
+        sd = {"model": sd, "iteration": 0}
     return sd
+
+
+def zoe_file(sd: dict, gen: torch.Generator) -> dict:
+    """ZoeD_M12_N.pt as published: the tensors under 'model', with BEiT's
+    final fc_norm and classifier (which the detector leaves out)."""
+    dim = sd["core.core.pretrained.model.cls_token"].shape[-1]
+    randn = lambda shape, std: torch.randn(shape, generator=gen) * std
+    sd.update({"core.core.pretrained.model.fc_norm.weight": 1 + randn(dim, 0.1),
+               "core.core.pretrained.model.fc_norm.bias": randn(dim, 0.05),
+               "core.core.pretrained.model.head.weight": randn((1000, dim), dim ** -0.5),
+               "core.core.pretrained.model.head.bias": randn(1000, 0.05)})
+    return {"model": sd}
 
 
 PIDINET_RESIDUAL_STD = 0.25
@@ -4091,6 +4167,20 @@ def detector_check(name, det, cpu, image, got, want, dev) -> tuple:
                      and row["roi_align_rel_err"] <= 1e-4 and row["chart_head_rel_err"] <= 1e-4
                      and 1 <= row["persons"] <= 10 and row["part_labels_drawn"]
                      and share <= 1e-3)
+    if name == "zoe":  # the raw metric depth: the stretch maps any range onto 0..255
+        row.update(zoe_depth(det, cpu, image))
+        return row, row["raw_depth_rel_err"] <= 1e-4 and row["raw_depth_range_over_max"] >= 1e-2
+    if name == "normalbae":  # its network output, then the map's truncation
+        row["normals_rel_err"], ok = maps_close(det.normals(image), cpu.normals(image))
+        row["pixels_over_1_level"], row["pixels_differing"] = normal_diff(got, want)
+        return row, ok and row["pixels_over_1_level"] == 0 and row["pixels_differing"] <= 5e-3
+    if name in ("seg_ofcoco", "seg_ofade20k"):
+        row.update(oneformer_stages(det, cpu, image, dev))
+        row["classes"] = len(np.unique(det.semantic_map(image)))
+        row["map_pixels_differing"] = float((got != want).any(axis=-1).mean())
+        return row, (max(row[k] for k in ONEFORMER_STAGES) <= 1e-4
+                     and row["attention_mask_flips"] <= 1e-4 * row["attention_mask_entries"]
+                     and row["map_pixels_differing"] <= 5e-3)
     if name == "lineart":  # the coarse weights too
         row["coarse_levels_share"] = uint8_diff(det(image, coarse=True),
                                                 cpu(image, coarse=True))
@@ -4157,6 +4247,76 @@ def densepose_stages(det, cpu, image, dev) -> dict:
         boxes, _, _ = det.detect(image)
         _, out["max_det_ms"], _ = median_ms(lambda: det(image), dev)
     out["max_det_persons"] = len(boxes)
+    return out
+
+
+def zoe_depth(det, cpu, image) -> dict:
+    """ZoeDepth's raw metric depth (averaged over the flip, before the
+    stretch) on the card against the CPU: the largest difference over the
+    largest |depth|, and the depth's range (over the largest |depth| too),
+    which the seeded file must hold far above float32 noise."""
+    depth, depth_cpu = det.raw_depth(image), cpu.raw_depth(image)
+    scale = float(np.abs(depth_cpu).max())
+    return {"raw_depth_rel_err": maps_close(depth, depth_cpu)[0],
+            "raw_depth_min": float(depth_cpu.min()), "raw_depth_max": float(depth_cpu.max()),
+            "raw_depth_range_over_max": float(np.ptp(depth_cpu)) / scale}
+
+
+ONEFORMER_STAGES = ("backbone_rel_err", "pixel_decoder_rel_err", "queries_rel_err",
+                    "decoder_layers_rel_err", "prediction_heads_rel_err", "scores_rel_err")
+
+
+def oneformer_stages(det, cpu, image, dev) -> dict:
+    """OneFormer on the card against the CPU stage by stage, each fed the
+    CPU's input (``maps_close``: the largest difference over the largest
+    |CPU value|): the Swin maps of the CPU's prepared image; the pixel
+    decoder's mask features and maps on the CPU's Swin maps; the first
+    queries (the class transformer) on the CPU's pixel-decoder outputs and
+    task embedding; each of the masked layers on the CPU's queries and
+    attention mask, and each prediction head (class logits, masks) on the
+    CPU's queries, with the entries of the attention mask the card's head
+    blocks otherwise (a mask logit within rounding of 0 flips one); the
+    class scores [K, H, W] on the CPU's final logits and masks. Then the
+    whole decoder run on each device alone (its logits and masks part ways
+    where a flipped block changes a layer's attention: logged, not held)."""
+    x, resized = cpu.prepare(image)
+    head, head_cpu = det.model.sem_seg_head, cpu.model.sem_seg_head
+    pred, pred_cpu = head.predictor, head_cpu.predictor
+    g = lambda t: t.to(dev)
+    err = lambda got, want: maps_close(got.cpu(), want)[0]
+    with torch.inference_mode(), fp32_exact():
+        feats_cpu = cpu.model.backbone(x)
+        feats = det.model.backbone(g(x))
+        out = {"input": list(x.shape[2:]),
+               "backbone_rel_err": max(err(feats[k], v) for k, v in feats_cpu.items())}
+        mf_cpu, maps_cpu = head_cpu.pixel_decoder(feats_cpu)
+        mf, maps = head.pixel_decoder({k: g(v) for k, v in feats_cpu.items()})
+        out["pixel_decoder_rel_err"] = max(err(a, b) for a, b in zip([mf, *maps],
+                                                                    [mf_cpu, *maps_cpu]))
+        task = cpu.model.task_mlp(cpu.task_input())
+        src, pos, sizes, q_cpu = pred_cpu.queries(task, maps_cpu, mf_cpu)
+        src_dev, pos_dev, _, q = pred.queries(g(task), [g(m) for m in maps_cpu], g(mf_cpu))
+        out["queries_rel_err"] = err(q, q_cpu)
+        layers, heads, flips, entries = [], [], 0, 0
+        for i in range(pred_cpu.cfg.dec_layers + 1):
+            cls_cpu, masks_cpu, mask_cpu = pred_cpu.predict(q_cpu, mf_cpu, sizes[i % 3])
+            cls, masks, mask = pred.predict(g(q_cpu), g(mf_cpu), sizes[i % 3])
+            heads += [err(cls, cls_cpu), err(masks, masks_cpu)]
+            flips += int((mask.cpu() != mask_cpu).sum())
+            entries += mask_cpu.numel()
+            if i < pred_cpu.cfg.dec_layers:
+                nxt_cpu = pred_cpu.layer(i, q_cpu, src, pos, mask_cpu)
+                layers.append(err(pred.layer(i, g(q_cpu), src_dev, pos_dev, g(mask_cpu)), nxt_cpu))
+                q_cpu = nxt_cpu
+        up = F.interpolate(masks_cpu, size=x.shape[2:], mode="bilinear", align_corners=False)
+        scores_cpu = cpu.scores(cls_cpu, up, resized, image.shape[:2])
+        out.update(decoder_layers_rel_err=max(layers), prediction_heads_rel_err=max(heads),
+                   attention_mask_flips=flips, attention_mask_entries=entries,
+                   scores_rel_err=err(det.scores(g(cls_cpu), g(up), resized, image.shape[:2]),
+                                      scores_cpu))
+        cls, masks = pred(g(task), [g(m) for m in maps_cpu], g(mf_cpu))
+    out["decoder_alone_logits_rel_err"] = err(cls, cls_cpu)
+    out["decoder_alone_masks_rel_err"] = err(masks, masks_cpu)
     return out
 
 
@@ -4265,11 +4425,18 @@ def openpose_parts(dev, image) -> None:
     openpose_person(det, cpu, dev, image)
 
 
+ONEFORMER_TOL = ("Swin, pixel decoder, queries, each masked layer and prediction head, scores "
+                 "rtol 1e-4 on the CPU's inputs; 1e-4 of the attention mask's entries flipped; "
+                 "0.5% of pixels differing")
 # the card against the CPU, where a detector's row is not held to 1 level on 0.1% of pixels
 DETECTOR_TOL = {
     "bbox": "yolo maps rtol 1e-4, the same boxes and labels, 0.1% of pixels",
     "densepose": "FPN, RPN, box head, decoder, ROIAlign, chart head rtol 1e-4 on the CPU's "
                  "inputs; proposals 1% differing; 1-10 persons; 0.1% of pixels",
+    "zoe": "raw metric depth rtol 1e-4, its range at least 1e-2 of its largest value",
+    "normalbae": "normals rtol 1e-4; map within 1 level, 0.5% of pixels differing",
+    "seg_ofcoco": ONEFORMER_TOL,
+    "seg_ofade20k": ONEFORMER_TOL,
 }
 
 
@@ -4288,6 +4455,10 @@ def app_detectors(dev, image):
     the raw yolo maps within rtol 1e-4, the same boxes and labels (at least
     one), 0.1% of the mask's pixels differing; densepose: stage by stage,
     ``densepose_stages``, 1-10 persons, 0.1% of the canvas's pixels
+    differing; zoe: its raw depth within rtol 1e-4, the range at least 1e-2
+    of its largest value, ``zoe_depth``; normalbae: its normals within
+    rtol 1e-4, its map within 1 level on 0.5% of pixels; seg_ofcoco and
+    seg_ofade20k: stage by stage, ``oneformer_stages``, 0.5% of pixels
     differing); then OpenPose's hand and face nets and a person
     (``openpose_parts``) and ``detect`` for depth, normal, seg, openpose,
     bbox and densepose; no hand-written kernel launched. The files' YOLO

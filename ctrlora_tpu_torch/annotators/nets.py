@@ -1,6 +1,7 @@
 """What the port's CNN detectors (``hed.py``, ``lineart.py``, ``mlsd.py``,
-``midas.py``, ``uniformer.py``, ``openpose/``) share: the device they run
-on, their weights and the fp32 forward.
+``midas.py``, ``uniformer.py``, ``openpose/``, ``pidinet.py``, ``bbox.py``,
+``densepose.py``, ``zoe.py``, ``normalbae.py``, ``oneformer/``) share: the
+device they run on, their weights and the fp32 forward.
 
 Device: the card unless the caller asks for the CPU; a detector asked for
 ``cuda`` on a host without one raises (no fallback). Weights: the published
@@ -46,7 +47,8 @@ def read_weights(name: str, ckpt_dir: Optional[str] = None, strip_module: bool =
     """The tensors of weight file `name` in `ckpt_dir` (default
     ``ckpts_dir()``), or None where it is absent. A checkpoint that nests
     its tensors under 'state_dict' (MiDaS's, mmseg's beside a 'meta' dict)
-    is unwrapped, as the JAX package's loaders do. ``strip_module`` drops
+    or 'model' (ZoeDepth's, NormalBAE's scannet.pt, detectron2's OneFormer
+    files) is unwrapped, as the JAX package's loaders do. ``strip_module`` drops
     every 'module.' from the keys (files saved from DataParallel); keys
     that start with a prefix in ``drop`` are left out (parts of the
     published network the detector never runs)."""
@@ -54,10 +56,24 @@ def read_weights(name: str, ckpt_dir: Optional[str] = None, strip_module: bool =
     if not os.path.exists(path):
         return None
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd.get("state_dict"), dict):
-        sd = sd["state_dict"]
+    for nest in ("state_dict", "model"):
+        if isinstance(sd.get(nest), dict):
+            sd = sd[nest]
     return {(k.replace("module.", "") if strip_module else k): v for k, v in sd.items()
             if isinstance(v, torch.Tensor) and not k.startswith(drop)}
+
+
+def module_keys(factory: Callable[[], nn.Module]) -> set:
+    """The state-dict keys of factory()'s module, built on the meta device."""
+    with torch.device("meta"):
+        return set(factory().state_dict())
+
+
+def keep_keys(sd: StateDict, keys) -> StateDict:
+    """The entries of `sd` under `keys`: a published file's other entries
+    (index buffers, classifiers, training-only heads) are left out, as the
+    JAX package's converters read only the keys they need."""
+    return {k: v for k, v in sd.items() if k in keys}
 
 
 def build(factory: Callable[[], nn.Module], state: Optional[StateDict], what: str,

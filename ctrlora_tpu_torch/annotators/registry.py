@@ -3,14 +3,13 @@
 
 The names are the JAX registry's, the preprocessor set of the reference
 apps (app/gradio_ctrlora.py:36-40). The numpy/cv2 detectors of
-``simple.py`` are here under JAX's names, and so are the CNN detectors the
-port has (``CNN``: HED and its sketch, the three lineart detectors, MLSD,
-MiDaS with its depth and normal channels, UniFormer's segmentation,
-OpenPose, PiDiNet, the darknet YOLO bbox detector and DensePose), which run
-on ``device`` (the card unless the caller asks for the CPU). The other CNN
-detectors (``NOT_PORTED``: the OneFormer segmenters, normalbae, zoe) are
-registered too, and asking for one raises NotImplementedError: they are
-ROADMAP queue 1 item 14 f, g and i, not ported yet.
+``simple.py`` are here under JAX's names, and so are all the CNN detectors
+(``CNN``: HED and its sketch, the three lineart detectors, MLSD, MiDaS with
+its depth and normal channels, UniFormer's segmentation, OpenPose, PiDiNet,
+the darknet YOLO bbox detector, DensePose, ZoeDepth, NormalBAE and the two
+OneFormer segmenters), which run on ``device`` (the card unless the caller
+asks for the CPU). Every name of the JAX registry builds a detector here;
+none raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -119,22 +118,10 @@ CNN = {
     "pidinet": _cnn("pidinet", "PidiNetDetector"),
     "bbox": _cnn("bbox", "BBoxDetector"),
     "densepose": _cnn("densepose", "DenseposeDetector"),
+    "zoe": _cnn("zoe", "ZoeDetector"),
+    "normalbae": _cnn("normalbae", "NormalBaeDetector"),
+    "seg_ofcoco": _cnn("oneformer", "OneformerCOCODetector"),
+    "seg_ofade20k": _cnn("oneformer", "OneformerADE20kDetector"),
 }
 _FACTORIES.update(CNN)
 
-# the JAX registry's Flax CNN detectors, not ported yet
-NOT_PORTED = ("seg_ofcoco", "seg_ofade20k", "normalbae", "zoe")
-
-
-def _not_ported(name: str):
-    def factory(device):
-        raise NotImplementedError(
-            f"annotator {name!r} is a CNN detector the PyTorch port does not have yet "
-            f"(ROADMAP queue 1 item 14 f, g and i: {', '.join(NOT_PORTED)}); the port has: "
-            f"{sorted(SIMPLE) + sorted(CNN)}")
-
-    return factory
-
-
-for _name in NOT_PORTED:
-    _FACTORIES[_name] = _not_ported(_name)

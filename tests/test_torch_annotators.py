@@ -8,10 +8,11 @@ with a given palette), as do ``resize_image`` (up and down) and the other
 helpers of ``util.py``. Each ported CNN detector's name builds its
 detector on the CPU from seeded published-layout files
 (``chip_smoke.write_detector_files``; DPT, UniFormer and DensePose at small
-widths) and gives JAX's map within 1 level on 0.1% of pixels (MLSD's drawn
-segments: 99% of pixels equal; the normal, seg, openpose, bbox and
-densepose maps as ``test_ported_cnn_detector_builds_on_cpu_and_matches_jax``
-says); the other CNN names (OneFormer's two, normalbae, zoe) raise
+widths, ZoeDepth and OneFormer too) and gives JAX's map within 1 level on
+0.1% of pixels (MLSD's drawn segments: 99% of pixels equal; the normal,
+seg, openpose, bbox, densepose, normalbae, zoe and OneFormer maps as
+``test_ported_cnn_detector_builds_on_cpu_and_matches_jax`` says); every
+name of JAX's registry builds a detector in the port's, none raises
 NotImplementedError. The CLIs, on a directory laid out as
 the sample CLI writes it (3 items, 64 px, prompt.txt) with seeded tiny
 LPIPS and CLIP files, print the values JAX's MetricAccumulator gives on
@@ -29,6 +30,7 @@ import torch
 from ctrlora_tpu import evaluation as jev
 from ctrlora_tpu.annotators import densepose as jdensepose
 from ctrlora_tpu.annotators import midas as jmidas
+from ctrlora_tpu.annotators import oneformer as jof
 from ctrlora_tpu.annotators import registry as jreg
 from ctrlora_tpu.annotators import simple as jsimple
 from ctrlora_tpu.annotators import uniformer as juni
@@ -38,6 +40,7 @@ import chip_smoke
 from ctrlora_tpu_torch.annotators import densepose as tdensepose
 from ctrlora_tpu_torch.annotators import download
 from ctrlora_tpu_torch.annotators import midas as tmidas
+from ctrlora_tpu_torch.annotators import oneformer as tof
 from ctrlora_tpu_torch.annotators import registry as treg
 from ctrlora_tpu_torch.annotators import simple as tsimple
 from ctrlora_tpu_torch.annotators import uniformer as tuni
@@ -51,7 +54,12 @@ from test_torch_densepose import SIZES as DENSEPOSE_SIZES
 from test_torch_densepose import SMALL as DENSEPOSE_SMALL
 from test_torch_evaluation import lpips_sd, tiny_clip_sd
 from test_torch_midas import SMALL as DPT_SMALL
+from test_torch_oneformer import jax_detector as jax_oneformer
+from test_torch_oneformer import patch_tiny as patch_oneformer_tiny
 from test_torch_uniformer import SMALL as UNIFORMER_SMALL
+from test_torch_zoe import DEPTH_RTOL as ZOE_DEPTH_RTOL
+from test_torch_zoe import jax_raw_depth as jax_zoe_raw_depth
+from test_torch_zoe import patch_small as patch_zoe_small
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -124,20 +132,13 @@ def test_util_helpers_equal_to_jax():
         np.testing.assert_array_equal(tutil.HWC3(a), jutil.HWC3(a))
 
 
-@pytest.mark.parametrize("name", sorted(treg.NOT_PORTED))
-def test_cnn_detector_names_raise_not_implemented(name):
-    assert name in jreg.available() and name in treg.available()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        treg.get(name)
-
-
 @pytest.fixture(scope="module")
 def detector_ckpts(tmp_path_factory):
     """A CTRLORA_ANNOTATOR_CKPTS directory of seeded published-layout files
-    for both packages (DPT, UniFormer and DensePose at small widths, both
-    packages' width and DensePose's size constants patched; the YOLO and
-    DensePose biases tuned to the 64^2 test image), and empty registry
-    caches (restored after)."""
+    for both packages (DPT, UniFormer, DensePose, ZoeDepth and OneFormer at
+    small widths, both packages' width, size and config constants patched;
+    NormalBAE at its published widths; the YOLO and DensePose biases tuned
+    to the 64^2 test image), and empty registry caches (restored after)."""
     d = tmp_path_factory.mktemp("detector_ckpts")
     mp = pytest.MonkeyPatch()
     for mods, widths in (((jmidas, tmidas), DPT_SMALL), ((juni, tuni), UNIFORMER_SMALL),
@@ -146,6 +147,8 @@ def detector_ckpts(tmp_path_factory):
         for k, v in widths.items():
             for mod in mods:
                 mp.setattr(mod, k, v)
+    patch_zoe_small(mp)
+    patch_oneformer_tiny(mp)
     chip_smoke.write_detector_files(str(d), image=image(12, (64, 64)))
     mp.setenv(download.CKPT_ENV, str(d))
     mp.setattr(jreg, "_CACHE", {})
@@ -154,23 +157,46 @@ def detector_ckpts(tmp_path_factory):
     mp.undo()
 
 
+ONEFORMER = {"seg_ofcoco": (tof.COCO_FILE, "coco_config"),
+             "seg_ofade20k": (tof.ADE20K_FILE, "ade20k_config")}
+
+
+def jax_detector(name, ckpt_dir):
+    """JAX's registry's detector `name`; OneFormer's built from the seeded
+    file's tensors, which JAX's loader cannot unwrap from 'model'."""
+    if name not in ONEFORMER:
+        return jreg.get(name)
+    file, config = ONEFORMER[name]
+    return jax_oneformer(os.path.join(ckpt_dir, file), getattr(jof, config)())
+
+
 @pytest.mark.parametrize("name", sorted(treg.CNN))
 def test_ported_cnn_detector_builds_on_cpu_and_matches_jax(detector_ckpts, name):
     """Maps within 1 level on 0.1% of pixels; MLSD's drawn segments: 99% of
-    pixels equal; the normal map: within 1 level on all but 0.1% of pixels,
-    0.5% differing (tests/test_torch_midas.py); seg, openpose, bbox and
-    densepose: 0.1% of pixels differing (an argmax near a tie, a peak or a
-    box near a threshold).
+    pixels equal; the normal and normalbae maps: within 1 level on all but
+    0.1% of pixels, 0.5% differing (tests/test_torch_midas.py); seg,
+    openpose, bbox and densepose: 0.1% of pixels differing (an argmax near a
+    tie, a peak or a box near a threshold); OneFormer's: 0.5% (its masks
+    resized by cv2 in JAX, by F.interpolate in the port); zoe: its raw depth
+    within tests/test_torch_zoe.py's tolerance, its uint8 map JAX's shape
+    and dtype (the percentile stretch maps any range onto 0..255).
     MiDaS at 384 px, the least input at which JAX resizes the position
     grid as the reference does."""
     midas = name in ("midas", "depth", "normal")
     img = image(12, (384, 384) if midas else (64, 64))
     det = treg.get(name, "cpu")
+    jdet = jax_detector(name, detector_ckpts)
     assert treg.get(name, torch.device("cpu")) is det
-    assert type(det).__name__ == type(jreg.get(name)).__name__
+    assert type(det).__name__ == type(jdet).__name__
     kw = lambda: {"rng": np.random.default_rng(5)} if name in (
         "hedsketch", "lineart_anime_with_color_prompt") else {}
-    got, want = det(img.copy(), **kw()), jreg.get(name)(img.copy(), **kw())
+    got, want = det(img.copy(), **kw()), jdet(img.copy(), **kw())
+    if name == "zoe":
+        depth, jdepth = det.raw_depth(img), jax_zoe_raw_depth(jdet, img)
+        np.testing.assert_allclose(depth, jdepth, rtol=0,
+                                   atol=ZOE_DEPTH_RTOL * np.abs(jdepth).max())
+        assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape == (64, 64)
+        return
     pairs = zip(("depth", "normal"), got, want) if name == "midas" else [(name, got, want)]
     for kind, got, want in pairs:
         assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
@@ -179,7 +205,9 @@ def test_ported_cnn_detector_builds_on_cpu_and_matches_jax(detector_ckpts, name)
             assert want.any() and (got == want).mean() >= 0.99
         elif kind in ("seg", "openpose", "bbox", "densepose"):
             assert (diff.max(axis=-1) > 0).mean() <= 1e-3
-        elif kind == "normal":
+        elif kind in ONEFORMER:
+            assert (diff.max(axis=-1) > 0).mean() <= 5e-3
+        elif kind in ("normal", "normalbae"):
             diff = diff.max(axis=-1)
             assert (diff > 1).mean() <= 1e-3 and (diff > 0).mean() <= 5e-3
         else:
@@ -191,6 +219,16 @@ def test_registry_names_are_jax_names():
     assert treg.available() == jreg.available()
     with pytest.raises(KeyError):
         treg.get("no_such_detector")
+
+
+def test_every_jax_registry_name_builds_in_the_port(detector_ckpts):
+    """Every name of JAX's registry is the port's, and each builds its
+    detector on the CPU from the seeded files: none raises
+    NotImplementedError."""
+    assert set(jreg.available()) <= set(treg.available())
+    for name in jreg.available():
+        det = treg.get(name, "cpu")
+        assert callable(det), name
 
 
 # ---------------------------------------------------------------------------

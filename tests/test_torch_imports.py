@@ -61,11 +61,16 @@ def test_port_modules_cover_the_slice():
                 "annotators.midas", "annotators.uniformer", "annotators.ade_palette",
                 "annotators.openpose", "annotators.openpose.models",
                 "annotators.openpose.decode", "annotators.pidinet", "annotators.bbox",
-                "annotators.densepose"):
+                "annotators.densepose", "annotators.zoe", "annotators.normalbae",
+                "annotators.oneformer", "annotators.oneformer.swin",
+                "annotators.oneformer.pixel_decoder", "annotators.oneformer.decoder"):
         assert f"ctrlora_tpu_torch.{mod}" in names
     found = {info.name for info in
              pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}
     assert set(GRADIO) <= found
+    # OneFormer's palettes: the port's own copy, beside its package
+    assert os.path.exists(os.path.join(os.path.dirname(ctrlora_tpu_torch.__file__),
+                                       "annotators", "oneformer", "palettes.json"))
 
 
 def test_gradio_front_ends_import_no_jax():
