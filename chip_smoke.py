@@ -202,7 +202,7 @@ the script exits non-zero:
    FID of the samples against themselves (within 1e-3 of tr(C), timed on
    the host) below their FID against img/. The files are deleted at the
    end;
-15. (last) the apps, the tools and the CNN detectors: (a) kernels A, B
+15. the apps, the tools and the CNN detectors: (a) kernels A, B
    (fused qkv at D = 40/80/160, the VAE's BHSD D = 512), C at its four
    sites and D at the one- and two-LoRA step tables, at the app's
    one-sample shapes (CFG batch 2, the VAE at one sample), each against its
@@ -242,7 +242,27 @@ the script exits non-zero:
    tool_extract_weights (-t control, -t lora) with the round trip
    bit-equal, tool_make_cond_images over 4 PNGs with hed and lineart, then
    evaluate_lineart_is_coarse (it must find the coarse items) and
-   evaluate_lineart over 8 samples. Every file is deleted at the end.
+   evaluate_lineart over 8 samples. Every file is deleted at the end;
+16. (its part (a) at the end of phase 6, the rest last) data and tensor
+   parallelism (ctrlora_tpu_torch/parallel/): (a) the process group at
+   world size 1 over NCCL (init_distributed from torchrun's variables), the
+   Trainer over its 1x1 mesh, one DP finetune step on phase 6's pipeline,
+   batch and draws against phase 6's kernel step (loss 1e-2, gradient
+   relative L2 5e-2); (b) two rank processes (this script with
+   --multi-device-rank), sharing the one card over gloo with their memory
+   capped (a check of values, not a scaling number: gloo stages each
+   collective through the host) or one card a rank over NCCL where there
+   are two: phase 6's pipeline from the same seed on each rank, 2 DP
+   finetune steps at global batch 4, the same with the AdamW state sharded
+   (each rank's moment share), 1 TP = 2 finetune step and 5 TP = 2 DDIM
+   steps at batch 4 and CFG 7.5 (after one TP evaluation), each timed with
+   its launches, the head counts of B's BSHD entry and B4 (4 local heads)
+   and each rank's peak memory; rank 0 then runs each on one rank and holds
+   the ranks to it (loss 1e-2, grad norm 5e-2, parameters relative L2 1e-4,
+   the sharded state to replicated 1e-4, the evaluation relative L2 5e-2,
+   the DDIM latent twice the plain versions' departure from the kernels
+   over the same steps or 5e-2), the ranks' parameters bit-identical, and
+   the fused-qkv entry and C never launched under TP.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -262,6 +282,10 @@ call does: GEGLU). The port never calls these.
 also profiles N DDIM steps of phase 4 and one finetune step of phase 6
 with torch.profiler (device ms per step by kernel, launches, device busy
 share, and the flash backward's share of the step).
+
+    python3 chip_smoke.py --multi-device-only
+
+builds and gates the kernels, then runs phase 16 alone on its own pipeline.
 """
 
 import contextlib
@@ -344,7 +368,9 @@ from ctrlora_tpu_torch.scripts import train_ctrlora_finetune as finetune_cli_mod
 from ctrlora_tpu_torch.scripts import train_ctrlora_pretrain as pretrain_cli_mod
 from ctrlora_tpu_torch.training import train_state
 from ctrlora_tpu_torch.training import trainer as trainer_mod
-from ctrlora_tpu_torch.training.step import loss_for_batch
+from ctrlora_tpu_torch.parallel import mesh as pmesh
+from ctrlora_tpu_torch.parallel import tp as tp_mod
+from ctrlora_tpu_torch.training.step import loss_for_batch, make_train_step
 from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
 from ctrlora_tpu_torch.utils.image import HWC3, png_writer, write_png
@@ -1547,7 +1573,9 @@ def train_slice(dev, profile=False):
             and torch.isfinite(grad_k).all()):
         raise AssertionError(f"training step departs from the plain path: loss {loss_rel}, "
                              f"grad {grad_rel}")
-    return launches, s_step
+    # phase 16 (a): the same step through the process group at world size 1
+    nccl_launches = nccl_world_one(dev, pipe, batch, draws, (loss_k, grad_k))
+    return launches, s_step, nccl_launches
 
 
 def tiny_train_gpu_vs_cpu(dev):
@@ -4648,6 +4676,441 @@ def apps_slice(dev, api_paths, baseline_files, style_paths):
         shutil.rmtree(KEPT, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data and tensor parallelism (parallel/), on one card or several
+# ---------------------------------------------------------------------------
+
+MD_WORLD = 2  # ranks of the multi-rank checks
+MD_STEPS, MD_DDIM_STEPS = 2, 5
+# two full-width training ranks share the card's 80 GB when it is the only one
+MD_MEM_FRACTION = 0.45
+MD_TIMEOUT_S = 600  # the group's formation and each collective
+MD_JOIN_S = 480  # the ranks' whole run
+MD_SHARD_REL_TOL = 1e-4  # sharded AdamW state against replicated (the CPU tests')
+MD_PARAM_REL_TOL = 1e-4  # parameters after the steps, relative L2 to one rank
+MD_DP_KERNELS = TRAINING_KERNELS
+# under TP every SD site divides by 2: no fused q|k|v entry, no kernel C
+MD_TP_TRAIN_KERNELS = ("group_norm", "flash_attention", "flash_attention_bshd",
+                       "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+MD_TP_DDIM_KERNELS = ("group_norm", "flash_attention", "flash_attention_bshd", "unpack_rows")
+MD_TP_PINNED_OFF = ("flash_attention_qkv", "geglu_ffn")
+MD_LOCAL_HEADS = 4  # SD1.5's 8 heads a site over the 2 model ranks
+# CFG 7.5 amplifies each evaluation's bf16 rounding through the DDIM steps:
+# one evaluation is held to MODEL_REL_TOL (phase 4's limit), the TP latent
+# after MD_DDIM_STEPS to this many times the plain versions' departure from
+# the kernels over the same steps on one rank (or MODEL_REL_TOL, the larger)
+MD_DDIM_YARDSTICKS = 2.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def rank_env(**env):
+    """torchrun's variables for the block, the caller's back after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class HeadSpy:
+    """A kernel wrapper that notes the head count (q's `axis`) of each call
+    into `seen` and passes the call on; its launch count is the wrapper's
+    own (the wrapper counts through its module-level name)."""
+
+    def __init__(self, real, axis: int, seen: dict):
+        self.real, self.axis, self.seen = real, axis, seen
+
+    def __call__(self, q, *a, **kw):
+        h = int(q.shape[self.axis])
+        self.seen[h] = self.seen.get(h, 0) + 1
+        return self.real(q, *a, **kw)
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+
+@contextlib.contextmanager
+def head_counts():
+    """Record the head count of every call of B's BSHD entry (q [B, S, H,
+    D]) and of B4 (q [B, H, S, D] views) in the block: {name: {H: calls}}."""
+    seen = {"flash_attention_bshd": {}, "flash_attention_bwd_dq": {}}
+    with mock.patch.object(fa_ops, "flash_attention_bshd",
+                           HeadSpy(fa_ops.flash_attention_bshd, 2,
+                                   seen["flash_attention_bshd"])), \
+            mock.patch.object(fa_ops, "flash_attention_bwd_dq",
+                              HeadSpy(fa_ops.flash_attention_bwd_dq, 1,
+                                      seen["flash_attention_bwd_dq"])):
+        yield seen
+
+
+def params_digest(params) -> int:
+    """An exact integer digest of the parameters' bits (equal digests: the
+    same bits, barring a collision)."""
+    total = 0
+    for p in params:
+        bits = p.detach().contiguous().view(-1).view(torch.int32).long()
+        w = torch.arange(1, bits.numel() + 1, device=bits.device) % 65521 + 1
+        total = (total * 1_000_003 + int((bits * w).sum().item())) % (1 << 61)
+    return total
+
+
+def nccl_world_one(dev, pipe=None, batch=None, draws=None, want=None) -> dict:
+    """Phase 16 (a): the process group at world size 1 over NCCL
+    (init_distributed from torchrun's variables), the Trainer over its 1x1
+    mesh (replicate, the gradient all-reduce), one DP finetune step on
+    phase 6's pipeline, batch and draws, against phase 6's kernel step
+    (`want` = (loss, gradient)) to phase 6's tolerances. Without a pipeline
+    it builds phase 6's and takes the reference step itself. Returns the
+    step's launches."""
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
+    tcfg = configs.TrainConfig(trainable="lora", log_every=1)
+    if pipe is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        pipe = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+        for m in pipe.modules():
+            random_init_(m, gen)
+        batch = synthetic_batch(gen, dev, BATCH, SIZE, cfg.clip.max_length, cfg.clip.vocab_size)
+        draws = fixed_draws(gen, dev, BATCH, SIZE // 2 ** (len(cfg.vae.ch_mult) - 1))
+        mask = train_state.trainable_mask(pipe, tcfg)
+        train_state.make_optimizer(pipe, tcfg, mask)
+        want = step_grads(pipe, list(train_state.trainable_parameters(pipe, mask).values()),
+                          batch, draws)
+    t0 = time.perf_counter()
+    with rank_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port(), RANK=0, WORLD_SIZE=1,
+                  LOCAL_RANK=0):
+        try:
+            formed = pmesh.init_distributed(timeout_s=MD_TIMEOUT_S)
+            backend = torch.distributed.get_backend()
+            workdir = os.path.join(ROOT, "runs", "chip_smoke_nccl")
+            shutil.rmtree(workdir, ignore_errors=True)
+            trainer = Trainer(pipe, tcfg, workdir)
+            with counted("multi_device", MD_DP_KERNELS) as launches:
+                trainer.state, m = trainer.step_fn(trainer.state, batch, None, draws=draws)
+                grad = torch.cat([p.grad.float().flatten()
+                                  for p in trainer.state.trainable.values()])
+                loss = m["loss"].item()
+            mesh = list(trainer.mesh.shape)
+        finally:
+            if pmesh.in_group():
+                torch.distributed.destroy_process_group()
+    loss_rel = abs(loss - want[0]) / abs(want[0])
+    grad_rel = rel_l2(grad, want[1])
+    log("multi_device", check="nccl_world1", formed=formed, backend=backend, mesh=mesh,
+        loss=loss, loss_phase6=want[0], loss_rel=loss_rel, loss_bound=LOSS_REL_TOL,
+        grad_rel_l2=grad_rel, grad_bound=MODEL_REL_TOL, launches=launches,
+        seconds=time.perf_counter() - t0)
+    if not (formed and backend == "nccl" and loss_rel <= LOSS_REL_TOL
+            and grad_rel <= MODEL_REL_TOL):
+        raise AssertionError(f"NCCL world-1 DP step departs from phase 6's: loss {loss_rel}, "
+                             f"grad {grad_rel} ({backend}, formed {formed})")
+    return launches
+
+
+def md_device(rank: int, world: int):
+    """(this rank's card, whether the ranks share one): one card a rank
+    where there are enough, else every rank on card 0 with its memory
+    capped at MD_MEM_FRACTION."""
+    shared = torch.cuda.device_count() < world
+    dev = torch.device("cuda", 0 if shared else rank)
+    torch.cuda.set_device(dev)
+    if shared:
+        torch.cuda.set_per_process_memory_fraction(MD_MEM_FRACTION, dev)
+    return dev, shared
+
+
+def multi_device_rank(root: str) -> int:
+    """One rank of phase 16 (b) (a process the phase starts with torchrun's
+    variables): builds phase 6's pipeline from the same seed, then over the
+    process group: 2 DP finetune steps at global batch 4, the same with the
+    optimizer state sharded, 1 TP = 2 finetune step and TP = 2 DDIM; rank 0
+    then runs each of them on one rank (no group) and holds the group's
+    results against them. Writes root/rank<r>.json."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev, shared = md_device(rank, world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pmesh.init_distributed(backend="gloo" if shared else "nccl", device=dev,
+                           timeout_s=MD_TIMEOUT_S)
+    _build.cuda_lib()
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pipe = CtrLoraPipeline(cfg, dev, fuse_lora=False)
+    for m in pipe.modules():
+        random_init_(m, gen)
+    batches = [synthetic_batch(gen, dev, BATCH, SIZE, cfg.clip.max_length, cfg.clip.vocab_size)
+               for _ in range(MD_STEPS)]
+    ids = batches[0]["token_ids"]
+    hint = batches[0]["hint"]
+    lat = SIZE // 2 ** (len(cfg.vae.ch_mult) - 1)
+    x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
+    tcfg = dict(trainable="lora", log_every=1)
+    mask = train_state.trainable_mask(pipe, configs.TrainConfig(**tcfg))
+    trainable = train_state.trainable_parameters(pipe, mask)
+    init = [p.detach().clone() for p in trainable.values()]
+
+    def reset():
+        with torch.no_grad():
+            for p, v in zip(trainable.values(), init):
+                p.copy_(v)
+
+    def snapshot():
+        return [p.detach().clone() for p in trainable.values()]
+
+    out = {"rank": rank, "world": world, "device": str(dev), "shared_card": shared,
+           "backend": torch.distributed.get_backend(), "setup_s": time.perf_counter() - t0,
+           "paths": {}}
+
+    def path(name, required, run):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with counted(f"multi_device {name}", required) as launches, head_counts() as heads:
+            t = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t
+        row = {"seconds": seconds, "launches": dict(launches), "heads": heads,
+               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2 ** 30, **res[0]}
+        out["paths"][name] = row
+        return res[1]
+
+    def fit(name, tp=1, steps=MD_STEPS, **kw):
+        reset()
+        trainer = Trainer(pipe, configs.TrainConfig(**tcfg, **kw),
+                          os.path.join(root, f"train_{name}"), tp=tp)
+        metrics = []
+        step_fn = trainer.step_fn
+
+        def spy(*a, **k):
+            state, m = step_fn(*a, **k)
+            metrics.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()})
+            return state, m
+
+        trainer.step_fn = spy
+        t = time.perf_counter()
+        trainer.fit(batches[:steps], max_steps=steps)
+        torch.cuda.synchronize(dev)
+        row = {"s_per_step": (time.perf_counter() - t) / steps, "steps": metrics,
+               "digest": params_digest(trainable.values()), "mesh": list(trainer.mesh.shape)}
+        if kw.get("shard_opt_state"):
+            row["moment_share"] = trainer.state.optimizer.moment_share()
+            row["optimizer"] = type(trainer.state.optimizer).__name__
+        return row, snapshot()
+
+    def ddim(tp_on):
+        """(one UNet + ControlNet evaluation at t = 500, the DDIM latent)."""
+        def fn(hint, ids, x_T):
+            ctx, unc = pipe.encode_text_cond_uncond(ids, torch.zeros_like(ids))
+            conds = [Conditioning(pipe.encode_first_stage(hint))]
+            t = torch.full((x_T.shape[0],), 500, device=dev)
+            evaluation = pipe.apply_model(x_T, t, ctx, conds)
+            return evaluation, ddim_sample(pipe, ctx, unc, conds, tuple(x_T.shape),
+                                           DDIMConfig(steps=MD_DDIM_STEPS, guidance_scale=7.5),
+                                           x_T=x_T)
+
+        with torch.no_grad():
+            if not tp_on:
+                return tuple(v.cpu() for v in fn(hint, ids, x_T))
+            mesh = pmesh.create_mesh_2d(world // 2, 2)
+            return tp_mod.tp_sample(fn, mesh)(hint, ids, x_T)
+
+    dp = path("dp_finetune", MD_DP_KERNELS, lambda: fit("dp"))
+    shard = path("dp_finetune_shard_opt_state", MD_DP_KERNELS,
+                 lambda: fit("shard", shard_opt_state=True))
+    tp_train = path("tp2_finetune", MD_TP_TRAIN_KERNELS, lambda: fit("tp2", tp=2, steps=1))
+
+    def tp_ddim():
+        reset()  # the seeded weights, as the one-rank run's
+        t = time.perf_counter()
+        z = ddim(True)
+        torch.cuda.synchronize(dev)
+        return {"s_per_step": (time.perf_counter() - t) / MD_DDIM_STEPS}, z
+
+    z_tp = path("tp2_ddim", MD_TP_DDIM_KERNELS, tp_ddim)
+    torch.distributed.barrier()
+    if rank == 0:  # the one-rank runs (no collective), the others wait
+        out["one_rank"] = one_rank_references(pipe, dev, batches, tcfg, mask, reset, snapshot,
+                                              lambda: ddim(False))
+        with plain_versions():
+            out["one_rank"]["ddim_plain"] = ddim(False)
+        ref = out["one_rank"]
+        checks = {}
+        for name, got, want_params, n in (("dp_finetune", dp, ref.pop("params"), MD_STEPS),
+                                          ("tp2_finetune", tp_train, ref.pop("params1"), 1)):
+            row = out["paths"][name]
+            loss_rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                           for g, w in zip(row["steps"], ref["steps"][:n]))
+            gn_rel = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                         for g, w in zip(row["steps"], ref["steps"][:n]))
+            p_rel = rel_l2(torch.cat([p.flatten() for p in got]),
+                           torch.cat([p.flatten() for p in want_params]))
+            upd_rel = rel_l2(torch.cat([(p - i).flatten() for p, i in zip(got, init)]),
+                             torch.cat([(p - i).flatten() for p, i in zip(want_params, init)]))
+            checks[name] = {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+                            "params_rel_l2": p_rel, "update_rel_l2": upd_rel,
+                            "ok": (loss_rel <= LOSS_REL_TOL and gn_rel <= MODEL_REL_TOL
+                                   and p_rel <= MD_PARAM_REL_TOL)}
+        sh = out["paths"]["dp_finetune_shard_opt_state"]
+        sh_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                      for a, b in zip(sh["steps"], out["paths"]["dp_finetune"]["steps"]))
+        sh_params = rel_l2(torch.cat([p.flatten() for p in shard]),
+                           torch.cat([p.flatten() for p in dp]))
+        checks["shard_opt_state"] = {"loss_rel_to_replicated": sh_loss,
+                                     "params_rel_l2_to_replicated": sh_params,
+                                     "ok": sh_loss <= MD_SHARD_REL_TOL
+                                     and sh_params <= MD_SHARD_REL_TOL}
+        (ev_one, z_one), (_, z_plain) = ref.pop("ddim"), ref.pop("ddim_plain")
+        ev_tp, z_tp = z_tp
+        ev_rel = rel_l2(ev_tp, ev_one)
+        checks["tp2_evaluation"] = {"rel_l2": ev_rel, "bound": MODEL_REL_TOL,
+                                    "ok": ev_rel <= MODEL_REL_TOL}
+        z_rel, z_yard = rel_l2(z_tp, z_one), rel_l2(z_plain, z_one)
+        z_bound = max(MODEL_REL_TOL, MD_DDIM_YARDSTICKS * z_yard)
+        finite = bool(torch.isfinite(z_tp).all())
+        checks["tp2_ddim"] = {"z_rel_l2": z_rel, "plain_vs_kernels_rel_l2": z_yard,
+                              "bound": z_bound, "finite": finite,
+                              "ok": z_rel <= z_bound and finite}
+        out["checks"] = checks
+    for name in ("tp2_finetune", "tp2_ddim"):
+        row = out["paths"][name]
+        row["pinned_off_launched"] = {k: row["launches"][k] for k in MD_TP_PINNED_OFF}
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def one_rank_references(pipe, dev, batches, tcfg, mask, reset, snapshot, ddim_one):
+    """Rank 0's runs of the same work on one rank: AdamW over the trainable
+    set and the step without a mesh (the Trainer's draws: its generator
+    seeded per step), and DDIM without the TP context."""
+    cfg = configs.TrainConfig(**tcfg)
+    reset()
+    optimizer = train_state.make_optimizer(pipe, cfg, mask)
+    step = make_train_step(pipe, optimizer, cfg)
+    state = train_state.TrainState(0, train_state.branches(pipe), optimizer,
+                                   train_state.trainable_parameters(pipe, mask))
+    generator = torch.Generator(device=dev)
+    steps, after = [], []
+    for batch in batches:
+        generator.manual_seed(trainer_mod.step_seed(cfg.seed + 1, state.step))
+        state, m = step(state, batch, generator)
+        steps.append({"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()})
+        after.append(snapshot())
+    reset()
+    return {"steps": steps, "params": after[-1], "params1": after[0], "ddim": ddim_one()}
+
+
+def multi_device_slice(dev, nccl_launches) -> dict:
+    """Phase 16 (b): MD_WORLD rank processes (this script with
+    --multi-device-rank), sharing the card over gloo when it is the only one
+    (a check of what the ranks compute, not of speed: each collective is
+    staged through the host here) or one card a rank over NCCL. Fails on a
+    failed check, a rank that fails, or ranks that do not finish within
+    MD_JOIN_S. Returns the path's launches (rank 0's and rank 1's summed,
+    and (a)'s)."""
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "runs", "chip_smoke_multi_device")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    port = free_port()
+    procs = []
+    for rank in range(MD_WORLD):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "RANK": str(rank), "WORLD_SIZE": str(MD_WORLD), "LOCAL_RANK": str(rank)}
+        logf = open(os.path.join(root, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                        "--multi-device-rank", root], env=env, stdout=logf,
+                                       stderr=subprocess.STDOUT), logf))
+    deadline = time.monotonic() + MD_JOIN_S
+    try:
+        while any(p.poll() is None for p, _ in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            logf.close()
+    codes = [p.returncode for p, _ in procs]
+    if any(codes):
+        tails = []
+        for r in range(MD_WORLD):
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                tails.append(f"rank {r} (exit {codes[r]}):\n" + "".join(f.readlines()[-25:]))
+        raise AssertionError("multi-device ranks failed or hung:\n" + "\n".join(tails))
+    return multi_device_report(root, nccl_launches, t0)
+
+
+def multi_device_report(root: str, nccl_launches, t0: float) -> dict:
+    """Phase 16's lines from the ranks' files, and its checks across ranks."""
+    ranks = []
+    for r in range(MD_WORLD):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    label = ("one-card gloo: both ranks on one card, collectives staged through the host; "
+             "a check of values, not a scaling number" if ranks[0]["shared_card"] else
+             f"{MD_WORLD} cards over NCCL")
+    launches = dict(nccl_launches)
+    for r in ranks:
+        for name, row in r["paths"].items():
+            log("multi_device", rank=r["rank"], path=name, label=label, card=smi,
+                backend=r["backend"], **{k: v for k, v in row.items() if k != "launches"},
+                launches=row["launches"])
+            for k, v in row["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    digests = {name: [r["paths"][name]["digest"] for r in ranks]
+               for name in ("dp_finetune", "dp_finetune_shard_opt_state", "tp2_finetune")}
+    bit_identical = {name: len(set(d)) == 1 for name, d in digests.items()}
+    heads_tp = {name: sorted({int(h) for r in ranks for h in r["paths"][name]["heads"]
+                              ["flash_attention_bshd"]}) for name in ("tp2_finetune", "tp2_ddim")}
+    heads_b4 = sorted({int(h) for r in ranks
+                       for h in r["paths"]["tp2_finetune"]["heads"]["flash_attention_bwd_dq"]})
+    pinned = {f"{r['rank']}:{name}": r["paths"][name]["pinned_off_launched"]
+              for r in ranks for name in ("tp2_finetune", "tp2_ddim")}
+    checks = ranks[0]["checks"]
+    log("multi_device", label=label, card=smi, checks=checks,
+        params_bit_identical_across_ranks=bit_identical, tp_bshd_heads=heads_tp,
+        tp_bwd_dq_heads=heads_b4, tp_pinned_off_launches=pinned,
+        moment_share=[r["paths"]["dp_finetune_shard_opt_state"]["moment_share"]
+                      for r in ranks],
+        one_rank_steps=ranks[0]["one_rank"]["steps"], setup_s=[r["setup_s"] for r in ranks],
+        phase_s=time.perf_counter() - t0)
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    local = [MD_LOCAL_HEADS]
+    if (bad or not all(bit_identical.values())
+            or heads_tp != {"tp2_finetune": local, "tp2_ddim": local} or heads_b4 != local
+            or any(v for p in pinned.values() for v in p.values())):
+        raise AssertionError(f"multi-device checks failed: {bad}, bit-identical "
+                             f"{bit_identical}, heads {heads_tp} / {heads_b4}, pinned {pinned}")
+    return launches
+
+
 def build_gates(dev) -> None:
     """The build phase's gates on the kernels just built: C, B6 and B4/B5
     run on wgmma (HGMMA) and nothing older (HMMA); B6 and B4/B5 spill
@@ -4748,6 +5211,8 @@ def main(argv) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    if "--multi-device-rank" in argv:  # one of phase 16's rank processes
+        return multi_device_rank(argv[argv.index("--multi-device-rank") + 1])
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4765,6 +5230,13 @@ def main(argv) -> int:
     log("build", cuda_library_s=time.perf_counter() - t0, nvcc_flags=" ".join(_build.NVCC_FLAGS),
         ptxas_spills=spills)
     build_gates(dev)
+    if "--multi-device-only" in argv:  # phase 16 alone, on its own pipeline
+        multi_device_slice(dev, nccl_world_one(dev))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return 0
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
     results = kernel_checks(dev, cfg)
@@ -4775,7 +5247,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     tiny_gpu_vs_cpu(dev)
     tiny_api_gpu_vs_cpu(dev)
-    training, phase6_s_step = train_slice(dev, profile=bool(profile_steps))
+    training, phase6_s_step, nccl_launches = train_slice(dev, profile=bool(profile_steps))
     tiny_train_gpu_vs_cpu(dev)
     shutil.rmtree(KEPT, ignore_errors=True)
     try:
@@ -4789,6 +5261,7 @@ def main(argv) -> int:
         app_runs = apps_slice(dev, api_paths, baseline_files, style_paths)
     finally:
         shutil.rmtree(KEPT, ignore_errors=True)
+    md_launches = multi_device_slice(dev, nccl_launches)  # phase 16
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -4799,7 +5272,8 @@ def main(argv) -> int:
                    "baselines": sum(r[name] for r in baseline_runs.values()),
                    "xs": sum(r[name] for r in xs_runs.values()),
                    "style": style_launches[name], "evaluation": eval_launches[name],
-                   "apps": sum(r[name] for r in app_runs.values())}
+                   "apps": sum(r[name] for r in app_runs.values()),
+                   "multi_device": md_launches[name]}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})

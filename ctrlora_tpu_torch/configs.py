@@ -157,8 +157,9 @@ class TrainConfig:
     (AdamW as torch's: lr 1e-5, weight decay 1e-2, betas 0.9/0.999, eps
     1e-8). ``trainable``: 'all', 'lora' or 'full' (``training.train_state``);
     ``use_ema`` keeps an fp32 shadow of the trainable parameters
-    (``training.ema``); ``shard_opt_state`` needs several devices and is not
-    ported (it must stay False)."""
+    (``training.ema``); ``shard_opt_state`` deals the AdamW state over the
+    data ranks of a process group (``parallel.mesh.ShardedOptimizer``; one
+    process keeps it whole)."""
 
     learning_rate: float = 1e-5
     weight_decay: float = 1e-2

@@ -35,7 +35,7 @@ class Loader:
 
     def __init__(self, datasets: Sequence, schedule, tokenizer: Optional[CLIPTokenizer] = None,
                  num_workers: int = 8, prefetch: int = 4, seed: int = 0, host_id: int = 0,
-                 host_count: int = 1, max_length: Optional[int] = None):
+                 host_count: int = 1, max_length: Optional[int] = None, micro: int = 1):
         self.datasets = list(datasets)
         self.schedule = schedule
         self.tokenizer = tokenizer or default_tokenizer()
@@ -45,20 +45,24 @@ class Loader:
         self.host_id = host_id
         self.host_count = host_count
         self.max_length = max_length
-        if schedule.batch_size % host_count:
+        if schedule.batch_size % (host_count * micro):
             raise ValueError(f"global batch {schedule.batch_size} does not divide across "
-                             f"{host_count} hosts")
+                             f"{host_count} hosts in {micro} micro-batches")
         self.local_batch = schedule.batch_size // host_count
+        # the global positions this host reads: its block of each of the
+        # `micro` micro-batches the global batch is split into
+        per, rows = schedule.batch_size // micro, self.local_batch // micro
+        self.positions = [m * per + host_id * rows + j for m in range(micro)
+                          for j in range(rows)]
         self.wait_s = 0.0
         self.last_step: Optional[int] = None
 
     def load_batch(self, step: int) -> Dict[str, np.ndarray]:
         task, indices = self.schedule.batch_for_step(step)
-        lo = self.host_id * self.local_batch
         ds = self.datasets[task]
         # per-example draws: a function of (seed, step, global position)
-        examples = [ds.get(int(idx), np.random.default_rng((self.seed, 0xDA7A, step, lo + j)))
-                    for j, idx in enumerate(indices[lo:lo + self.local_batch])]
+        examples = [ds.get(int(indices[pos]), np.random.default_rng((self.seed, 0xDA7A, step, pos)))
+                    for pos in self.positions]
         batch = {k: np.stack([e[k] for e in examples]) for k, v in examples[0].items()
                  if isinstance(v, np.ndarray)}
         batch["token_ids"] = self.tokenizer([e["txt"] for e in examples],

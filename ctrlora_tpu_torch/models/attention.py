@@ -19,6 +19,13 @@ as in the JAX ``CrossAttention``: ``qkvpack=0`` splits the fused projection
 into strided [B, S, H, D] views for the BSHD dispatcher (which takes kernel
 B6 under ``hpack=2``), and ``fuse_qkv=0`` issues three projections.
 
+Under ``parallel.tp.tensor_parallel`` (read at call time) a site whose
+heads divide tp computes only this model rank's heads (separate local q, k,
+v products, no fused q|k|v entry) and its slice of ``to_out``, with one
+all-reduce; a feed-forward computes its slice of the hidden (no kernel C)
+the same way. A site whose heads do not divide runs whole through the
+plain attention, as JAX's XLA path. Outside the context nothing changes.
+
 With ``ip_tokens`` (the IP-Adapter, reference attention_ip.py:196-289) a
 cross-attention's context is [text | image]: the last ``ip_tokens`` rows go
 through the bias-free ``to_k_ip`` / ``to_v_ip`` and are attended by the same
@@ -42,6 +49,7 @@ from ctrlora_tpu_torch.models.layers import (
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import kernel_flags
+from ctrlora_tpu_torch.parallel import tp
 
 
 def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
@@ -88,13 +96,19 @@ class CrossAttention(nn.Module):
         if self.ip_tokens:  # context = [text tokens | image-prompt tokens]
             n = context.shape[1] - self.ip_tokens
             context, ip_ctx = context[:, :n], context[:, n:]
+        # under tensor parallelism: this rank's heads, or (heads % tp != 0)
+        # the whole site through the plain attention, as JAX's XLA path
+        use_flash = self.use_flash and tp.active() is None
+        heads = tp.local_range(h)
+        if heads is not None:
+            return self._forward_split(x, context, ip_ctx, lora_idx, *heads)
         if self.lora:
             ctx = x if context is None else context
             heads4 = lambda t: t.unflatten(-1, (h, d))  # [B, S, H, D] view
             q = self.to_q(x, lora_idx)
             out = fa_ops.dot_product_attention_bshd(
                 heads4(q), heads4(self.to_k(ctx, lora_idx)),
-                heads4(self.to_v(ctx, lora_idx)), use_flash=self.use_flash)
+                heads4(self.to_v(ctx, lora_idx)), use_flash=use_flash)
             return self.to_out(self._add_ip(out, q, ip_ctx), lora_idx)
         if context is None:
             fl = kernel_flags.flags()
@@ -104,31 +118,57 @@ class CrossAttention(nn.Module):
                     w = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
                 qkv = F.linear(x, w.to(x.dtype))
                 if fl.attn_qkv_packed is not False:
-                    out = fa_ops.dot_product_attention_bshd_qkv(qkv, h, d,
-                                                                use_flash=self.use_flash)
+                    out = fa_ops.dot_product_attention_bshd_qkv(qkv, h, d, use_flash=use_flash)
                     return self.to_out(out)
                 q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
             else:
                 q, k, v = (p(x).unflatten(-1, (h, d)) for p in (self.to_q, self.to_k, self.to_v))
-            out = fa_ops.dot_product_attention_bshd(q, k, v, use_flash=self.use_flash)
+            out = fa_ops.dot_product_attention_bshd(q, k, v, use_flash=use_flash)
         else:
             heads4 = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
             q = self.to_q(x)
             out = fa_ops.dot_product_attention(heads4(q), heads4(self.to_k(context)),
                                                heads4(self.to_v(context)),
-                                               use_flash=self.use_flash)
+                                               use_flash=use_flash)
             out = self._add_ip(out.transpose(1, 2).reshape(b, s, h * d), q, ip_ctx)
         return self.to_out(out)
 
-    def _add_ip(self, out, q, ip_ctx):
+    def _forward_split(self, x, context, ip_ctx, lora_idx, h0: int, h1: int):
+        """The site on this model rank's heads [h0, h1) (``parallel.tp``):
+        local q, k, v rows (no fused q|k|v product), attention on the local
+        heads through the BSHD dispatch, a partial ``to_out`` over the local
+        columns, one all-reduce over the model group, then the bias."""
+        d = self.dim_head
+        lo, hi = h0 * d, h1 * d
+        x = tp.copy_to_model(x)
+        ctx = x if context is None else tp.copy_to_model(context)
+        (q,) = tp.split_dense(self.to_q, x, [(lo, hi)], lora_idx)
+        (k,) = tp.split_dense(self.to_k, ctx, [(lo, hi)], lora_idx)
+        (v,) = tp.split_dense(self.to_v, ctx, [(lo, hi)], lora_idx)
+        heads4 = lambda t: t.unflatten(-1, (h1 - h0, d))
+        out = fa_ops.dot_product_attention_bshd(heads4(q), heads4(k), heads4(v),
+                                                use_flash=self.use_flash)
+        out = self._add_ip(out, q, None if ip_ctx is None else tp.copy_to_model(ip_ctx),
+                           (lo, hi))
+        y = tp.reduce_from_model(tp.contract_dense(self.to_out, out, lo, hi, lora_idx))
+        return y + self.to_out.bias.to(y.dtype)
+
+    def _add_ip(self, out, q, ip_ctx, cols=None):
         """out [B, S, H*D] plus the image-prompt branch over ip_ctx with the
-        queries q [B, S, H*D] (out unchanged without image tokens)."""
+        queries q [B, S, H*D] (out unchanged without image tokens); `cols`:
+        the [lo, hi) of the inner dim that q and out hold under tensor
+        parallelism."""
         if ip_ctx is None:
             return out
-        b, s, _ = q.shape
-        heads4 = lambda t: t.reshape(b, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
-        out_ip = fa_ops.attention_plain(heads4(q), heads4(self.to_k_ip(ip_ctx)),
-                                        heads4(self.to_v_ip(ip_ctx)))[0]
+        b, s, inner = q.shape
+        heads4 = lambda t: t.reshape(b, t.shape[1], inner // self.dim_head,
+                                     self.dim_head).transpose(1, 2)
+        if cols is None:
+            k, v = self.to_k_ip(ip_ctx), self.to_v_ip(ip_ctx)
+        else:
+            (k,), (v,) = (tp.split_dense(p, ip_ctx, [cols]) for p in (self.to_k_ip, self.to_v_ip))
+            tp.mark_split(self.ip_scale)
+        out_ip = fa_ops.attention_plain(heads4(q), heads4(k), heads4(v))[0]
         out_ip = out_ip.transpose(1, 2).reshape(b, s, -1)
         return out + self.ip_scale.to(out.dtype) * out_ip
 
@@ -144,6 +184,15 @@ class FeedForward(nn.Module):
         self.out = Dense(inner, dim, lora=lora)
 
     def forward(self, x, lora_idx: LoraIdx = None):
+        part = tp.local_range(self.out.in_features)
+        if part is not None:  # tensor parallelism: this rank's hidden slice
+            lo, hi = part
+            f = self.out.in_features
+            a, gate = tp.split_dense(self.proj, tp.copy_to_model(x), [(lo, hi), (f + lo, f + hi)],
+                                     lora_idx)
+            y = tp.reduce_from_model(tp.contract_dense(self.out, a * F.gelu(gate), lo, hi,
+                                                       lora_idx))
+            return y + self.out.bias.to(y.dtype)
         if self.lora:
             a, gate = self.proj(x, lora_idx).chunk(2, dim=-1)
             return self.out(a * F.gelu(gate), lora_idx)

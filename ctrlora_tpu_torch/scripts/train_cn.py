@@ -20,8 +20,9 @@ script never falls back to the CPU, ask for it with --device cpu) and
 --subset N trains on the first N examples. --cn_ckpt fills every control
 key but LoRA ones (XS: a file in TwoStreamControlNet's layout); what no
 file gives keeps the initialisation seeded with --seed. Images are resized
-to 512^2 (``RESOLUTION``), as the reference trains the baselines. --tp > 1
-and --shard_opt_state raise. ``main`` is ``parse_args``, ``build_datasets``
+to 512^2 (``RESOLUTION``), as the reference trains the baselines. Under
+torchrun, --tp and --shard_opt_state split the run over the ranks
+(``train_common``). ``main`` is ``parse_args``, ``build_datasets``
 (the files) and ``train`` (the run on dataset objects).
 """
 

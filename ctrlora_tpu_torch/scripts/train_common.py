@@ -6,7 +6,16 @@ to the last checkpoint.
 --gradacc N: the loader's global batch is N x --bs examples of one task,
 split into N micro-batches of --bs for the step, whose gradient is their
 mean (the JAX CLIs hand the step a --bs batch with no micro-batch axis and
-fail there)."""
+fail there).
+
+Several ranks (``torchrun --nproc_per_node N -m ctrlora_tpu_torch.scripts.
+<cli> ...``): each rank joins the process group (``parallel.mesh.
+init_distributed``, NCCL on ``cuda:LOCAL_RANK``, gloo with --device cpu),
+--bs stays the global batch, and each rank's loader reads that rank's rows
+of it (of each micro-batch under --gradacc), with the one-rank run's
+per-example draws. --tp N splits the attention heads and GEGLU hidden over
+N model ranks; --shard_opt_state deals the AdamW state over the data ranks.
+Only rank 0 writes the run's files."""
 
 from __future__ import annotations
 
@@ -21,13 +30,11 @@ import torch
 
 from ctrlora_tpu_torch.configs import ModelConfig, TrainConfig
 from ctrlora_tpu_torch.data.loader import Loader, to_device
+from ctrlora_tpu_torch.parallel.mesh import init_distributed, rank_device
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
 from ctrlora_tpu_torch.training.step import split_micro_batches
 from ctrlora_tpu_torch.training.trainer import Trainer, make_image_log_hook
 from ctrlora_tpu_torch.utils.loading import load_ctrlora
-
-# ROADMAP's item for what needs several devices
-MULTI_DEVICE = "ROADMAP queue 1 item 12 (data and tensor parallelism over several devices)"
 
 
 def add_common_flags(p: argparse.ArgumentParser, bs: int, max_steps: int, log_freq: int,
@@ -53,10 +60,13 @@ def add_common_flags(p: argparse.ArgumentParser, bs: int, max_steps: int, log_fr
     p.add_argument(*(("-n", "--name") if baseline else ("--name",)), type=str, default=None,
                    help="the run's directory under runs/ (an absolute path is used as it is)")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--tp", type=int, default=1, help=f"tensor parallelism: {MULTI_DEVICE}")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size: train over a (data, model) mesh with attention "
+                        "heads / GEGLU hidden sharded over N-way model parallelism (must "
+                        "divide the ranks; parallel/tp.py)")
     p.add_argument("--use_ema", action="store_true", help="EMA of trainable params")
     p.add_argument("--shard_opt_state", action="store_true",
-                   help=f"optimizer-state sharding: {MULTI_DEVICE}")
+                   help="ZeRO-style Adam-moment sharding over the data ranks")
     p.add_argument("--num_workers", type=int, default=num_workers)
     p.add_argument("--log_every", type=int, default=100, help="steps per metrics line")
     p.add_argument("--device", type=str, default="cuda",
@@ -64,17 +74,16 @@ def add_common_flags(p: argparse.ArgumentParser, bs: int, max_steps: int, log_fr
 
 
 def check_args(args: argparse.Namespace) -> torch.device:
-    """The device to train on; raises for what one device cannot run."""
-    if args.tp > 1 or args.shard_opt_state:
-        raise NotImplementedError(f"--tp > 1 and --shard_opt_state need several devices: "
-                                  f"{MULTI_DEVICE}")
+    """The device to train on; joins the process group where one is
+    configured (torchrun's environment), and then the rank's device."""
     if args.gradacc < 1:
         raise ValueError(f"--gradacc must be >= 1, got {args.gradacc}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; pass --device cpu "
                          "to train on the CPU")
-    return device
+    init_distributed(device=None if args.device == "cuda" else device)
+    return rank_device() or device
 
 
 def load_training_pipeline(cfg: ModelConfig, device, sd_ckpt, cn_ckpt,
@@ -97,7 +106,8 @@ def train_config(args: argparse.Namespace, trainable: str, **kw) -> TrainConfig:
     return TrainConfig(learning_rate=args.lr, batch_size=args.bs, grad_accum=args.gradacc,
                        max_steps=args.max_steps, trainable=trainable, seed=args.seed,
                        log_every=args.log_every, ckpt_every=args.ckpt_logger_freq,
-                       image_log_every=args.img_logger_freq, use_ema=args.use_ema, **kw)
+                       image_log_every=args.img_logger_freq, use_ema=args.use_ema,
+                       shard_opt_state=args.shard_opt_state, **kw)
 
 
 @dataclasses.dataclass
@@ -121,17 +131,20 @@ def run(args: argparse.Namespace, pipe: CtrLoraPipeline, tcfg: TrainConfig,
     a checkpoint of the last step."""
     name = args.name or datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
     workdir = os.path.join("runs", name)
-    trainer = Trainer(pipe, tcfg, workdir)
+    trainer = Trainer(pipe, tcfg, workdir, tp=args.tp)
     if args.resume:
         trainer.restore(args.resume)
+    mesh = trainer.mesh
     loader = Loader(datasets, schedule, num_workers=args.num_workers,
-                    max_length=pipe.cfg.clip.max_length)
-    hook = make_image_log_hook(pipe, workdir)
+                    max_length=pipe.cfg.clip.max_length,
+                    host_id=0 if mesh is None else mesh.data_index,
+                    host_count=1 if mesh is None else mesh.dp, micro=tcfg.grad_accum)
+    hook = make_image_log_hook(pipe, workdir) if trainer.is_main else None
     batches = loader.iterate(trainer.state.step)
     on_device = (to_device(b, pipe.device) for b in batches)
     if tcfg.grad_accum > 1:
         on_device = (split_micro_batches(b, tcfg.grad_accum) for b in on_device)
-    trainer.fit(on_device, sample_hook=hook)
+    trainer.fit(on_device, sample_hook=hook, global_batches=False)
     batches.close()
     if trainer.state.step % tcfg.ckpt_every:
         trainer.save(trainer.state.step)

@@ -16,8 +16,9 @@ YAML file, plus --device (default cuda; the script never falls back to the CPU,
 ask for it with --device cpu) and --log_every. --resume takes a
 ``ckpt_*.pt`` of an earlier run and the loader resumes at its step;
 --cache_latents encodes a --dataroot dataset's VAE posterior moments once
-and trains from them. --tp > 1 and --shard_opt_state need several devices
-and raise. ``main`` is ``parse_args``, ``build_datasets`` (the files) and
+and trains from them. Under torchrun, --tp and --shard_opt_state split
+the run over the ranks (``train_common``). ``main`` is ``parse_args``,
+``build_datasets`` (the files) and
 ``train`` (the run on dataset objects).
 """
 

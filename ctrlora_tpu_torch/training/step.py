@@ -86,18 +86,51 @@ def split_micro_batches(batch: Batch, accum: int) -> Dict[str, torch.Tensor]:
     return {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
 
 
-def make_train_step(pipe: CtrLoraPipeline, optimizer: torch.optim.Optimizer,
-                    cfg: TrainConfig) -> Callable:
+def global_draws(pipe: CtrLoraPipeline, batch: Batch, generator: torch.Generator,
+                 dp: int) -> Dict[str, torch.Tensor]:
+    """The draws ``loss_for_batch`` makes from `generator`, in its order, for
+    the global batch of `dp` times this batch's rows: each data rank draws
+    them all and keeps its rows (``mesh.shard_batch``), so a step of an
+    N-rank run draws what the one-rank step on the global batch draws."""
+    dev = generator.device
+    src = batch["jpg_moments" if "jpg_moments" in batch else "jpg"]
+    b = src.shape[0] * dp
+    if "jpg_moments" in batch:
+        lat = (b, *src.shape[1:3], src.shape[3] // 2)
+    else:
+        f = 2 ** (len(pipe.cfg.vae.ch_mult) - 1)
+        lat = (b, src.shape[1] // f, src.shape[2] // f, pipe.cfg.vae.embed_dim)
+    out = {"z_eps": torch.randn(lat, generator=generator, device=dev)}
+    if pipe.cfg.control.hint_mode == "latent":
+        out["hint_eps"] = torch.randn(lat, generator=generator, device=dev)
+    out["t"] = torch.randint(0, pipe.schedule.num_timesteps, (b,), generator=generator,
+                             device=dev)
+    out["noise"] = torch.randn(lat, generator=generator, device=dev)
+    return out
+
+
+def make_train_step(pipe: CtrLoraPipeline, optimizer, cfg: TrainConfig,
+                    mesh=None) -> Callable:
     """Returns step(state, batch, generator, draws=None) -> (state, metrics):
     gradients of the batch loss (micro-batch gradients averaged under
     grad_accum, micro-batch i drawing from `generator` after micro-batch
     i - 1), their global norm, one AdamW step, then the EMA update of
     ``state.ema`` when ``cfg.use_ema``. `draws` (see ``loss_for_batch``)
     replace the generator's draws: one dict, or under grad_accum a
-    sequence of one dict per micro-batch."""
-    if cfg.shard_opt_state:
-        raise NotImplementedError("shard_opt_state shards the AdamW moments over several "
-                                  "devices: not ported (ROADMAP queue 1 item 12)")
+    sequence of one dict per micro-batch.
+
+    Over a `mesh` (``parallel.mesh``) `batch` holds this rank's rows (of
+    each micro-batch), and `draws` are the global batch's (each rank
+    takes its rows; from `generator`, each rank draws the global batch's,
+    :func:`global_draws`). After the last micro-batch, and not before
+    (DDP's no_sync), the split sites' gradients are summed over the model
+    group (``parallel.tp``), then every trainable gradient is averaged
+    over the data group in one bucketed all-reduce (a sum divided by dp),
+    and the loss metrics with them; ``grad_norm`` is taken after that."""
+    from ctrlora_tpu_torch.parallel import mesh as pmesh
+    from ctrlora_tpu_torch.parallel import tp
+
+    distributed = mesh is not None and mesh.distributed
 
     def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
              draws: Optional[Mapping[str, torch.Tensor]] = None):
@@ -108,12 +141,28 @@ def make_train_step(pipe: CtrLoraPipeline, optimizer: torch.optim.Optimizer,
             draws = [draws] * len(micro)
         elif len(draws) != len(micro):
             raise ValueError(f"{len(draws)} draws for {len(micro)} micro-batches")
+        if distributed and generator is None and any(d is None for d in draws):
+            raise ValueError("a step over a mesh needs a generator or draws: every rank "
+                             "draws the global batch's")
         sums: Dict[str, torch.Tensor] = {}
         for mb, mb_draws in zip(micro, draws):
+            if distributed:
+                mb_draws = pmesh.shard_batch(mesh, dict(
+                    mb_draws if mb_draws is not None else
+                    global_draws(pipe, mb, generator, mesh.dp)))
             loss, metrics = loss_for_batch(pipe, mb, generator, mb_draws)
             (loss / len(micro)).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v / len(micro)
+        if distributed:
+            params = optimizer.param_groups[0]["params"]
+            tp.reduce_split_grads(params)
+            pmesh.all_reduce_tensors_([p.grad for p in params if p.grad is not None],
+                                      mesh.data_group, divide=mesh.dp)
+            names = list(sums)
+            means = torch.stack([sums[k].float() for k in names])
+            pmesh.all_reduce_tensors_([means], mesh.data_group, divide=mesh.dp)
+            sums = dict(zip(names, means.unbind()))
         sums["grad_norm"] = trainable_grad_norm(optimizer)
         optimizer.step()
         if cfg.use_ema:

@@ -91,16 +91,25 @@ def count_trainable(pipe: CtrLoraPipeline, mask: Mask) -> int:
     return sum(p.numel() for p in trainable_parameters(pipe, mask).values())
 
 
-def make_optimizer(pipe: CtrLoraPipeline, cfg: TrainConfig, mask: Mask) -> torch.optim.AdamW:
+def make_optimizer(pipe: CtrLoraPipeline, cfg: TrainConfig, mask: Mask, mesh=None):
     """Freeze everything outside the mask (``requires_grad_(False)``) and
     return AdamW over the trainable parameters only (torch's defaults:
-    betas 0.9/0.999, eps 1e-8, weight decay 1e-2; decoupled decay)."""
+    betas 0.9/0.999, eps 1e-8, weight decay 1e-2; decoupled decay). With
+    ``cfg.shard_opt_state`` over a `mesh` in a process group, the AdamW
+    state is sharded over the data ranks (``parallel.mesh.ShardedOptimizer``);
+    without a group it stays whole (one rank keeps all of it)."""
     for branch, module in branches(pipe).items():
         for name, p in module.named_parameters():
             p.requires_grad_(mask[branch][name])
     params: List[nn.Parameter] = list(trainable_parameters(pipe, mask).values())
-    return torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2),
-                             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+    adamw = lambda ps: torch.optim.AdamW(ps, lr=cfg.learning_rate,
+                                         betas=(cfg.adam_b1, cfg.adam_b2),
+                                         eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
+    if cfg.shard_opt_state and mesh is not None and mesh.distributed:
+        from ctrlora_tpu_torch.parallel.mesh import ShardedOptimizer
+
+        return ShardedOptimizer(params, mesh, adamw)
+    return adamw(params)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,15 @@
-"""Training loop on one device: metrics logging, checkpoints, the EMA swap
-and the image log (counterpart of ``ctrlora_tpu/training/trainer.py``
-without the mesh).
+"""Training loop: the mesh, metrics logging, checkpoints, the EMA swap and
+the image log (counterpart of ``ctrlora_tpu/training/trainer.py``).
+
+In a process group (``parallel.mesh.init_distributed``) the trainer runs
+over a ``(world / tp, tp)`` mesh: the weights are broadcast from rank 0 at
+init, ``fit`` takes each rank's rows of a host-global batch (or, with
+``global_batches=False``, batches that already are this rank's rows, as the
+CLIs' loaders give them), and the step averages the gradients over the
+data ranks (``training.step``) with the attention and feed-forward sites
+split over the model ranks under ``tp > 1`` (``parallel.tp``). Only rank 0
+writes the log lines, ``metrics.jsonl``, ``trainable_params.txt``, the
+checkpoints and the image log; every rank restores.
 
 ``workdir/metrics.jsonl`` gets the JAX trainer's JSON lines: one ``init``
 line (``trainable_params_m``), a ``train`` line every ``log_every`` steps
@@ -17,6 +26,7 @@ checkpoint draws what the straight run draws.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -27,6 +37,8 @@ import numpy as np
 import torch
 
 from ctrlora_tpu_torch.configs import TrainConfig
+from ctrlora_tpu_torch.parallel import mesh as pmesh
+from ctrlora_tpu_torch.parallel import tp as tp_mod
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
 from ctrlora_tpu_torch.training.ema import EmaState, ema_init, ema_scope
@@ -44,28 +56,51 @@ def step_seed(seed: int, step: int) -> int:
 
 
 class Trainer:
-    def __init__(self, pipe: CtrLoraPipeline, cfg: TrainConfig, workdir: str):
+    def __init__(self, pipe: CtrLoraPipeline, cfg: TrainConfig, workdir: str, tp: int = 1):
         """`pipe` holds the weights to train (``fuse_lora=False`` for a LoRA
-        finetune); its parameters outside the trainable mask are frozen."""
+        finetune); its parameters outside the trainable mask are frozen.
+        `tp` > 1 splits the attention heads and GEGLU hidden over `tp` model
+        ranks (it must divide the world's ranks)."""
         self.pipe = pipe
         self.cfg = cfg
         self.workdir = workdir
-        os.makedirs(workdir, exist_ok=True)
+        self.tp = int(tp)
+        n = pmesh.world_size()
+        if self.tp < 1 or n % self.tp:
+            raise ValueError(f"--tp {self.tp} does not divide {n} devices")
+        self.mesh = pmesh.create_mesh_2d(n // self.tp, self.tp) if pmesh.in_group() else None
+        self.is_main = pmesh.process_index() == 0
+        if self.is_main:
+            os.makedirs(workdir, exist_ok=True)
         self.mask = trainable_mask(pipe, cfg)
-        optimizer = make_optimizer(pipe, cfg, self.mask)
+        optimizer = make_optimizer(pipe, cfg, self.mask, self.mesh)
         trainable = trainable_parameters(pipe, self.mask)
+        if self.mesh is not None:
+            pmesh.replicate(self.mesh, list(branches(pipe).values()))
         self.state = TrainState(0, branches(pipe), optimizer, trainable,
                                 ema_init(trainable) if cfg.use_ema else None)
-        self.step_fn = make_train_step(pipe, optimizer, cfg)
+        self.step_fn = make_train_step(pipe, optimizer, cfg, self.mesh)
         self.generator = torch.Generator(device=pipe.device)
-        self._log({"event": "init",
-                   "trainable_params_m": round(count_trainable(pipe, self.mask) / 1e6, 2),
-                   "device": str(pipe.device)})
-        with open(os.path.join(workdir, "trainable_params.txt"), "w") as f:
-            for name in trainable:
-                f.write(name + "\n")
+        init = {"event": "init",
+                "trainable_params_m": round(count_trainable(pipe, self.mask) / 1e6, 2),
+                "device": str(pipe.device)}
+        if self.mesh is not None:
+            init["mesh"] = list(self.mesh.shape)
+        self._log(init)
+        if self.is_main:
+            with open(os.path.join(workdir, "trainable_params.txt"), "w") as f:
+                for name in trainable:
+                    f.write(name + "\n")
+
+    def _tp_scope(self):
+        """The tensor-parallel context around each step (a no-op at tp 1)."""
+        if self.tp > 1:
+            return tp_mod.tensor_parallel(self.mesh)
+        return contextlib.nullcontext()
 
     def _log(self, d: dict) -> None:
+        if not self.is_main:
+            return
         d.setdefault("time", round(time.time(), 2))
         line = json.dumps(d)
         print(line, flush=True)
@@ -73,12 +108,15 @@ class Trainer:
             f.write(line + "\n")
 
     def fit(self, batches: Iterable[dict], max_steps: Optional[int] = None,
-            sample_hook: Optional[Callable[[TrainState, int, dict], object]] = None
-            ) -> TrainState:
+            sample_hook: Optional[Callable[[TrainState, int, dict], object]] = None,
+            global_batches: bool = True) -> TrainState:
         """Step through `batches` until the state reaches max_steps (a batch
         is taken only for a step that runs); ``sample_hook(state, step,
-        batch)`` runs after every ``image_log_every``-th step, on the step's
-        first micro-batch under grad_accum."""
+        batch)`` runs on rank 0 after every ``image_log_every``-th step, on
+        the step's first micro-batch under grad_accum. Over a mesh each
+        batch is host-global and the step takes this rank's rows of it (of
+        each micro-batch under grad_accum), unless `global_batches` is False:
+        then the batches are this rank's rows already."""
         cfg = self.cfg
         max_steps = max_steps or cfg.max_steps
         batches = iter(batches)
@@ -88,8 +126,12 @@ class Trainer:
             batch = next(batches, None)
             if batch is None:
                 break
+            local = batch
+            if self.mesh is not None and global_batches:
+                local = pmesh.shard_batch(self.mesh, batch, axis=1 if cfg.grad_accum > 1 else 0)
             self.generator.manual_seed(step_seed(cfg.seed + 1, self.state.step))
-            self.state, metrics = self.step_fn(self.state, batch, self.generator)
+            with self._tp_scope():
+                self.state, metrics = self.step_fn(self.state, local, self.generator)
             window.append(metrics)
             step = self.state.step
             if step % cfg.log_every == 0:
@@ -101,7 +143,7 @@ class Trainer:
                 window, t0 = [], time.perf_counter()
             if step % cfg.ckpt_every == 0:
                 self.save(step)
-            if sample_hook is not None and step % cfg.image_log_every == 0:
+            if sample_hook is not None and self.is_main and step % cfg.image_log_every == 0:
                 t_hook = time.perf_counter()
                 if cfg.grad_accum > 1:
                     batch = {k: v[0] for k, v in batch.items()}
@@ -117,13 +159,17 @@ class Trainer:
         return ema_scope(self.state.trainable, self.state.ema)
 
     def save(self, step: int) -> str:
+        """Write the checkpoint on rank 0 (every rank calls it: a sharded
+        optimizer state is gathered first); returns its path."""
         path = os.path.join(self.workdir, f"ckpt_{step:08d}.pt")
         ema = self.state.ema
-        torch.save({"step": self.state.step,
-                    "trainable": {k: p.detach() for k, p in self.state.trainable.items()},
-                    "optimizer": self.state.optimizer.state_dict(),
-                    "ema": None if ema is None else {"params": ema.params,
-                                                     "updates": ema.updates}}, path)
+        optimizer = self.state.optimizer.state_dict()
+        if self.is_main:
+            torch.save({"step": self.state.step,
+                        "trainable": {k: p.detach() for k, p in self.state.trainable.items()},
+                        "optimizer": optimizer,
+                        "ema": None if ema is None else {"params": ema.params,
+                                                         "updates": ema.updates}}, path)
         self._log({"event": "ckpt", "step": step, "path": path})
         return path
 

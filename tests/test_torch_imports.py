@@ -63,7 +63,8 @@ def test_port_modules_cover_the_slice():
                 "annotators.openpose.decode", "annotators.pidinet", "annotators.bbox",
                 "annotators.densepose", "annotators.zoe", "annotators.normalbae",
                 "annotators.oneformer", "annotators.oneformer.swin",
-                "annotators.oneformer.pixel_decoder", "annotators.oneformer.decoder"):
+                "annotators.oneformer.pixel_decoder", "annotators.oneformer.decoder",
+                "parallel", "parallel.mesh", "parallel.tp"):
         assert f"ctrlora_tpu_torch.{mod}" in names
     found = {info.name for info in
              pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}
@@ -87,6 +88,26 @@ def test_gradio_front_ends_import_no_jax():
         roots = {m.split(".")[0] for m in imported}
         assert "gradio" in roots and "ctrlora_tpu_torch" in roots
         assert not roots & {"jax", "jaxlib", "flax", "ctrlora_tpu"}, (name, roots)
+
+
+def test_parallel_modules_import_torch_distributed_not_jax():
+    """``parallel/`` (the counterpart of ctrlora_tpu/parallel/) runs over
+    torch.distributed: its imports, read from the sources, name no JAX,
+    nothing of ctrlora_tpu and no Triton."""
+    pkg = os.path.join(os.path.dirname(ctrlora_tpu_torch.__file__), "parallel")
+    names = sorted(f for f in os.listdir(pkg) if f.endswith(".py"))
+    assert names == ["__init__.py", "mesh.py", "tp.py"]
+    imported = []
+    for f in names:
+        with open(os.path.join(pkg, f)) as fh:
+            tree = ast.parse(fh.read(), f)
+        imported += [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+                     for a in node.names]
+        imported += [node.module or "" for node in ast.walk(tree)
+                     if isinstance(node, ast.ImportFrom)]
+    roots = {m.split(".")[0] for m in imported}
+    assert not roots & {"jax", "jaxlib", "flax", "ctrlora_tpu", "triton"}, roots
+    assert "torch.distributed" in imported
 
 
 def test_no_jax_in_port_or_chip_smoke():

@@ -5,7 +5,8 @@ cpu), and the image-log hook against the JAX package's:
   --use_ema: its metrics.jsonl lines, checkpoints and image-log PNG; 2
   steps, --resume, 2 more steps give the bits of the 4 straight steps
   (trainable weights, EMA shadow, AdamW moments); --cache_latents trains
-  from the moments; --tp 2 and --shard_opt_state raise; the default device
+  from the moments; at one process --tp 2 raises and --shard_opt_state
+  trains as replicated; the default device
   is the card, with no fallback to the CPU;
 * ``scripts.train_ctrlora_pretrain``: two tasks over a MultiGen directory;
 * ``training.trainer.image_log_rows`` (control, reconstruction, CFG-9.0
@@ -145,12 +146,23 @@ def test_finetune_cache_latents(dataset_dir, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--tp", "2"], NotImplementedError, "item 12"),
-    (["--shard_opt_state"], NotImplementedError, "item 12"),
+    (["--tp", "2"], ValueError, "--tp 2 does not divide 1 devices"),
+    (["--shard_opt_state"], None, None),
 ])
 def test_finetune_multi_device_flags_raise(dataset_dir, tmp_path, extra, error, match):
-    with pytest.raises(error, match=match):
-        finetune.main(_flags(dataset_dir, str(tmp_path / "x"), 1, *extra))
+    """At one process: --tp 2 cannot split the one device's model; with
+    --shard_opt_state one rank keeps the whole AdamW state and the run
+    trains as replicated (tests/test_torch_parallel.py holds the sharded
+    state on two ranks)."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            finetune.main(_flags(dataset_dir, str(tmp_path / "x"), 1, *extra))
+        return
+    run = finetune.main(_flags(dataset_dir, str(tmp_path / "x"), 1, *extra))
+    assert run.trainer.cfg.shard_opt_state and run.trainer.mesh is None
+    assert type(run.trainer.state.optimizer) is torch.optim.AdamW
+    train = [ln for ln in _metrics(run.workdir) if ln["event"] == "train"]
+    assert [ln["step"] for ln in train] == [1] and np.isfinite(train[0]["loss"])
 
 
 def test_finetune_argument_errors(dataset_dir, tmp_path):

@@ -8,8 +8,9 @@
 * ``scripts.train_cn.main`` for both variants over written PNG pairs with
   --bs 2 --gradacc 2 --use_ema: metrics, checkpoints, the image log, the
   frozen UNet; 2 steps, --resume, 2 more give the bits of 4 straight steps;
-  --tp 2, --shard_opt_state and a --config that names nothing raise; no
-  fallback to the CPU (--variant xs: tests/test_torch_xs.py);
+  --tp 2 at one process and a --config that names nothing raise,
+  --shard_opt_state at one process trains as replicated; no fallback to the
+  CPU (--variant xs: tests/test_torch_xs.py);
 * the image log of an image-hint model (``training.trainer.image_log_rows``:
   the pixel hint goes to the sampler as it is; Lite builds no row tables)
   against the JAX hook's arrays with JAX's starting noise, rtol 2e-3 /
@@ -233,14 +234,23 @@ def test_train_cn_resume_is_bit_equal_to_straight(straight, tiny_cli, dataset_di
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--config", "no_such_config.yaml"], ValueError, "neither a preset"),
-    (["--tp", "2"], NotImplementedError, "item 12"),
-    (["--shard_opt_state"], NotImplementedError, "item 12"),
+    (["--tp", "2"], ValueError, "--tp 2 does not divide 1 devices"),
+    (["--shard_opt_state"], None, None),
     (["--gradacc", "0"], ValueError, "gradacc"),
 ])
 def test_train_cn_flags_raise(tiny_cli, dataset_dir, tmp_path, extra, error, match):
-    with pytest.raises(error, match=match):
-        train_cn.main(["--device", "cpu", "--dataroot", dataset_dir, "-n", str(tmp_path / "x"),
-                       *extra])
+    """The flags that cannot run here raise; at one process
+    --shard_opt_state keeps the whole AdamW state and trains as replicated."""
+    argv = ["--device", "cpu", "--dataroot", dataset_dir, "-n", str(tmp_path / "x"), *extra]
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_cn.main(argv)
+        return
+    run = train_cn.main([*argv, "--max_steps", "1", "--log_every", "1", "--num_workers", "2"])
+    assert run.trainer.cfg.shard_opt_state and run.trainer.mesh is None
+    assert type(run.trainer.state.optimizer) is torch.optim.AdamW
+    train = [ln for ln in _metrics(run.workdir) if ln["event"] == "train"]
+    assert [ln["step"] for ln in train] == [1] and np.isfinite(train[0]["loss"])
 
 
 def test_train_cn_arguments(dataset_dir, tmp_path):
