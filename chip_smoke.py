@@ -44,7 +44,17 @@ the script exits non-zero:
    with the kernels against the same evaluation with the plain versions;
    then one fp32 copy of the VAE decodes a 64x64 latent through the plain
    attention (the dispatch rules admit bf16 only) within relative L2 5e-2
-   of the bf16 VAE's decode, which launches the kernel;
+   of the bf16 VAE's decode, which launches the kernel. After the timed
+   batch (whose sampler makes the cross-attention k|v once, before its
+   loop), the same batch on the same x_T with those products in the loop:
+   the two bit-equal, image and final latent (the hoisted k|v is the
+   in-loop product), with max |difference| and s/batch, hand-kernel
+   launches and cuBLAS product calls a DDIM step both ways (the product
+   calls of a 2-step run less a 1-step run's); the workload's FLOPs per
+   image (utils.flops on a
+   meta copy of the pipeline: CLIP pair, VAE encode, 50 CFG steps from the
+   1- and 2-step counts, decode; every kernel counted as its plain
+   version) and their share of the bf16 dense peak at the timed s/batch;
 9. (run right after phase 4, on its pipeline) the sampler family at SD1.5
    width: batch 4, 512^2, CFG 7.5, 20 steps (the API's default), each run
    timed (prep, sampler, decode) with its model evaluations, kernel
@@ -75,7 +85,10 @@ the script exits non-zero:
    4: 2 warm-up and 5 timed AdamW steps, the launch counts of the timed
    steps, frozen weights bit-identical, trainable ones changed; then one
    step's loss and trainable gradients with the kernels against the plain
-   versions, with the same t, noise and posterior draws;
+   versions, with the same t, noise and posterior draws; the FLOPs of one
+   step's forward and backward (utils.flops on a meta copy: AdamW's
+   elementwise update is not counted) and their share of the bf16 peak at
+   the timed s/step;
 7. one tiny training step (fp32) on the GPU against the CPU;
 8. the two-LoRA API path at SD1.5 width: seeded random weights written as
    reference-format .ckpt files (SD1.5 and Base ControlNet in fp16, two
@@ -310,6 +323,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ctrlora_tpu_torch import api as api_mod
 from ctrlora_tpu_torch.annotators import bbox as bbox_mod
@@ -340,7 +354,7 @@ from ctrlora_tpu_torch.models.clip import CLIPTextModel
 from ctrlora_tpu_torch.models.layers import GroupNorm32, LayerNorm32, to_channels_last
 from ctrlora_tpu_torch.models.unet import UNet, decoder_plan, encoder_plan
 from ctrlora_tpu_torch.models.vae import AutoencoderKL
-from ctrlora_tpu_torch.ops import _build
+from ctrlora_tpu_torch.ops import _build, wrappers
 from ctrlora_tpu_torch.ops import flash_attention as fa_ops
 from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import group_norm as gn_ops
@@ -375,6 +389,7 @@ from ctrlora_tpu_torch.training.trainer import Trainer
 from ctrlora_tpu_torch.utils import ckpt_torch
 from ctrlora_tpu_torch.utils.image import HWC3, png_writer, write_png
 from ctrlora_tpu_torch.utils.loading import check_key, load_ctrlora
+from ctrlora_tpu_torch.utils.flops import fn_flops, linear_in_steps
 from ctrlora_tpu_torch.utils.precision import fp32_exact
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -434,17 +449,6 @@ KERNELS = {  # wrapper -> (route, source, TPU kernel it replaces)
     "unpack_rows": ("cuda", "ctrlora_tpu_torch/csrc/unpack_rows.cu",
                     "ctrlora_tpu/ops/unpack_rows.py:32 _unpack_kernel"),
 }
-
-
-def wrappers():
-    return {"group_norm": gn_ops.group_norm, "group_norm_onepass": gn_ops.group_norm_onepass,
-            "flash_attention_qkv": fa_ops.flash_attention_qkv,
-            "flash_attention": fa_ops.flash_attention,
-            "flash_attention_bshd": fa_ops.flash_attention_bshd,
-            "flash_attention_hpack2": fa_ops.flash_attention_hpack2,
-            "flash_attention_bwd_dq": fa_ops.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa_ops.flash_attention_bwd_dkv,
-            "geglu_ffn": geglu_ops.geglu_ffn, "unpack_rows": unpack_ops.unpack_rows}
 
 
 # kernel A's rows in phase 3: (shape, dtype, eps, SiLU, add_row): the
@@ -1021,8 +1025,9 @@ def build_pipeline(cfg, dev, gen) -> CtrLoraPipeline:
 
 
 def sample(pipe, ids, uncond, hint, x_T, steps):
-    """The serving path: CLIP pair, VAE encode, DDIM with CFG, VAE decode.
-    Returns (image, per-phase seconds)."""
+    """The serving path: CLIP pair, VAE encode, DDIM with CFG (the
+    cross-attention k|v made before the loop), VAE decode. Returns (image,
+    per-phase seconds, final latent)."""
     t = [time.perf_counter()]
     ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
     hz = pipe.encode_first_stage(hint)
@@ -1035,7 +1040,7 @@ def sample(pipe, ids, uncond, hint, x_T, steps):
     img = pipe.decode_first_stage(z)
     torch.cuda.synchronize()
     t.append(time.perf_counter())
-    return img, {"prep_s": t[1] - t[0], "ddim_s": t[2] - t[1], "decode_s": t[3] - t[2]}
+    return img, {"prep_s": t[1] - t[0], "ddim_s": t[2] - t[1], "decode_s": t[3] - t[2]}, z
 
 
 def profile_window(path, run, steps):
@@ -1067,15 +1072,115 @@ def profile_window(path, run, steps):
               "ms_per_step": dev_us(e) / 1e3 / steps} for e in top])
 
 
+@contextlib.contextmanager
+def kv_in_loop(pipe):
+    """The samplers' cross-attention k|v products back inside the step loop
+    (the pipeline offers no hoisted tables), to hold the main path against."""
+    pipe.xattn_kv_tables = lambda context, conds=(): None
+    try:
+        yield
+    finally:
+        del pipe.xattn_kv_tables
+
+
+def kv_mode(pipe, hoist):
+    """The sampler as it runs (`hoist`) or with the k|v products in the loop."""
+    return contextlib.nullcontext() if hoist else kv_in_loop(pipe)
+
+
 def profile_ddim(pipe, ids, uncond, hint, x_T, steps):
-    """`steps` DDIM steps of the sampling slice under the profiler."""
+    """`steps` DDIM steps of the sampling slice under the profiler, with the
+    cross-attention k|v hoisted as the sampler makes it (path 'ddim': its
+    window holds the tables' products, made once) and in the loop
+    ('ddim_kv_in_loop')."""
     ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
     hz = pipe.encode_first_stage(hint)
-    run = lambda: ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape,
-                              DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
-    run()
-    torch.cuda.synchronize()
-    profile_window("ddim", run, steps)
+    cfg = DDIMConfig(steps=steps, guidance_scale=7.5)
+    run = lambda: ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape, cfg, x_T=x_T)
+    for path, hoist in (("ddim", True), ("ddim_kv_in_loop", False)):
+        with kv_mode(pipe, hoist):
+            run()
+            torch.cuda.synchronize()
+            profile_window(path, run, steps)
+
+
+class ProductCalls(TorchDispatchMode):
+    """Counts the aten matmul calls made inside it (mm, addmm, bmm, baddbmm:
+    on CUDA tensors each is one cuBLAS launch)."""
+
+    OPS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+           torch.ops.aten.baddbmm)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func.overloadpacket in self.OPS
+        return func(*args, **(kwargs or {}))
+
+
+def products_per_step(pipe, ids, uncond, hint, x_T, hoist):
+    """cuBLAS product calls of one DDIM step of the sampling slice: a
+    2-step run's less a 1-step run's, so the calls made once (the tables)
+    drop out."""
+    ctx, unc = pipe.encode_text_cond_uncond(ids, uncond)
+    hz = pipe.encode_first_stage(hint)
+
+    def calls(steps):
+        with kv_mode(pipe, hoist), ProductCalls() as counter:
+            ddim_sample(pipe, ctx, unc, [Conditioning(hz)], x_T.shape,
+                        DDIMConfig(steps=steps, guidance_scale=7.5), x_T=x_T)
+        return counter.n
+
+    return calls(2) - calls(1)
+
+
+def sampling_flops(cfg, ids, uncond, hint, x_T) -> float:
+    """FLOPs of the sampling slice's workload (CLIP pair, VAE encode of the
+    hint, STEPS CFG DDIM steps, decode) by ``utils.flops`` on a meta copy of
+    the pipeline: every kernel wrapper takes its plain version there, so
+    the kernels' work is their plain versions' products (the GEGLU
+    feed-forward's among them). The 50 steps come from the 1- and 2-step
+    counts (``linear_in_steps``)."""
+    meta = CtrLoraPipeline(cfg, "meta")
+    meta.cast_for_inference()
+    args = [t.to("meta") for t in (ids, uncond, hint, x_T)]
+    return linear_in_steps(lambda steps: fn_flops(sample, meta, *args, steps), STEPS)
+
+
+def in_loop_batch(pipe, cfg, inputs, timed):
+    """The timed batch again with the cross-attention k|v products in the
+    loop, held bit for bit to it; launches and product calls a step both
+    ways; the workload's FLOPs and their share of the bf16 peak."""
+    img, z, launches, total = timed
+    with kv_in_loop(pipe), counted("sampling, k|v in the loop", SAMPLING_KERNELS) as lp:
+        t0 = time.perf_counter()
+        img_lp, phases_lp, z_lp = sample(pipe, *inputs, steps=STEPS)
+        total_lp = time.perf_counter() - t0
+    diff = {"image_max_abs": (img_lp - img).abs().max().item(),
+            "latent_max_abs": (z_lp - z).abs().max().item()}
+    bit_equal = torch.equal(img_lp, img) and torch.equal(z_lp, z)
+    per_step = lambda counts: {k: v / STEPS for k, v in counts.items() if v}
+    log("slice_kv_hoist", steps=STEPS, s_per_batch=total, s_per_batch_in_loop=total_lp,
+        **{f"{k}_in_loop": v for k, v in phases_lp.items()}, bit_equal=bit_equal, **diff,
+        launches_in_loop=lp, hand_launches_per_step=per_step(launches),
+        hand_launches_per_step_in_loop=per_step(lp),
+        cublas_products_per_step=products_per_step(pipe, *inputs, hoist=True),
+        cublas_products_per_step_in_loop=products_per_step(pipe, *inputs, hoist=False))
+    if not bit_equal:
+        raise AssertionError(f"the hoisted k|v batch is not the in-loop batch bit for bit: "
+                             f"{diff}")
+    t0 = time.perf_counter()
+    flops = sampling_flops(cfg, *inputs)
+    count_s = time.perf_counter() - t0
+    log("slice_flops", flops_per_batch=flops, tflop_per_image=flops / BATCH / 1e12,
+        bf16_peak_tflop_per_s=PEAK_FLOPS / 1e12, s_per_batch=total,
+        share_of_bf16_peak=flops / total / PEAK_FLOPS, count_s=count_s,
+        counted="CLIP pair, VAE encode, 50 CFG DDIM steps (hoisted k|v), decode; "
+                "kernels as their plain versions")
+    if not flops > 0:
+        raise AssertionError(f"FLOP count {flops}")
 
 
 def fp32_vae_decode(pipe, cfg, z):
@@ -1124,7 +1229,7 @@ def slice_run(dev, cfg, profile_steps=0):
     torch.cuda.reset_peak_memory_stats(dev)
     with counted("sampling", SAMPLING_KERNELS) as launches:
         t0 = time.perf_counter()
-        img, phases = sample(pipe, ids, uncond, hint, x_T, steps=STEPS)
+        img, phases, z = sample(pipe, ids, uncond, hint, x_T, steps=STEPS)
         total = time.perf_counter() - t0
     log("slice", steps=STEPS, batch=BATCH, size=SIZE, s_per_batch=total,
         s_per_step=phases["ddim_s"] / STEPS, **phases, launches=launches,
@@ -1132,6 +1237,7 @@ def slice_run(dev, cfg, profile_steps=0):
     if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
         raise AssertionError(f"bad image: shape {tuple(img.shape)}")
     log("slice", image_mean=img.mean().item(), image_std=img.std().item())
+    in_loop_batch(pipe, cfg, (ids, uncond, hint, x_T), (img, z, launches, total))
     if profile_steps:
         profile_ddim(pipe, ids, uncond, hint, x_T, profile_steps)
 
@@ -1502,6 +1608,18 @@ def step_grads(pipe, params, batch, draws):
                                    .float().flatten() for p in params])
 
 
+def training_flops(cfg, batch, draws) -> float:
+    """FLOPs of one finetune step's loss and backward (``utils.flops`` on a
+    meta copy of the pipeline with the trainer's trainable set: the
+    kernels counted as their plain versions)."""
+    meta = CtrLoraPipeline(cfg, "meta", fuse_lora=False)
+    tcfg = configs.TrainConfig(trainable="lora")
+    train_state.make_optimizer(meta, tcfg, train_state.trainable_mask(meta, tcfg))
+    to_meta = lambda d: {k: v.to("meta") for k, v in d.items()}
+    return fn_flops(lambda: loss_for_batch(meta, to_meta(batch), draws=to_meta(draws))[0]
+                    .backward())
+
+
 def train_slice(dev, profile=False):
     cfg = configs.ctrlora_finetune_config(lora_rank=128)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1573,6 +1691,15 @@ def train_slice(dev, profile=False):
             and torch.isfinite(grad_k).all()):
         raise AssertionError(f"training step departs from the plain path: loss {loss_rel}, "
                              f"grad {grad_rel}")
+    t0 = time.perf_counter()
+    flops = training_flops(cfg, batch, draws)
+    log("train_flops", flops_per_step=flops, tflop_per_step=flops / 1e12, s_per_step=s_step,
+        bf16_peak_tflop_per_s=PEAK_FLOPS / 1e12, share_of_bf16_peak=flops / s_step / PEAK_FLOPS,
+        count_s=time.perf_counter() - t0,
+        counted="VAE encodes, CLIP, UNet + LoRA ControlNet forward with rematerialised "
+                "blocks and backward; kernels as their plain versions; AdamW not counted")
+    if not flops > 0:
+        raise AssertionError(f"FLOP count {flops}")
     # phase 16 (a): the same step through the process group at world size 1
     nccl_launches = nccl_world_one(dev, pipe, batch, draws, (loss_k, grad_k))
     return launches, s_step, nccl_launches
@@ -3226,16 +3353,6 @@ def eval_score(dev, root, out, files):
     return scores
 
 
-def flops_of(fn) -> float:
-    """The fp32 multiply-adds (x2) of fn's matmuls and convolutions, by
-    torch.utils.flop_counter."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn()
-    return float(counter.get_total_flops())
-
-
 def eval_throughput(dev, lp, inc, scorer, t5):
     """(c) Each metric back to back at the CLIs' default batch, on seeded
     inputs: ms, images/s, fp32 FLOPs and the share of the fp32 peak. Returns
@@ -3264,7 +3381,7 @@ def eval_throughput(dev, lp, inc, scorer, t5):
     }
     out = {}
     for name, (fn, n, iters) in runs.items():
-        flops = flops_of(fn)
+        flops = fn_flops(fn)
         ms = time_ms(fn, iters=iters)
         out[name] = {"ms": ms, "images_per_s": n / ms * 1e3, "batch": n, "gflop": flops / 1e9,
                      "tflop_per_s": flops / ms / 1e9,
@@ -4106,7 +4223,7 @@ def median_ms(fn, dev, reps: int = 3) -> tuple:
 def gflop_row(fn, ms) -> dict:
     """fn()'s fp32 GFLOP (its networks' convolutions and matmuls) and
     their share of the fp32 peak at `ms` a call."""
-    gflop = flops_of(fn) / 1e9
+    gflop = fn_flops(fn) / 1e9
     return {"gflop": gflop, "pct_fp32_peak": 100 * gflop * 1e9 / FP32_PEAK_FLOPS / (ms / 1e3)}
 
 

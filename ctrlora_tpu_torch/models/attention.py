@@ -5,7 +5,10 @@ Without LoRA, self-attention is ONE projection dot with the concatenated
 [to_q | to_k | to_v] weight, whose [B, S, 3*H*D] output the flash kernel
 reads directly (kernel B, fused-qkv entry). The concatenation is made once
 by ``fuse_projections`` (called from ``lora_fuse.cast_params_for_inference``);
-until then it is made per call. The feed-forward hands its ``proj``/``out``
+until then, and again after a ``load_state_dict`` into the site (which
+drops the derived weights), it is made per call. The cache is for
+inference: the trainers never make it, so their gradients reach the
+projections' own weights. The feed-forward hands its ``proj``/``out``
 weights to the fused GEGLU kernel (kernel C).
 
 With LoRA (the unfused control tree of training), q, k and v are separate
@@ -14,6 +17,14 @@ kernel's BSHD entry; the feed-forward is LoRA ``Dense`` -> split -> exact
 GELU gate -> LoRA ``Dense`` with no kernel, as in JAX. With switchable banks
 the transformer's norms are [n, C] banks selected by ``lora_idx``.
 
+Without LoRA a cross-attention's k and v are likewise ONE product of the
+text context with the concatenated [to_k | to_v] weight (``project_kv``;
+``fuse_projections`` caches the weight), split into k and v. The samplers
+hoist that product out of their step loops: ``CtrLoraPipeline.xattn_kv_tables``
+makes it once per site and the site takes it as ``kv`` (JAX's ``kv``
+argument), the same product of the same operands, so the output is the
+same. ``kv`` raises on a self-attention, a LoRA or an image-prompt site.
+
 Two ``CTRLORA_KERNELS`` tokens change the self-attention path without LoRA,
 as in the JAX ``CrossAttention``: ``qkvpack=0`` splits the fused projection
 into strided [B, S, H, D] views for the BSHD dispatcher (which takes kernel
@@ -21,10 +32,12 @@ B6 under ``hpack=2``), and ``fuse_qkv=0`` issues three projections.
 
 Under ``parallel.tp.tensor_parallel`` (read at call time) a site whose
 heads divide tp computes only this model rank's heads (separate local q, k,
-v products, no fused q|k|v entry) and its slice of ``to_out``, with one
-all-reduce; a feed-forward computes its slice of the hidden (no kernel C)
-the same way. A site whose heads do not divide runs whole through the
-plain attention, as JAX's XLA path. Outside the context nothing changes.
+v products, no fused q|k|v entry; a cross-attention without LoRA takes its
+local k|v rows in one product, or as ``kv``, a table made under the same
+context) and its slice of ``to_out``, with one all-reduce; a feed-forward
+computes its slice of the hidden (no kernel C) the same way. A site whose
+heads do not divide runs whole through the plain attention, as JAX's XLA
+path. Outside the context nothing changes.
 
 With ``ip_tokens`` (the IP-Adapter, reference attention_ip.py:196-289) a
 cross-attention's context is [text | image]: the last ``ip_tokens`` rows go
@@ -36,7 +49,7 @@ dtype, as JAX's) times that output.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,7 +86,9 @@ class CrossAttention(nn.Module):
         self.to_k = Dense(cdim, inner, bias=False, lora=lora)
         self.to_v = Dense(cdim, inner, bias=False, lora=lora)
         self.to_out = Dense(inner, query_dim, lora=lora)
-        self.wqkv: Optional[torch.Tensor] = None  # not a parameter: derived
+        self.wqkv: Optional[torch.Tensor] = None  # not parameters: derived
+        self.wkv: Optional[torch.Tensor] = None
+        self.register_load_state_dict_pre_hook(CrossAttention._drop_fused)
         self.ip_tokens = 0 if self.is_self else ip_tokens
         if self.ip_tokens:
             self.to_k_ip = Dense(cdim, inner, bias=False)
@@ -84,14 +99,56 @@ class CrossAttention(nn.Module):
             self.ip_scale = nn.Parameter(torch.ones(()))
 
     def fuse_projections(self) -> None:
-        """Concatenate the self-attention q|k|v weights once (after the
-        weights are final)."""
-        if self.is_self and not self.lora:
+        """Concatenate the self-attention q|k|v weights, or the
+        cross-attention k|v weights, once (after the weights are final)."""
+        if self.lora:
+            return
+        if self.is_self:
             self.wqkv = torch.cat([self.to_q.weight, self.to_k.weight, self.to_v.weight])
+        else:
+            self.wkv = torch.cat([self.to_k.weight, self.to_v.weight])
 
-    def forward(self, x, context=None, lora_idx: LoraIdx = None):
+    @staticmethod
+    def _drop_fused(module, *_) -> None:
+        """Before a state dict loads into the site: the concatenated
+        weights would go stale, so they go (``fuse_projections`` makes them
+        again)."""
+        module.wqkv = module.wkv = None
+
+    def kv_cols(self) -> Optional[Tuple[int, int]]:
+        """The [lo, hi) of the inner dim that this site's k and v hold under
+        tensor parallelism (this rank's heads), None where they are whole."""
+        heads = tp.local_range(self.heads)
+        return None if heads is None else (heads[0] * self.dim_head, heads[1] * self.dim_head)
+
+    def project_kv(self, context: torch.Tensor, cols: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+        """The cross-attention's k|v [B, Sk, 2*inner] (inner: the columns
+        `cols` of each where given) of the text context, in ONE product with
+        the concatenated weight, in the context's dtype (JAX's
+        ``ctx @ [wk|wv]``). LoRA sites have no such product."""
+        if self.is_self or self.lora:
+            raise ValueError("project_kv: only a cross-attention without LoRA has a fused "
+                             "k|v product")
+        w = self.wkv
+        if w is None:
+            w = torch.cat([self.to_k.weight, self.to_v.weight])
+        if cols is not None:
+            inner, (lo, hi) = self.heads * self.dim_head, cols
+            w = torch.cat([w[lo:hi], w[inner + lo:inner + hi]])
+        return F.linear(context, w.to(context.dtype))
+
+    def forward(self, x, context=None, lora_idx: LoraIdx = None,
+                kv: Optional[torch.Tensor] = None):
+        """`kv`: this site's hoisted k|v, ``project_kv`` of this `context`
+        made before the sampler's loop (under tensor parallelism, of this
+        rank's columns, as ``kv_cols`` gives them)."""
         b, s, _ = x.shape
         h, d = self.heads, self.dim_head
+        if kv is not None and (self.is_self or context is None or self.lora
+                               or self.ip_tokens):
+            raise ValueError("a hoisted kv applies only to a plain cross-attention: no "
+                             "self-attention, LoRA or image-prompt tokens")
         ip_ctx = None
         if self.ip_tokens:  # context = [text tokens | image-prompt tokens]
             n = context.shape[1] - self.ip_tokens
@@ -101,7 +158,7 @@ class CrossAttention(nn.Module):
         use_flash = self.use_flash and tp.active() is None
         heads = tp.local_range(h)
         if heads is not None:
-            return self._forward_split(x, context, ip_ctx, lora_idx, *heads)
+            return self._forward_split(x, context, ip_ctx, lora_idx, *heads, kv=kv)
         if self.lora:
             ctx = x if context is None else context
             heads4 = lambda t: t.unflatten(-1, (h, d))  # [B, S, H, D] view
@@ -127,24 +184,30 @@ class CrossAttention(nn.Module):
         else:
             heads4 = lambda t: t.reshape(b, t.shape[1], h, d).transpose(1, 2)
             q = self.to_q(x)
-            out = fa_ops.dot_product_attention(heads4(q), heads4(self.to_k(context)),
-                                               heads4(self.to_v(context)),
+            k, v = (self.project_kv(context) if kv is None else kv).chunk(2, dim=-1)
+            out = fa_ops.dot_product_attention(heads4(q), heads4(k), heads4(v),
                                                use_flash=use_flash)
             out = self._add_ip(out.transpose(1, 2).reshape(b, s, h * d), q, ip_ctx)
         return self.to_out(out)
 
-    def _forward_split(self, x, context, ip_ctx, lora_idx, h0: int, h1: int):
+    def _forward_split(self, x, context, ip_ctx, lora_idx, h0: int, h1: int, kv=None):
         """The site on this model rank's heads [h0, h1) (``parallel.tp``):
-        local q, k, v rows (no fused q|k|v product), attention on the local
-        heads through the BSHD dispatch, a partial ``to_out`` over the local
-        columns, one all-reduce over the model group, then the bias."""
+        local q, k, v rows (no fused q|k|v product; a cross-attention
+        without LoRA takes its local k|v in one product, or as `kv`),
+        attention on the local heads through the BSHD dispatch, a partial
+        ``to_out`` over the local columns, one all-reduce over the model
+        group, then the bias."""
         d = self.dim_head
         lo, hi = h0 * d, h1 * d
         x = tp.copy_to_model(x)
         ctx = x if context is None else tp.copy_to_model(context)
         (q,) = tp.split_dense(self.to_q, x, [(lo, hi)], lora_idx)
-        (k,) = tp.split_dense(self.to_k, ctx, [(lo, hi)], lora_idx)
-        (v,) = tp.split_dense(self.to_v, ctx, [(lo, hi)], lora_idx)
+        if context is not None and not self.lora:
+            tp.mark_split(self.to_k.weight, self.to_v.weight)
+            k, v = (self.project_kv(ctx, (lo, hi)) if kv is None else kv).chunk(2, dim=-1)
+        else:
+            (k,) = tp.split_dense(self.to_k, ctx, [(lo, hi)], lora_idx)
+            (v,) = tp.split_dense(self.to_v, ctx, [(lo, hi)], lora_idx)
         heads4 = lambda t: t.unflatten(-1, (h1 - h0, d))
         out = fa_ops.dot_product_attention_bshd(heads4(q), heads4(k), heads4(v),
                                                 use_flash=self.use_flash)
@@ -219,9 +282,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim, n_banks=banks)
         self.ff = FeedForward(dim, lora=lora)
 
-    def forward(self, x, context, lora_idx: LoraIdx = None):
+    def forward(self, x, context, lora_idx: LoraIdx = None, kv: Optional[torch.Tensor] = None):
+        """`kv`: the cross-attention's hoisted k|v (``CrossAttention.forward``)."""
         x = x + self.attn1(self.norm1(x, lora_idx), lora_idx=lora_idx)
-        x = x + self.attn2(self.norm2(x, lora_idx), context, lora_idx)
+        x = x + self.attn2(self.norm2(x, lora_idx), context, lora_idx, kv=kv)
         return x + self.ff(self.norm3(x, lora_idx), lora_idx)
 
 
@@ -243,13 +307,16 @@ class SpatialTransformer(nn.Module):
                 ip_tokens=ip_tokens))
         self.proj_out = zero_(Conv(inner, channels, kernel_size=1))
 
-    def forward(self, x, context, lora_idx: LoraIdx = None):
+    def forward(self, x, context, lora_idx: LoraIdx = None, kv_rows=None):
+        """`kv_rows`: one hoisted cross-attention k|v per block (depth), as
+        ``CtrLoraPipeline.xattn_kv_tables`` gives them, or None."""
         b, c, hh, ww = x.shape
         x_in = x
         x = self.proj_in(self.norm(x, bank_idx=lora_idx)).contiguous(memory_format=CL)
         inner = x.shape[1]
         x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, context, lora_idx)
+            x = getattr(self, f"block_{i}")(x, context, lora_idx,
+                                            None if kv_rows is None else kv_rows[i])
         x = x.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

@@ -157,13 +157,16 @@ class UNet(nn.Module):
 
     def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
                 emb_rows: Optional[dict] = None, only_mid_control: bool = False,
-                control_mode: str = "decoder"):
+                control_mode: str = "decoder", kv_rows: Optional[dict] = None):
         """x [B, H, W, C] noisy latent -> [B, H, W, C] fp32 model output.
-        emb_rows: {res_block_name: [1, C]} precomputed emb_proj rows."""
+        emb_rows: {res_block_name: [1, C]} precomputed emb_proj rows.
+        kv_rows: {attn_site_name: per-depth k|v} hoisted cross-attention
+        projections of this `context` (``CtrLoraPipeline.xattn_kv_tables``)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         emb = self.time_embed(timesteps, dt) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
+        kvr = lambda name: None if kv_rows is None else kv_rows.get(name)
         context = context.to(dt)
         steps = encoder_plan(cfg)[0]
         n_enc = len(steps)
@@ -176,14 +179,15 @@ class UNet(nn.Module):
             if step.kind == "res":
                 h = _block(cfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"))
                 if step.attn:
-                    h = _block(cfg, getattr(self, f"in_{i}_attn"), h, context)
+                    h = _block(cfg, getattr(self, f"in_{i}_attn"), h, context, None,
+                               kvr(f"in_{i}_attn"))
             elif step.kind == "down":
                 h = getattr(self, f"in_{i}_down")(h)
             if enc_side:
                 h = h + _nchw(control[i], dt)
             hs.append(h)
         h = _block(cfg, self.mid_res0, h, emb, row("mid_res0"))
-        h = _block(cfg, self.mid_attn, h, context)
+        h = _block(cfg, self.mid_attn, h, context, None, kvr("mid_attn"))
         h = _block(cfg, self.mid_res1, h, emb, row("mid_res1"))
         if control is not None:
             h = h + _nchw(control[n_enc], dt)
@@ -194,7 +198,8 @@ class UNet(nn.Module):
             h = torch.cat([h, skip], dim=1)
             h = _block(cfg, getattr(self, f"out_{i}_res"), h, emb, row(f"out_{i}_res"))
             if step.attn:
-                h = _block(cfg, getattr(self, f"out_{i}_attn"), h, context)
+                h = _block(cfg, getattr(self, f"out_{i}_attn"), h, context, None,
+                           kvr(f"out_{i}_attn"))
             if step.upsample:
                 h = getattr(self, f"out_{i}_up")(h)
         h = self.conv_out(self.norm_out(h))
@@ -253,15 +258,17 @@ class ControlNet(nn.Module):
         self.zero_mid = ZeroConv(ch, banks)
 
     def forward(self, x, timesteps, context, emb_rows: Optional[dict] = None,
-                lora_idx: LoraIdx = None, hint: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, ...]:
+                lora_idx: LoraIdx = None, hint: Optional[torch.Tensor] = None,
+                kv_rows: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
         """x [B, h, w, 4]: the latent hint ('latent') or the noisy latent
         ('image', with the pixel hint [B, 8h, 8w, c] as `hint`) -> 13 NHWC
-        taps in the compute dtype."""
+        taps in the compute dtype. kv_rows: as the UNet's, for the fused
+        tree (a LoRA site raises on one)."""
         ucfg = self.cfg.unet
         dt = ucfg.compute_dtype
         emb = self.time_embed(timesteps, dt, lora_idx) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
+        kvr = lambda name: None if kv_rows is None else kv_rows.get(name)
         context = context.to(dt)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         h = self.in_conv(_nchw(x, dt))
@@ -275,12 +282,13 @@ class ControlNet(nn.Module):
                 h = _block(ucfg, getattr(self, f"in_{i}_res"), h, emb, row(f"in_{i}_res"),
                            lora_idx)
                 if step.attn:
-                    h = _block(ucfg, getattr(self, f"in_{i}_attn"), h, context, lora_idx)
+                    h = _block(ucfg, getattr(self, f"in_{i}_attn"), h, context, lora_idx,
+                               kvr(f"in_{i}_attn"))
             else:
                 h = getattr(self, f"in_{i}_down")(h)
             outs.append(nhwc(getattr(self, f"zero_{i}")(h, lora_idx)))
         h = _block(ucfg, self.mid_res0, h, emb, row("mid_res0"), lora_idx)
-        h = _block(ucfg, self.mid_attn, h, context, lora_idx)
+        h = _block(ucfg, self.mid_attn, h, context, lora_idx, kvr("mid_attn"))
         h = _block(ucfg, self.mid_res1, h, emb, row("mid_res1"), lora_idx)
         outs.append(nhwc(self.zero_mid(h, lora_idx)))
         return tuple(outs)

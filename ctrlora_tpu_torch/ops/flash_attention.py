@@ -49,7 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ctrlora_tpu_torch.ops import _build, kernel_flags
+from ctrlora_tpu_torch.ops import _build, kernel_flags, takes_plain
 
 LOG2E = 1.4426950408889634
 KERNEL_DTYPES = (torch.bfloat16,)  # the operand dtypes the kernels take
@@ -254,7 +254,7 @@ def flash_attention_bwd_dq(q, k, v, lse, dout, delta, scale: float,
                            dq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dQ over [B, H, S, D] views (any strides with a unit last stride);
     written into `dq` (a view of the same shape) when given."""
-    if q.device.type == "cpu":
+    if takes_plain(q):
         res = flash_attention_bwd_dq_plain(q, k, v, lse, dout, delta, scale)
         return res if dq is None else dq.copy_(res)
     if dq is None:
@@ -278,7 +278,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, dout, delta, scale: float,
                             dv: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) over [B, H, S, D] views; written into `dk`/`dv` when given."""
-    if q.device.type == "cpu":
+    if takes_plain(q):
         rk, rv = flash_attention_bwd_dkv_plain(q, k, v, lse, dout, delta, scale)
         return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
     dk = torch.empty_like(k) if dk is None else dk
@@ -409,7 +409,7 @@ def _backward_bshd(q, k, v, out, lse, dout, scale, grads) -> None:
 class _FlashBHSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
+        if takes_plain(q):
             out, lse = attention_plain(q, k, v, scale)
         else:
             out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
@@ -429,7 +429,7 @@ class _FlashBHSD(torch.autograd.Function):
 class _FlashBSHD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
+        if takes_plain(q):
             out, lse = flash_attention_bshd_plain(q, k, v, scale)
         else:
             out, lse = _forward_bshd(q, k, v, scale, "flash_attention_bshd")
@@ -453,7 +453,7 @@ class _FlashHpack2(_FlashBSHD):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.device.type == "cpu":
+        if takes_plain(q):
             out, lse = flash_attention_hpack2_plain(q, k, v, scale)
         else:
             out, lse = _forward_hpack2(q, k, v, scale)
@@ -544,7 +544,7 @@ def _forward_hpack2(q, k, v, scale):
 class _FlashQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, heads, dim_head, scale):
-        if qkv.device.type == "cpu":
+        if takes_plain(qkv):
             out, lse = flash_attention_qkv_plain(qkv, heads, dim_head, scale)
         else:
             out, lse = _forward_qkv(qkv, heads, dim_head, scale)

@@ -23,7 +23,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ctrlora_tpu_torch.ops import _build
+from ctrlora_tpu_torch.ops import _build, takes_plain
 
 # the transformer widths the kernels take: SD1.5's, and ControlNet-XS's 0.2x control stream
 KERNEL_WIDTHS = (64, 128, 256, 320, 640, 1280)
@@ -152,8 +152,8 @@ def launch_down(h, w2, b2, out, plan: GegluPlan) -> None:
 
 
 def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
-    """The kernels on CUDA tensors, the plain version on CPU tensors."""
-    if x.device.type == "cpu":
+    """The kernels on CUDA tensors, the plain version on CPU tensors (``ops.takes_plain``)."""
+    if takes_plain(x):
         return geglu_ffn_plain(x, w1, b1, w2, b2)
     args = (x, w1, b1, w2, b2)
     if (x.device.type != "cuda" or any(t.dtype != torch.bfloat16 for t in args)

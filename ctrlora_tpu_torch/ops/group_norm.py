@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from ctrlora_tpu_torch.ops import _build, kernel_flags
+from ctrlora_tpu_torch.ops import _build, kernel_flags, takes_plain
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -304,7 +304,7 @@ def group_norm_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     takes; on a CUDA tensor the kernel runs or this raises (also where
     :func:`group_norm_onepass_plan` has no staged plan). Forward only:
     :func:`group_norm` gives it its backward."""
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
     y = _launch("ctrlora_group_norm_onepass", group_norm_onepass_plan, "group_norm_onepass",
                 x, scale, bias, num_groups, eps, silu, add_row)
@@ -321,7 +321,7 @@ def _forward(x, scale, bias, num_groups, eps, silu, add_row):
     b, c = x.shape[0], x.shape[-1]
     if _onepass_ok(x.numel() // max(b * c, 1), c, x.dtype, num_groups):
         return group_norm_onepass(x, scale, bias, num_groups, eps, silu, add_row)
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return group_norm_plain(x, scale, bias, num_groups, eps, silu, add_row)
     y = _launch("ctrlora_group_norm", group_norm_plan, "group_norm", x, scale, bias,
                 num_groups, eps, silu, add_row)

@@ -21,7 +21,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from ctrlora_tpu_torch.ops import _build
+from ctrlora_tpu_torch.ops import _build, takes_plain
 
 # rows the kernel's layout struct holds (csrc/unpack_rows.cu kUnpackMaxRows;
 # the build phase of chip_smoke.py holds the two equal)
@@ -90,7 +90,7 @@ def unpack_rows(block: torch.Tensor, sizes: Sequence[int]) -> Tuple[torch.Tensor
     n, cmax = block.shape
     if n != len(sizes) or max(sizes) > cmax:
         raise ValueError(f"unpack_rows: block {tuple(block.shape)} vs sizes {sizes}")
-    if block.device.type == "cpu":
+    if takes_plain(block):
         return unpack_rows_plain(block, sizes)
     item = block.element_size()
     if (block.device.type != "cuda" or block.stride(1) != 1 or block.data_ptr() % _ALIGN

@@ -32,6 +32,7 @@ from torch import nn
 from ctrlora_tpu_torch.configs import ControlNetConfig, ModelConfig, UNetConfig
 from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel, encode_windowed
+from ctrlora_tpu_torch.models.attention import SpatialTransformer
 from ctrlora_tpu_torch.models.layers import ResBlock, to_channels_last
 from ctrlora_tpu_torch.models.lite import ControlNetLite
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
@@ -223,28 +224,73 @@ class CtrLoraPipeline:
         return {"unet": branch(self.unet, self.cfg.unet.compute_dtype),
                 "control": tuple(branch(self.control_of(c), cdt, c.lora_idx) for c in conds)}
 
+    @torch.no_grad()
+    def xattn_kv_tables(self, context: torch.Tensor,
+                        conds: Sequence[Conditioning] = ()) -> Optional[dict]:
+        """Every cross-attention site's k|v projection of the text context
+        for a sampler's loop (JAX ``xattn_kv_tables``): {'unet': {site:
+        (kv_block0, ...)}, 'control': (one dict or None per cond, ...)}.
+
+        The context is the same at every step, so the ``ctx @ [wk|wv]``
+        product of each of the 23 transformer sites at SD1.5 width (16 in
+        the UNet, 7 in the ControlNet) reruns the same work every step; this
+        makes it once per site, with the same product on the same operands
+        as the site's own (``CrossAttention.project_kv``), so a call given
+        the tables returns what it returns without them. `context` is the
+        one the model calls take (CFG-stacked where they stack it), `conds`
+        their conditions. Under ``parallel.tp.tensor_parallel`` each entry
+        holds this rank's head columns: use the tables under the same
+        context.
+
+        None for ControlNet-XS and ControlNet-Lite, and where the UNet has
+        image-prompt tokens (its context is then [text | image]), as in JAX.
+        A condition whose control module carries LoRA (the unfused runtime
+        path) gets None: its projections stay in the loop."""
+        if self.is_xs or self.control_mode == "encoder" or self.cfg.unet.ip_tokens:
+            return None
+
+        def branch(module, dtype):
+            ctx = context.to(dtype)
+            out = {}
+            for name, site in module.named_children():
+                if not isinstance(site, SpatialTransformer):
+                    continue
+                attns = [getattr(site, f"block_{i}").attn2 for i in range(site.depth)]
+                if any(a.lora for a in attns):
+                    return None
+                out[name] = tuple(a.project_kv(ctx, a.kv_cols()) for a in attns)
+            return out
+
+        cdt = self.cfg.control.unet.compute_dtype
+        return {"unet": branch(self.unet, self.cfg.unet.compute_dtype),
+                "control": tuple(branch(self.control_of(c), cdt) for c in conds)}
+
     def apply_control(self, x_noisy, t, context, conds: Sequence[Conditioning],
                       control_scales: Optional[Sequence[float]] = None,
-                      emb_rows: Optional[Sequence[dict]] = None):
+                      emb_rows: Optional[Sequence[dict]] = None,
+                      kv_rows: Optional[Sequence[Optional[dict]]] = None):
         """The control branch for each condition; each tap i scaled by
         ``control_scales[i]`` and the condition's weight (then averaged over
         H and W under ``global_average_pooling``), and the conditions
         summed, in fp32 as JAX does (a single condition at weight 1 and no
         scales keeps the compute dtype). A latent-hint ControlNet takes the
         condition's latent as its input stream; an image-hint one (and
-        ControlNet-Lite) takes x_noisy, with the pixel hint beside it."""
+        ControlNet-Lite) takes x_noisy, with the pixel hint beside it.
+        kv_rows: each condition's entry of ``xattn_kv_tables``' 'control'."""
         ccfg = self.cfg.control
         total = None
         for j, cond in enumerate(conds):
             rows = emb_rows[j] if emb_rows is not None else None
+            kvr = kv_rows[j] if kv_rows is not None else None
             control = self.control_of(cond)
             if ccfg.variant == "lite":
                 taps = control(x_noisy, t, context, hint=cond.hint)
             elif ccfg.hint_mode == "image":
                 taps = control(x_noisy, t, context, emb_rows=rows, lora_idx=cond.lora_idx,
-                               hint=cond.hint)
+                               hint=cond.hint, kv_rows=kvr)
             else:
-                taps = control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx)
+                taps = control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx,
+                               kv_rows=kvr)
             if control_scales is not None:
                 taps = [c.float() * float(s) * cond.weight for c, s in zip(taps, control_scales)]
             elif len(conds) > 1 or cond.weight != 1.0:
@@ -258,7 +304,8 @@ class CtrLoraPipeline:
                     emb_rows: Optional[Dict] = None,
                     control_scales: Optional[Sequence[float]] = None,
                     control_batch_mask: Optional[torch.Tensor] = None,
-                    ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    ip_context: Optional[torch.Tensor] = None,
+                    kv_rows: Optional[Dict] = None) -> torch.Tensor:
         """Predicted model output (eps, or v for a v-parameterized model)
         [B, h, w, 4] fp32 for noisy latents. emb_rows: one step's rows of
         ``emb_proj_tables`` (t batch-uniform); control_scales: one factor
@@ -269,7 +316,8 @@ class CtrLoraPipeline:
         (reference cldm_ctrlora_style_inference.py:163-187). A UNet with
         image tokens needs them and one without takes none: the port
         raises on either, and on a token count other than the UNet's, where
-        JAX would take the last text tokens for image tokens.
+        JAX would take the last text tokens for image tokens. kv_rows:
+        ``xattn_kv_tables`` of this exact `context` and `conds`.
 
         ControlNet-XS: one fused two-stream forward on the first
         condition's pixel hint, or the plain SD forward where there is no
@@ -278,8 +326,9 @@ class CtrLoraPipeline:
         port raises on a mask, on scales other than ones, on a weight other
         than 1 and on more than one condition."""
         if self.is_xs:
-            if ip_context is not None:
-                raise ValueError("ControlNet-XS takes no ip_context (JAX ignores it)")
+            if ip_context is not None or kv_rows is not None:
+                raise ValueError("ControlNet-XS takes no ip_context and no kv_rows (JAX "
+                                 "ignores them)")
             return self._apply_xs(x_noisy, t, context, conds, control_scales,
                                   control_batch_mask)
         n_ip = self.cfg.unet.ip_tokens
@@ -290,7 +339,8 @@ class CtrLoraPipeline:
         if conds:
             control = self.apply_control(
                 x_noisy, t, context, conds, control_scales,
-                emb_rows=emb_rows["control"] if emb_rows is not None else None)
+                emb_rows=emb_rows["control"] if emb_rows is not None else None,
+                kv_rows=kv_rows["control"] if kv_rows is not None else None)
             if control_batch_mask is not None:
                 m = control_batch_mask.reshape(-1, 1, 1, 1)
                 control = tuple(c * m.to(c.dtype) for c in control)
@@ -299,7 +349,8 @@ class CtrLoraPipeline:
         return self.unet(x_noisy, t, context, control=control,
                          emb_rows=emb_rows["unet"] if emb_rows is not None else None,
                          only_mid_control=self.cfg.diffusion.only_mid_control,
-                         control_mode=self.control_mode)
+                         control_mode=self.control_mode,
+                         kv_rows=kv_rows["unet"] if kv_rows is not None else None)
 
     def _apply_xs(self, x_noisy, t, context, conds, control_scales, control_batch_mask):
         if control_batch_mask is not None:

@@ -1,7 +1,8 @@
 """Sampler plumbing shared by the port's samplers (counterpart of
 ``ctrlora_tpu/sampling/common.py``): the classifier-free-guided model call
-on one stacked 2B batch, the hoisted time-embedding tables, and the draws
-of a sampler's noise."""
+on one stacked 2B batch (with the cross-attention k|v hoisted out of the
+loop), the hoisted time-embedding tables, and the draws of a
+sampler's noise."""
 
 from __future__ import annotations
 
@@ -45,7 +46,12 @@ class _GuidedEps:
     uncond half taking ``uncond_ip_context`` where given, else the cond
     tokens (the style app gives ``image_proj(zeros)``). ``conds`` is the
     condition list the model calls take (hints doubled under guidance),
-    which ``make_emb_row_tables`` also takes."""
+    which ``make_emb_row_tables`` also takes. The cross-attention k|v
+    products of the stacked context are made once here
+    (``kv_tables``: ``pipe.xattn_kv_tables`` of it and ``conds``, None where
+    the pipeline has none) and every call takes them: the same products
+    the sites would make each step, so no result changes (the time
+    embedding's rows are hoisted the same way)."""
 
     def __init__(self, pipe: CtrLoraPipeline, context: torch.Tensor,
                  uncond_context: Optional[torch.Tensor],
@@ -73,6 +79,7 @@ class _GuidedEps:
                     [ip_context, ip_context if uncond_ip_context is None else uncond_ip_context])
         else:
             self.context, self.conds = context, list(conds or [])
+        self.kv_tables = pipe.xattn_kv_tables(self.context, self.conds)
 
     def __call__(self, x: torch.Tensor, t: int, emb_rows: Optional[dict] = None,
                  scale: Optional[float] = None) -> torch.Tensor:
@@ -82,7 +89,8 @@ class _GuidedEps:
         x_in = torch.cat([x, x]) if self.use_cfg else x
         out = self.pipe.apply_model(x_in, tvec, self.context, self.conds, emb_rows=emb_rows,
                                     control_scales=self.control_scales,
-                                    control_batch_mask=self.cmask, ip_context=self.ip_context)
+                                    control_batch_mask=self.cmask, ip_context=self.ip_context,
+                                    kv_rows=self.kv_tables)
         if not self.use_cfg:
             return out
         s = self.guidance_scale if scale is None else scale
@@ -97,7 +105,7 @@ def make_guided_eps_fn(pipe: CtrLoraPipeline, context: torch.Tensor,
                        uncond_ip_context: Optional[torch.Tensor] = None) -> "_GuidedEps":
     """The guided model call every sampler makes (see ``_GuidedEps``)."""
     return _GuidedEps(pipe, context, uncond_context, conds, guidance_scale, control_scales,
-                     guess_mode, ip_context, uncond_ip_context)
+                      guess_mode, ip_context, uncond_ip_context)
 
 
 def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Optional[Sequence[Conditioning]],

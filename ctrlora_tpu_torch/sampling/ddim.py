@@ -1,6 +1,7 @@
 """DDIM sampler of the port (counterpart of ``ctrlora_tpu/sampling/ddim.py``):
 classifier-free guidance on one stacked 2B batch per step, the
-time-embedding projections hoisted out of the loop, eta noise and
+time-embedding projections and the cross-attention k|v products hoisted
+out of the loop, eta noise and
 temperature, guess mode, per-step guidance (``ucg_schedule``), mask
 inpainting, eps and v parameterization; and the DDIM inversion
 (``ddim_encode``), the img2img pair ``ddim_stochastic_encode`` /
@@ -32,8 +33,9 @@ f32 = np.float32
 @dataclasses.dataclass(frozen=True)
 class DDIMConfig:
     """The JAX ``DDIMConfig``'s fields that change results. The time
-    embedding is always hoisted (``hoist_time_embed``); ``scan_unroll``
-    steers only XLA."""
+    embedding and the cross-attention k|v are always hoisted
+    (``hoist_time_embed``, ``hoist_xattn_kv``: the same products, made once,
+    so neither changes a result); ``scan_unroll`` steers only XLA."""
 
     steps: int = 50
     eta: float = 0.0

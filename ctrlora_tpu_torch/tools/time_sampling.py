@@ -2,7 +2,7 @@
 few batches in one process (on the card):
 
     env PYTHONPATH=<tree> python3 ctrlora_tpu_torch/tools/time_sampling.py LABEL \
-        [--batches N] [--json OUT]
+        [--batches N] [--kv-in-loop-turns] [--json OUT]
 
 It runs the tree on the path (``<tree>``, the root of a checkout):
 that tree's ``chip_smoke.build_pipeline`` and ``chip_smoke.sample`` at
@@ -10,13 +10,23 @@ SD1.5 width with seeded random weights, batch 4 at 512^2, 50 DDIM steps at
 CFG 7.5, after a 2-step warm-up. So two trees alternate in one call, one
 process each, and the spread between runs of one tree can be read beside
 the difference between trees. One JSON line: s per batch of each timed
-batch, and its prep / DDIM / decode split.
+batch, its prep / DDIM / decode split and the CPU seconds the process
+spent on it (all its threads).
+
+With ``--kv-in-loop-turns`` (a tree whose ``chip_smoke`` has ``kv_in_loop``)
+the batches take turns in one process, ABBA: the sampler as it runs (the
+cross-attention k|v made once, before the loop) and the same batch with
+those products in the loop, N of each, so that the order of the two does
+not weigh on either; the row then has ``s_per_batch`` and
+``s_per_batch_in_loop``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
+import time
 
 
 def main(argv) -> int:
@@ -43,12 +53,20 @@ def main(argv) -> int:
     x_T = torch.randn((b, size // 8, size // 8, 4), generator=gen, device=dev)
     args = (pipe, ids, torch.zeros_like(ids), hint, x_T)
     chip_smoke.sample(*args, steps=2)
+    turns = "--kv-in-loop-turns" in argv
     runs = []
-    for _ in range(batches):
-        _, split = chip_smoke.sample(*args, steps=chip_smoke.STEPS)
-        runs.append({"s_per_batch": sum(split.values()), **split})
+    for i in range(2 * batches if turns else batches):
+        in_loop = turns and i % 4 in (1, 2)
+        cpu0 = time.process_time()
+        with chip_smoke.kv_in_loop(pipe) if in_loop else contextlib.nullcontext():
+            split = chip_smoke.sample(*args, steps=chip_smoke.STEPS)[1]
+        runs.append({"s_per_batch": sum(split.values()), "kv_in_loop": in_loop,
+                     "process_cpu_s": time.process_time() - cpu0, **split})
     row = {"tree": label, "steps": chip_smoke.STEPS, "batch": b, "size": size,
-           "s_per_batch": [r["s_per_batch"] for r in runs], "runs": runs}
+           "s_per_batch": [r["s_per_batch"] for r in runs if not r["kv_in_loop"]],
+           "runs": runs}
+    if turns:
+        row["s_per_batch_in_loop"] = [r["s_per_batch"] for r in runs if r["kv_in_loop"]]
     print(json.dumps(row), flush=True)
     if "--json" in argv:
         with open(argv[argv.index("--json") + 1], "w") as f:

@@ -17,6 +17,9 @@ port's one process.
     and the ranks' parameters bit-identical after every step.
   * ``sample.py --tp 2`` on 2 ranks: the one-rank run's PNGs within one
     uint8 level.
+  * a 3-step CFG DDIM through ``tp_sample`` on each mesh with the
+    cross-attention k|v hoisted (each rank's table holds its own heads'
+    columns) is bit for bit the one without.
 """
 
 import os
@@ -120,6 +123,15 @@ def test_tp_forward_matches_jax_and_one_process(tp_runs, shape):
         assert any(".attn1." in n for n in split) and any(".attn2." in n for n in split)
         assert any("lora_up" in n for n in split)  # the control's LoRA'd sites
     assert not any(n.endswith("to_out.bias") or n.endswith("ff.out.bias") for n in split)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (1, 4)])
+def test_tp_ddim_with_hoisted_kv_equals_in_loop(tp_runs, shape):
+    outs = [r["forward"][shape]["ddim"] for r in tp_runs["ranks"][shape[0] * shape[1]]]
+    on, off = outs[0][True], outs[0][False]
+    assert on.shape == (4, 8, 8, 4) and torch.isfinite(on).all()
+    assert torch.equal(on, off)
+    assert all(o[True] is None and o[False] is None for o in outs[1:])
 
 
 @pytest.mark.parametrize("world", [2, 4])

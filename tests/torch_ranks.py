@@ -10,6 +10,7 @@ reads ``root/inputs.pt`` (written by the test) and writes
 ``root/out_<rank>.pt``; :func:`run_ranks` returns those outputs in rank
 order, or fails with the first rank's traceback."""
 
+import contextlib
 import multiprocessing
 import os
 import time
@@ -164,10 +165,37 @@ def training_rank(rank, root, spec):
     return out
 
 
+@contextlib.contextmanager
+def kv_in_loop(pipe: CtrLoraPipeline):
+    """The samplers' cross-attention k|v products back inside the step loop
+    (the pipeline offers no hoisted tables), to hold a hoisted run against."""
+    pipe.xattn_kv_tables = lambda context, conds=(): None
+    try:
+        yield
+    finally:
+        del pipe.xattn_kv_tables
+
+
+def tp_ddim(pipe, mesh, inp) -> dict:
+    """A 3-step CFG DDIM of the test's batch through ``tp.tp_sample`` over
+    `mesh`, with the cross-attention k|v hoisted (as the samplers make it)
+    and in the loop: {hoist: latents on rank 0 (None elsewhere)}."""
+    from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
+
+    def run(ctx, unc, hz, x_T, hoist=True):
+        with contextlib.nullcontext() if hoist else kv_in_loop(pipe):
+            return ddim_sample(pipe, ctx, unc, [Conditioning(hz, lora_idx=0)],
+                               tuple(x_T.shape), DDIMConfig(steps=3), x_T=x_T)
+
+    call = tp.tp_sample(run, mesh)
+    args = (inp["ctx"], torch.zeros_like(inp["ctx"]), inp["hz"], inp["x"])
+    return {hoist: call(*args, hoist=hoist) for hoist in (False, True)}
+
+
 def forward_rank(rank, root, spec):
     """apply_model of the test's batch under tensor_parallel over each of
     `spec['meshes']`, gathered on rank 0 (None elsewhere), with the number
-    of split parameters each rank recorded."""
+    of split parameters each rank recorded; and ``tp_ddim`` on each mesh."""
     inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
     pipe = train_pipeline(inp["states"])
     out = {}
@@ -179,7 +207,8 @@ def forward_rank(rank, root, spec):
         names = {id(p): f"{i}.{n}" for i, m in enumerate(pipe.modules())
                  for n, p in m.named_parameters()}
         out[(dp, tpn)] = {"y": pmesh.gather_rows(mesh, y),
-                          "split": sorted(names[i] for i in ctx.split_ids)}
+                          "split": sorted(names[i] for i in ctx.split_ids),
+                          "ddim": tp_ddim(pipe, mesh, inp["fwd"])}
     return out
 
 
