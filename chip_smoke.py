@@ -67,7 +67,10 @@ the script exits non-zero:
    the hint's latent; PLMS; DPM-Solver++ multistep order 2 with dynamic
    thresholding; DPM-Solver multistep order 3; DPM-Solver++ singlestep
    order 3; img2img (ddim_stochastic_encode to step 10, ddim_decode_from);
-   ddim_encode for 10 rungs and back. Then one UNet+ControlNet evaluation
+   ddim_encode for 10 rungs and back; then DDIM at eta 0 again with the
+   pipeline switched to a v model under the cosine schedule (V below),
+   launching A, B, C and D, its image apart from the eps eta-0 image
+   (relative L2 > 1e-3). Then one UNet+ControlNet evaluation
    in guess mode (control_batch_mask, decayed scales) with the kernels
    against the plain versions (relative L2 <= 5e-2); then the sample CLI's
    per-batch function (sample_batch) through its loader on
@@ -77,8 +80,10 @@ the script exits non-zero:
 5. the tiny test configuration sampled on the GPU against the same run on
    the CPU; then every run of phase 9's sampler family on the tiny
    configuration (batch 2, 6 steps), GPU against CPU with the noise passed
-   in; then the tiny two-LoRA API path from tiny reference-format files,
-   GPU against CPU (all within rtol 2e-3 / atol 2e-4);
+   in; then the same pipelines switched to V: DDIM at eta 0.5 and
+   DPM-Solver++ multistep order 2, GPU against CPU; then the tiny two-LoRA
+   API path from tiny reference-format files, GPU against CPU (all within
+   rtol 2e-3 / atol 2e-4);
 6. the training slice at SD1.5 width: ctrlora_finetune_config(128) with
    seeded random weights (bf16 compute over fp32 parameters, rematerialised
    blocks), Trainer(trainable='lora') on seeded synthetic 512x512 batches of
@@ -88,8 +93,16 @@ the script exits non-zero:
    versions, with the same t, noise and posterior draws; the FLOPs of one
    step's forward and backward (utils.flops on a meta copy: AdamW's
    elementwise update is not counted) and their share of the bf16 peak at
-   the timed s/step;
-7. one tiny training step (fp32) on the GPU against the CPU;
+   the timed s/step; after phase 16 (a), the same batch and draws with the
+   pipeline switched to each other diffusion option set: V (the v target,
+   cosine schedule) and X (the x0 target, sqrt_linear schedule,
+   v_posterior 0.1, the variational-bound term at weight 1): one step's
+   loss and trainable gradients with the kernels against the plain
+   versions to the eps step's bounds, each kernel loss more than 1e-3
+   relative from the eps target's kernel loss under the same schedule at
+   the same parameters, every training kernel launched;
+7. one tiny training step (fp32) on the GPU against the CPU, with the eps
+   target and under V and X;
 8. the two-LoRA API path at SD1.5 width: seeded random weights written as
    reference-format .ckpt files (SD1.5 and Base ControlNet in fp16, two
    rank-128 LoRAs) through the port's exporters;
@@ -277,8 +290,11 @@ the script exits non-zero:
    over the same steps or 5e-2), the ranks' parameters bit-identical, and
    the fused-qkv entry and C never launched under TP.
 
-The second-to-last line is a JSON object of the kernels; the last line is
-{"ok": true, "device": {...}}.
+A "wall" line follows each part (build, kernels, slice, samplers, ...,
+multi_device) with its wall seconds and the seconds since the build began,
+and one more after the last part holds them all. The second-to-last line is
+a JSON object of the kernels; the last line is {"ok": true, "device":
+{...}}.
 
 Phase 3 holds each kernel against yardsticks as well: bound_ms, the least
 time the card could take for the same work (the larger of its flops at the
@@ -360,7 +376,7 @@ from ctrlora_tpu_torch.ops import geglu_ffn as geglu_ops
 from ctrlora_tpu_torch.ops import group_norm as gn_ops
 from ctrlora_tpu_torch.ops import kernel_flags
 from ctrlora_tpu_torch.ops import unpack_rows as unpack_ops
-from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline, build_control
+from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline, build_control, schedule_of
 from ctrlora_tpu_torch.sampling.common import make_emb_row_tables, make_guided_eps_fn
 from ctrlora_tpu_torch.sampling.ddim import (
     DDIMConfig, ddim_decode_from, ddim_encode, ddim_sample, ddim_stochastic_encode,
@@ -415,6 +431,16 @@ GRAD_REL_TOL = 2e-2
 # bound, since the gradient inherits its bf16 rounding through ~50 blocks)
 LOSS_REL_TOL = 1e-2
 ZERO_INIT = ("conv_out", "out_conv", "proj_out")
+# the diffusion options phases 5, 6, 7 and 9 switch a pipeline to: V, the v
+# target under the cosine schedule; X, the x0 target under sqrt_linear with
+# v_posterior 0.1 and the variational-bound term in the loss (so
+# lvlb_weights enter it)
+OPTION_SETS = {"v": {"parameterization": "v", "beta_schedule": "cosine"},
+               "x0": {"parameterization": "x0", "beta_schedule": "sqrt_linear",
+                      "v_posterior": 0.1, "original_elbo_weight": 1.0}}
+# a switched target's loss departs from the eps loss by more than this
+# (relative), or the target was not switched
+OPTION_LOSS_DIFFER = 1e-3
 # the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -564,6 +590,24 @@ def plain_versions():
                 (unpack_ops, "unpack_rows", unpack_ops.unpack_rows_plain)):
             stack.enter_context(mock.patch.object(mod, name, plain))
         yield
+
+
+@contextlib.contextmanager
+def diffusion_options(options, *pipes):
+    """The pipelines switched to other diffusion options: each config's
+    diffusion fields replaced by `options` and its schedule rebuilt by
+    pipeline.schedule_of, as CtrLoraPipeline.__init__ builds it; configs
+    and schedules restored after."""
+    saved = [(p.cfg, p.schedule) for p in pipes]
+    for p in pipes:
+        d = dataclasses.replace(p.cfg.diffusion, **options)
+        p.cfg = dataclasses.replace(p.cfg, diffusion=d)
+        p.schedule = schedule_of(d)
+    try:
+        yield
+    finally:
+        for p, (cfg, schedule) in zip(pipes, saved):
+            p.cfg, p.schedule = cfg, schedule
 
 
 def log(phase, **kw):
@@ -1308,6 +1352,24 @@ def tiny_gpu_vs_cpu(dev):
     log("tiny_samplers", gpu_vs_cpu_max_abs_err=errs, steps=steps, shape=list(shape),
         tol="rtol=2e-3 atol=2e-4")
 
+    # the same pipelines as a v model under the cosine schedule: DDIM at eta
+    # 0.5 and DPM-Solver++ multistep order 2, the same noise passed in
+    outs = {}
+    with diffusion_options(OPTION_SETS["v"], cpu, gpu):
+        for pipe, d in ((cpu, "cpu"), (gpu, dev)):
+            ctx, unc = pipe.encode_text_cond_uncond(ids.to(d), torch.zeros_like(ids).to(d))
+            hz = pipe.encode_first_stage(hint.to(d))
+            ddim = family_cases(pipe, x_T.to(d), steps, noise.get)["ddim_eta0.5"]
+            dpm = dpm_solver_sample(pipe, ctx, unc, [Conditioning(hz)], shape,
+                                    DDIMConfig(steps=steps, guidance_scale=7.5),
+                                    x_T=x_T.to(d), order=2, algorithm="dpmsolver++")
+            for name, z in (("ddim_eta0.5", ddim(ctx, unc, hz)),
+                            ("dpmsolver++_multistep_2", dpm)):
+                outs.setdefault(name, []).append(z.cpu())
+    errs = {name: compare(got, want, rtol=2e-3, atol=2e-4) for name, (want, got) in outs.items()}
+    log("tiny_samplers", options="v", **OPTION_SETS["v"], gpu_vs_cpu_max_abs_err=errs,
+        steps=steps, shape=list(shape), tol="rtol=2e-3 atol=2e-4")
+
 
 # ---------------------------------------------------------------------------
 # phases 5 (tiny) and 9: the sampler family
@@ -1404,6 +1466,12 @@ def sampler_family(dev, pipe, ids, uncond, hint):
     x_T = torch.randn((BATCH, lat, lat, 4), generator=gen, device=dev)
     seeded = lambda kind: {"generator": torch.Generator().manual_seed(SEED)}
     cases = family_cases(pipe, x_T, FAMILY_STEPS, seeded)
+
+    def v_model(*a):  # the eta-0 run with the pipeline switched to a v model
+        with diffusion_options(OPTION_SETS["v"], pipe):
+            return cases["ddim_eta0"](*a)
+
+    cases["ddim_eta0_v_cosine"] = v_model
     # the eta-0.5 run twice: the same seed must give the same bits
     order = ["ddim_eta0.5", "ddim_eta0.5", *list(cases)[1:]]
     counters = wrappers()
@@ -1446,11 +1514,14 @@ def sampler_family(dev, pipe, ids, uncond, hint):
                                                           images["ddim_eta0.5"]),
               "eta0.5_vs_eta0_rel_l2": rel_l2(images["ddim_eta0.5"], images["ddim_eta0"]),
               "guess_vs_no_guess_rel_l2": rel_l2(images["ddim_guess_mode"],
-                                                 images["ddim_decayed_scales"])}
+                                                 images["ddim_decayed_scales"]),
+              "v_cosine_vs_eps_eta0_rel_l2": rel_l2(images["ddim_eta0_v_cosine"],
+                                                    images["ddim_eta0"])}
     log("samplers", eta0_5_repeat_rel_l2=repeat, **checks, bound_differ=1e-3)
     if not checks["eta0.5_bit_equal_across_runs"]:
         raise AssertionError(f"eta 0.5 DDIM is not bit-equal across two runs (rel {repeat})")
-    for key in ("eta0.5_vs_eta0_rel_l2", "guess_vs_no_guess_rel_l2"):
+    for key in ("eta0.5_vs_eta0_rel_l2", "guess_vs_no_guess_rel_l2",
+                "v_cosine_vs_eps_eta0_rel_l2"):
         if not checks[key] > 1e-3:
             raise AssertionError(f"{key} = {checks[key]}: the runs do not differ")
     del images
@@ -1702,12 +1773,57 @@ def train_slice(dev, profile=False):
         raise AssertionError(f"FLOP count {flops}")
     # phase 16 (a): the same step through the process group at world size 1
     nccl_launches = nccl_world_one(dev, pipe, batch, draws, (loss_k, grad_k))
-    return launches, s_step, nccl_launches
+    option_launches = train_options(pipe, params, batch, draws)
+    return launches, s_step, nccl_launches, option_launches
+
+
+def train_options(pipe, params, batch, draws):
+    """One step's loss and trainable gradient under each of OPTION_SETS on
+    phase 6's pipeline, batch and draws (after phase 16 (a)'s update),
+    with the kernels against the plain versions to the eps step's bounds.
+    Each kernel loss must depart from the eps target's kernel loss under
+    the same schedule, v_posterior and elbo weight at the same parameters,
+    so that only the target differs. Returns the kernel steps' launches,
+    summed."""
+    total = {}
+    for name, options in OPTION_SETS.items():
+        with diffusion_options({**options, "parameterization": "eps"}, pipe):
+            loss_eps, _ = step_grads(pipe, params, batch, draws)
+        with diffusion_options(options, pipe):
+            with counted(f"train_options {name}", TRAINING_KERNELS) as launches:
+                t0 = time.perf_counter()
+                loss_k, grad_k = step_grads(pipe, params, batch, draws)
+                torch.cuda.synchronize()
+                s_k = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with plain_versions():
+                loss_p, grad_p = step_grads(pipe, params, batch, draws)
+            torch.cuda.synchronize()
+            s_p = time.perf_counter() - t0
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        grad_rel = rel_l2(grad_k, grad_p)
+        vs_eps = abs(loss_k - loss_eps) / abs(loss_eps)
+        log("train_options", options=name, **options, loss_kernels=loss_k, loss_plain=loss_p,
+            loss_rel=loss_rel, loss_bound=LOSS_REL_TOL, grad_rel_l2_kernels_vs_plain=grad_rel,
+            grad_bound=MODEL_REL_TOL, loss_eps_same_schedule=loss_eps, loss_rel_to_eps=vs_eps,
+            differ_bound=OPTION_LOSS_DIFFER, grads_finite=bool(torch.isfinite(grad_k).all()),
+            step_s_kernels=s_k, step_s_plain=s_p, launches=launches)
+        if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL_TOL
+                and grad_rel <= MODEL_REL_TOL and torch.isfinite(grad_k).all()):
+            raise AssertionError(f"{name} training step departs from the plain path: loss "
+                                 f"{loss_rel}, grad {grad_rel}")
+        if not vs_eps > OPTION_LOSS_DIFFER:
+            raise AssertionError(f"{name} loss {loss_k} is the eps loss {loss_eps} under the "
+                                 "same schedule: the target was not switched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def tiny_train_gpu_vs_cpu(dev):
     """One tiny training step (fp32: the GroupNorm kernel runs, the rest is
-    plain at these widths) on the GPU against the CPU, same draws."""
+    plain at these widths) on the GPU against the CPU, same draws: with the
+    eps target, then under each of OPTION_SETS."""
     cfg = configs.tiny_test_config(n_loras=1)
     gen = torch.Generator().manual_seed(SEED)
     cpu = CtrLoraPipeline(cfg, "cpu", fuse_lora=False)
@@ -1718,19 +1834,24 @@ def tiny_train_gpu_vs_cpu(dev):
         a.load_state_dict(b.state_dict(), strict=True)
     batch = synthetic_batch(gen, "cpu", 2, 16, cfg.clip.max_length, cfg.clip.vocab_size)
     draws = fixed_draws(gen, "cpu", 2, 8)
-    out = []
-    for pipe, d in ((cpu, "cpu"), (gpu, dev)):
+    params = {}
+    for pipe in (cpu, gpu):
         tcfg = configs.TrainConfig(trainable="lora")
         mask = train_state.trainable_mask(pipe, tcfg)
         train_state.make_optimizer(pipe, tcfg, mask)
-        params = list(train_state.trainable_parameters(pipe, mask).values())
-        loss, grad = step_grads(pipe, params, {k: v.to(d) for k, v in batch.items()},
-                                {k: v.to(d) for k, v in draws.items()})
-        out.append((torch.tensor([loss]), grad.cpu()))
-    err = max(compare(out[1][0], out[0][0], rtol=2e-3, atol=2e-4),
-              compare(out[1][1], out[0][1], rtol=2e-3, atol=2e-4))
-    log("tiny_train", gpu_vs_cpu_max_abs_err=err, loss_gpu=out[1][0].item(),
-        loss_cpu=out[0][0].item(), tol="rtol=2e-3 atol=2e-4")
+        params[pipe] = list(train_state.trainable_parameters(pipe, mask).values())
+    for name, options in {"eps": {}, **OPTION_SETS}.items():
+        out = []
+        with diffusion_options(options, cpu, gpu):
+            for pipe, d in ((cpu, "cpu"), (gpu, dev)):
+                loss, grad = step_grads(pipe, params[pipe],
+                                        {k: v.to(d) for k, v in batch.items()},
+                                        {k: v.to(d) for k, v in draws.items()})
+                out.append((torch.tensor([loss]), grad.cpu()))
+        err = max(compare(out[1][0], out[0][0], rtol=2e-3, atol=2e-4),
+                  compare(out[1][1], out[0][1], rtol=2e-3, atol=2e-4))
+        log("tiny_train", options=name, **options, gpu_vs_cpu_max_abs_err=err,
+            loss_gpu=out[1][0].item(), loss_cpu=out[0][0].item(), tol="rtol=2e-3 atol=2e-4")
 
 
 # ---------------------------------------------------------------------------
@@ -5340,6 +5461,15 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    walls, t_start = {}, time.perf_counter()
+
+    def timed(name, fn, *a, **kw):  # the part's wall seconds, logged as it ends
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t
+        log("wall", part=name, s=walls[name], since_start_s=time.perf_counter() - t_start)
+        return out
+
     t0 = time.perf_counter()
     _build.cuda_lib()
     spills = [ln.strip() for ln in _build.ptxas_report().splitlines()
@@ -5354,36 +5484,40 @@ def main(argv) -> int:
                                                  "count": torch.cuda.device_count()}}),
               flush=True)
         return 0
+    walls["build"] = time.perf_counter() - t_start
 
     cfg = configs.ctrlora_inference_config(lora_num=1, lora_rank=128)
-    results = kernel_checks(dev, cfg)
+    results = timed("kernels", kernel_checks, dev, cfg)
     profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
-    sampling, pipe, inputs, phase4_s_batch = slice_run(dev, cfg, profile_steps)
-    samplers, cli_rates = sampler_family(dev, pipe, *inputs)  # phase 9, on phase 4's pipeline
+    sampling, pipe, inputs, phase4_s_batch = timed("slice", slice_run, dev, cfg, profile_steps)
+    # phase 9, on phase 4's pipeline
+    samplers, cli_rates = timed("samplers", sampler_family, dev, pipe, *inputs)
     del pipe, inputs
     torch.cuda.empty_cache()
-    tiny_gpu_vs_cpu(dev)
-    tiny_api_gpu_vs_cpu(dev)
-    training, phase6_s_step, nccl_launches = train_slice(dev, profile=bool(profile_steps))
-    tiny_train_gpu_vs_cpu(dev)
+    timed("tiny", tiny_gpu_vs_cpu, dev)
+    timed("tiny_api", tiny_api_gpu_vs_cpu, dev)
+    training, phase6_s_step, nccl_launches, option_launches = timed(
+        "train", train_slice, dev, profile=bool(profile_steps))
+    timed("tiny_train", tiny_train_gpu_vs_cpu, dev)
     shutil.rmtree(KEPT, ignore_errors=True)
     try:
-        api_runs, api_paths = api_slice(dev)
+        api_runs, api_paths = timed("api_2lora", api_slice, dev)
         torch.cuda.empty_cache()
-        cli_runs = train_cli_slice(dev, phase6_s_step)
-        baseline_runs, baseline_files = baselines_slice(dev)
-        xs_runs = xs_slice(dev, phase4_s_batch, phase6_s_step)
-        style_launches, style_paths = style_slice(dev, phase4_s_batch)
-        eval_launches = evaluation_slice(dev, cli_rates)
-        app_runs = apps_slice(dev, api_paths, baseline_files, style_paths)
+        cli_runs = timed("train_cli", train_cli_slice, dev, phase6_s_step)
+        baseline_runs, baseline_files = timed("baselines", baselines_slice, dev)
+        xs_runs = timed("xs", xs_slice, dev, phase4_s_batch, phase6_s_step)
+        style_launches, style_paths = timed("style", style_slice, dev, phase4_s_batch)
+        eval_launches = timed("evaluation", evaluation_slice, dev, cli_rates)
+        app_runs = timed("apps", apps_slice, dev, api_paths, baseline_files, style_paths)
     finally:
         shutil.rmtree(KEPT, ignore_errors=True)
-    md_launches = multi_device_slice(dev, nccl_launches)  # phase 16
+    md_launches = timed("multi_device", multi_device_slice, dev, nccl_launches)  # phase 16
+    log("wall", parts_s=walls, total_s=time.perf_counter() - t_start)
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         by_path = {"sampling": sampling[name], "samplers": samplers[name],
-                   "training": training[name],
+                   "training": training[name], "train_options": option_launches[name],
                    "api_2lora": sum(r[name] for r in api_runs.values()),
                    "train_cli": sum(r[name] for r in cli_runs.values()),
                    "baselines": sum(r[name] for r in baseline_runs.values()),

@@ -124,13 +124,13 @@ class CLIPTextConfig:
 @dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
     timesteps: int = 1000
-    beta_schedule: str = "linear"  # the port's schedule is SD's linear one only
+    beta_schedule: str = "linear"  # 'linear' | 'cosine' | 'sqrt_linear' | 'sqrt'
     linear_start: float = 0.00085
     linear_end: float = 0.012
     cosine_s: float = 8e-3
     scale_factor: float = 0.18215
-    parameterization: str = "eps"  # 'eps' | 'v' (the samplers read it)
-    v_posterior: float = 0.0  # only 0 is taken
+    parameterization: str = "eps"  # 'eps' | 'x0' | 'v': the training target
+    v_posterior: float = 0.0  # posterior variance mixed toward beta by this share
     l_simple_weight: float = 1.0
     original_elbo_weight: float = 0.0
     logvar_init: float = 0.0
@@ -478,8 +478,7 @@ def _deep_update(dst: dict, src: dict) -> dict:
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """`cfg`, or NotImplementedError where it needs a part the port does not
-    have: image-prompt tokens in the control branch, dropout, a schedule
-    other than SD's linear one, or a v_posterior other than 0."""
+    have: image-prompt tokens in the control branch or dropout."""
     if cfg.control is not None and cfg.control.unet.ip_tokens:
         raise NotImplementedError(
             f"{cfg.name}: control.unet.ip_tokens={cfg.control.unet.ip_tokens}: the control "
@@ -493,11 +492,6 @@ def check_ported(cfg: ModelConfig) -> ModelConfig:
         if unet.dropout:
             raise NotImplementedError(f"{cfg.name}: {where}.dropout={unet.dropout}: the port "
                                       "has no dropout")
-    d = cfg.diffusion
-    if d.beta_schedule != "linear" or d.v_posterior:
-        raise NotImplementedError(f"{cfg.name}: beta_schedule={d.beta_schedule!r}, v_posterior="
-                                  f"{d.v_posterior}: the port has SD's linear schedule with "
-                                  "v_posterior 0 only")
     return cfg
 
 

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ctrlora_tpu_torch.configs import ControlNetConfig, ModelConfig, UNetConfig
+from ctrlora_tpu_torch.configs import ControlNetConfig, DiffusionConfig, ModelConfig, UNetConfig
 from ctrlora_tpu_torch.lora_fuse import cast_params_for_inference, fused_control_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel, encode_windowed
 from ctrlora_tpu_torch.models.attention import SpatialTransformer
@@ -60,6 +60,14 @@ def build_control(cfg: ControlNetConfig, fuse_lora: bool = True,
     if cfg.variant != "controlnet":
         raise ValueError(f"unknown control variant {cfg.variant!r}")
     return ControlNet(fused_control_config(cfg) if fuse_lora else cfg)
+
+
+def schedule_of(d: DiffusionConfig) -> DiffusionSchedule:
+    """The schedule tables of the diffusion config `d`."""
+    return make_schedule(
+        beta_schedule=d.beta_schedule, timesteps=d.timesteps,
+        linear_start=d.linear_start, linear_end=d.linear_end, cosine_s=d.cosine_s,
+        v_posterior=d.v_posterior, parameterization=d.parameterization)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +109,7 @@ class CtrLoraPipeline:
             self.clip = CLIPTextModel(cfg.clip)
         for m in self.modules():
             to_channels_last(m.eval().requires_grad_(False))
-        d = cfg.diffusion
-        self.schedule: DiffusionSchedule = make_schedule(
-            d.timesteps, d.linear_start, d.linear_end)
+        self.schedule: DiffusionSchedule = schedule_of(cfg.diffusion)
 
     def new_control(self) -> nn.Module:
         """Another control module of the pipeline's kind (fused or not),

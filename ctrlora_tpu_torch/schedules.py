@@ -1,4 +1,4 @@
-"""Diffusion noise schedule and DDIM tables (numpy), timestep embedding,
+"""Diffusion noise schedules and DDIM tables (numpy), timestep embedding,
 forward diffusion ``q_sample`` and the v-parameterization helpers (torch).
 
 The tables are computed in float64 and stored as float32, exactly as
@@ -15,32 +15,68 @@ import numpy as np
 import torch
 
 
+def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-4,
+                       linear_end: float = 2e-2, cosine_s: float = 8e-3) -> np.ndarray:
+    """betas[t] for t in [0, n_timestep), float64: 'linear' (SD's, linear in
+    sqrt(beta)), 'cosine' (Nichol & Dhariwal, clipped to [0, 0.999]),
+    'sqrt_linear' (linear in beta) or 'sqrt' (the square root of that)."""
+    if schedule == "linear":
+        betas = np.linspace(linear_start**0.5, linear_end**0.5, n_timestep,
+                            dtype=np.float64) ** 2
+    elif schedule == "cosine":
+        t = np.arange(n_timestep + 1, dtype=np.float64) / n_timestep + cosine_s
+        alphas = np.cos(t / (1 + cosine_s) * np.pi / 2) ** 2
+        alphas = alphas / alphas[0]
+        betas = np.clip(1 - alphas[1:] / alphas[:-1], 0, 0.999)
+    elif schedule == "sqrt_linear":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64)
+    elif schedule == "sqrt":
+        betas = np.linspace(linear_start, linear_end, n_timestep, dtype=np.float64) ** 0.5
+    else:
+        raise ValueError(f"unknown beta schedule {schedule!r}")
+    return betas
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """The per-timestep tables sampling and the eps training loss need,
+    """The per-timestep tables sampling and the training loss need,
     float32."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     sqrt_alphas_cumprod: np.ndarray
     sqrt_one_minus_alphas_cumprod: np.ndarray
-    lvlb_weights: np.ndarray  # eps parameterization
+    lvlb_weights: np.ndarray  # of the schedule's parameterization
 
     @property
     def num_timesteps(self) -> int:
         return int(self.betas.shape[0])
 
 
-def make_schedule(timesteps: int = 1000, linear_start: float = 0.00085,
-                  linear_end: float = 0.012) -> DiffusionSchedule:
-    """SD's "linear" schedule: betas linear in sqrt(beta)."""
-    betas = np.linspace(linear_start**0.5, linear_end**0.5, timesteps, dtype=np.float64) ** 2
+def make_schedule(beta_schedule: str = "linear", timesteps: int = 1000,
+                  linear_start: float = 0.00085, linear_end: float = 0.012,
+                  cosine_s: float = 8e-3, v_posterior: float = 0.0,
+                  parameterization: str = "eps") -> DiffusionSchedule:
+    """The tables of `beta_schedule`, with the posterior variance mixed
+    toward beta by `v_posterior` and the variational-bound weights of
+    `parameterization` ('eps', 'x0' or 'v')."""
+    betas = make_beta_schedule(beta_schedule, timesteps, linear_start=linear_start,
+                               linear_end=linear_end, cosine_s=cosine_s)
     alphas = 1.0 - betas
     alphas_cumprod = np.cumprod(alphas, axis=0)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
-    posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
-    with np.errstate(divide="ignore"):  # posterior_variance[0] == 0
-        lvlb_weights = betas**2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+    posterior_variance = (1 - v_posterior) * betas * (1.0 - alphas_cumprod_prev) / (
+        1.0 - alphas_cumprod) + v_posterior * betas
+    if parameterization == "eps":
+        with np.errstate(divide="ignore"):  # posterior_variance[0] == 0 at v_posterior 0
+            lvlb_weights = betas**2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
+    elif parameterization == "x0":
+        # ldm's expression, "2.0 * 1" included
+        lvlb_weights = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
+    elif parameterization == "v":
+        lvlb_weights = np.ones_like(betas)
+    else:
+        raise NotImplementedError(parameterization)
     lvlb_weights[0] = lvlb_weights[1]
     f32 = lambda x: np.asarray(x, dtype=np.float32)
     return DiffusionSchedule(

@@ -93,9 +93,9 @@ def _with_vocab(cfg):
     return dataclasses.replace(cfg, clip=dataclasses.replace(cfg.clip, vocab_size=49408))
 
 
-def _v(cfg):
-    return dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion,
-                                                                  parameterization="v"))
+def _v(cfg, beta_schedule="linear"):
+    return dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, parameterization="v", beta_schedule=beta_schedule))
 
 
 def _port_pipe(pcfg, params):
@@ -299,10 +299,11 @@ def test_mask_x0_inpainting_matches_jax(env, eta):
     _close(z.numpy(), jz)
 
 
-def test_v_parameterization_matches_jax(env):
+@pytest.mark.parametrize("beta_schedule", ["linear", "cosine"])
+def test_v_parameterization_matches_jax(env, beta_schedule):
     e = env
-    jpipe = JaxPipeline(_v(e["jcfg"]))
-    ppipe = _port_pipe(_v(e["pcfg"]), e["params"])
+    jpipe = JaxPipeline(_v(e["jcfg"], beta_schedule))
+    ppipe = _port_pipe(_v(e["pcfg"], beta_schedule), e["params"])
     key = jax.random.PRNGKey(6)
     jz = jax_ddim.ddim_sample(jpipe, e["params"], key, e["jctx"], e["junc"], _jconds(e), LAT,
                               jax_ddim.DDIMConfig(steps=STEPS, eta=0.4),

@@ -87,9 +87,9 @@ def _random_params(jpipe, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _v(cfg):
-    return dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion,
-                                                                  parameterization="v"))
+def _v(cfg, beta_schedule="linear"):
+    return dataclasses.replace(cfg, diffusion=dataclasses.replace(
+        cfg.diffusion, parameterization="v", beta_schedule=beta_schedule))
 
 
 def _port_pipe(pcfg, params):
@@ -123,11 +123,12 @@ def env():
                 x_T=rng.normal(size=LAT).astype(np.float32))
 
 
-def _both(e, jax_fn, port_fn, cfg_kw, v=False, scales=None, **kw):
-    """The JAX sampler (jitted) and the port's on the same inputs; returns
-    (port latents, JAX latents)."""
-    jpipe = JaxPipeline(_v(e["jcfg"])) if v else e["jpipe"]
-    ppipe = _port_pipe(_v(e["pcfg"]), e["params"]) if v else e["ppipe"]
+def _both(e, jax_fn, port_fn, cfg_kw, v=False, scales=None, beta_schedule="linear", **kw):
+    """The JAX sampler (jitted) and the port's on the same inputs (a v
+    model under `beta_schedule` where `v`); returns (port latents, JAX
+    latents)."""
+    jpipe = JaxPipeline(_v(e["jcfg"], beta_schedule)) if v else e["jpipe"]
+    ppipe = _port_pipe(_v(e["pcfg"], beta_schedule), e["params"]) if v else e["ppipe"]
     jscales = None if scales is None else jnp.asarray(scales, jnp.float32)
 
     @jax.jit
@@ -244,12 +245,13 @@ def test_dpm_singlestep_matches_jax(env, order):
     _close(z.numpy(), jz)
 
 
+@pytest.mark.parametrize("beta_schedule", ["linear", "cosine"])
 @pytest.mark.parametrize("method,order", [("multistep", 3), ("singlestep", 2)])
-def test_dpm_v_parameterization_matches_jax(env, method, order):
+def test_dpm_v_parameterization_matches_jax(env, method, order, beta_schedule):
     jax_fn, port_fn = ((jax_dpm.dpm_solver_sample, dpm_solver.dpm_solver_sample)
                        if method == "multistep" else
                        (jax_dpm.dpm_solver_singlestep_sample,
                         dpm_solver.dpm_solver_singlestep_sample))
     z, jz = _both(env, jax_fn, port_fn, dict(steps=4, guidance_scale=7.5), v=True,
-                  order=order)
+                  order=order, beta_schedule=beta_schedule)
     _close(z.numpy(), jz)

@@ -76,10 +76,34 @@ def _flat_mask(params_tree, mask_tree):
     return {k: bool(v.all()) for k, v in convert.params_from_jax(full).items()}
 
 
-def _port_pipeline(params):
-    pipe = CtrLoraPipeline(configs.tiny_test_config(n_loras=1), "cpu", fuse_lora=False)
+def _port_pipeline(params, cfg=None):
+    pipe = CtrLoraPipeline(cfg or configs.tiny_test_config(n_loras=1), "cpu", fuse_lora=False)
     pipe.load_state_dicts(*(convert.params_from_jax(p) for p in params))
     return pipe
+
+
+def seeded_inputs():
+    """The tiny JAX model's seeded parameters and one batch of 2 at 16^2."""
+    jpipe = JaxPipeline(jax_tiny(n_loras=1))
+    shapes = jax.eval_shape(functools.partial(jpipe.init, image_size=8), jax.random.PRNGKey(0))
+    params = type(shapes)(*(_random_params(p, 20 + i) for i, p in enumerate(shapes)))
+    rng = np.random.default_rng(0)
+    batch = {"jpg": rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32),
+             "hint": rng.uniform(0, 1, size=(2, 16, 16, 3)).astype(np.float32),
+             "token_ids": rng.integers(1, 128, size=(2, 16)).astype(np.int32)}
+    return params, batch
+
+
+def loss_draws(key, shape=(2, 8, 8, 4)):
+    """The draws JAX loss_for_batch / _batch_conds / p_losses make from
+    `key`, from the same key splits, as torch tensors."""
+    rest, z_rng, t_rng = jax.random.split(key, 3)
+    _, h_rng = jax.random.split(rest)
+    t_rng, n_rng = jax.random.split(t_rng)
+    draws = {"z_eps": jax.random.normal(z_rng, shape), "hint_eps": jax.random.normal(h_rng, shape),
+             "t": jax.random.randint(t_rng, (shape[0],), 0, 1000),
+             "noise": jax.random.normal(n_rng, shape)}
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()}
 
 
 @pytest.fixture(scope="module")
@@ -87,27 +111,13 @@ def jax_side():
     """Tiny JAX model, one batch, its loss and gradients, and the random
     draws loss_for_batch makes from its key. The grad is jitted: on this
     model one CPU compile (~10 s) beats eager dispatch (~35 s)."""
-    jcfg = jax_tiny(n_loras=1)
-    jpipe = JaxPipeline(jcfg)
-    shapes = jax.eval_shape(functools.partial(jpipe.init, image_size=8), jax.random.PRNGKey(0))
-    params = type(shapes)(*(_random_params(p, 20 + i) for i, p in enumerate(shapes)))
-    rng = np.random.default_rng(0)
-    batch = {"jpg": rng.uniform(-1, 1, size=(2, 16, 16, 3)).astype(np.float32),
-             "hint": rng.uniform(0, 1, size=(2, 16, 16, 3)).astype(np.float32),
-             "token_ids": rng.integers(1, 128, size=(2, 16)).astype(np.int32)}
+    jpipe = JaxPipeline(jax_tiny(n_loras=1))
+    params, batch = seeded_inputs()
     key = jax.random.PRNGKey(5)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p: jstep.loss_for_batch(jpipe, p, jbatch, key), has_aux=True))(params)
-    # the draws of loss_for_batch / _batch_conds / p_losses, from the same key splits
-    rest, z_rng, t_rng = jax.random.split(key, 3)
-    _, h_rng = jax.random.split(rest)
-    t_rng, n_rng = jax.random.split(t_rng)
-    shape = (2, 8, 8, 4)
-    draws = {"z_eps": jax.random.normal(z_rng, shape), "hint_eps": jax.random.normal(h_rng, shape),
-             "t": jax.random.randint(t_rng, (2,), 0, 1000), "noise": jax.random.normal(n_rng, shape)}
-    draws = {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()}
-    return params, batch, draws, float(loss), metrics, grads
+    return params, batch, loss_draws(key), float(loss), metrics, grads
 
 
 def test_trainable_set_matches_jax_mask(jax_side):

@@ -5,6 +5,8 @@
   reads it (field for field), the style config's image tokens too;
 * a ``preset:`` + overrides file, nested under ``model:`` and at the top;
 * a round trip of JAX ``save_model_config`` output;
+* a file with the cosine schedule, v_posterior and the v target, whose
+  pipeline schedule tables are JAX's;
 * ``parse_yaml`` against ``yaml.safe_load`` on the scalars and collections
   ``yaml.safe_dump`` writes, and its refusals.
 """
@@ -13,12 +15,15 @@ import dataclasses
 import glob
 import os
 
+import numpy as np
 import pytest
 import yaml
 
 from ctrlora_tpu import configs as jax_configs
+from ctrlora_tpu.pipeline import CtrLoraPipeline as JaxPipeline
 
 from ctrlora_tpu_torch import configs
+from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
@@ -103,11 +108,10 @@ def test_outside_the_subset_raises(text):
 @pytest.mark.parametrize("field, value, match", [
     ("control.unet", {"ip_tokens": 4}, "control.unet.ip_tokens=4"),
     ("unet", {"dropout": 0.1}, "dropout"),
-    ("diffusion", {"beta_schedule": "cosine"}, "linear"),
 ])
 def test_unported_parts_raise(tmp_path, field, value, match):
-    """What the port lacks or refuses raises: dropout, another schedule, and
-    image-prompt tokens in the control branch (which reads text only)."""
+    """What the port lacks or refuses raises: dropout, and image-prompt
+    tokens in the control branch (which reads text only)."""
     path = tmp_path / "x.yaml"
     key, val = next(iter(value.items()))
     parts = field.split(".")
@@ -116,3 +120,20 @@ def test_unported_parts_raise(tmp_path, field, value, match):
     jax_configs.load_model_config(str(path))  # JAX reads it
     with pytest.raises(NotImplementedError, match=match):
         configs.load_model_config(str(path))
+
+
+def test_diffusion_options_load_as_jax_reads_them(tmp_path):
+    """Another schedule, v_posterior and the v target load in both packages,
+    and the port pipeline's schedule tables are JAX's, bit for bit."""
+    path = tmp_path / "x.yaml"
+    path.write_text("preset: cldm_v15\ndiffusion:\n  beta_schedule: cosine\n"
+                    "  v_posterior: 0.1\n  parameterization: v\n")
+    want = jax_configs.load_model_config(str(path))
+    got = configs.load_model_config(str(path))
+    assert _tree(got) == _tree(want)
+    assert (got.diffusion.beta_schedule, got.diffusion.v_posterior,
+            got.diffusion.parameterization) == ("cosine", 0.1, "v")
+    a = CtrLoraPipeline(got, device="meta").schedule
+    b = JaxPipeline(want).schedule
+    for f in dataclasses.fields(a):
+        np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name), err_msg=f.name)
