@@ -28,9 +28,10 @@ the script exits non-zero:
    waves A2's plan makes, and D's layout capacity as UNPACK_MAX_ROWS;
 3. each hand-written kernel against its plain PyTorch version at the
    paths' shapes (ControlNet-XS's control stream's among them: A at
-   64-1536 channels, B's fused-qkv entry and B4/B5 at D = 8/16/32, C at
-   C = 64/128/256), in bf16 (A and A2 also in fp32): max error (relative L2
-   for gradients) and median time of both (for A2 and B6 also of the
+   64-1536 channels, B's fused-qkv entry, B4/B5 and B6 at D = 8/16/32, C
+   at C = 64/128/256), in bf16 (A and A2 also in fp32): max error (relative L2
+   for gradients, and for B6 and the XS fused-qkv rows' out and lse too,
+   within 1e-2) and median time of both (for A2 and B6 also of the
    kernel each stands beside: A, and B's BSHD and fused-qkv entries; for C
    also its two launches alone, up_ms and down_ms; for A, A2, B6, B4/B5
    and D also the time per call of 20 calls queued back to back, b2b_ms,
@@ -75,8 +76,9 @@ the script exits non-zero:
    against the plain versions (relative L2 <= 5e-2); then the sample CLI's
    per-batch function (sample_batch) through its loader on
    reference-format files (SD and Base ControlNet in fp16, one rank-128
-   LoRA, from a seeded ctrlora_finetune_config(128) model), DPM-Solver at
-   20 steps on 4 items; the files are deleted at the end;
+   LoRA, from a seeded ctrlora_finetune_config(128) model, written once
+   before this phase for phases 9, 10 and 14 and deleted after phase 14),
+   DPM-Solver at 20 steps on 4 items;
 5. the tiny test configuration sampled on the GPU against the same run on
    the CPU; then every run of phase 9's sampler family on the tiny
    configuration (batch 2, 6 steps), GPU against CPU with the noise passed
@@ -114,26 +116,25 @@ the script exits non-zero:
    and B6); one UNet + two-ControlNet evaluation with the flagged kernels
    against the plain versions; lora weights (1, 0) against (0, 1) must
    differ. The files stay for phase 15;
-10. the training CLIs at SD1.5 width from reference-format files (SD and
-   Base ControlNet in fp16 from a seeded ctrlora_finetune_config(128)
-   model) and PNG datasets of random pixels, with CTRLORA_NATIVE_DATA=1
-   (the C++ image prep, built with g++): (a) the finetune CLI's main on 16
-   pairs at 512^2, 640x480 and 480x640, batch 4 at 512^2, 2 warm-up and 6
-   timed steps with --use_ema, a checkpoint and the image log at the last
-   step: load s, the loader's wait, s/step beside phase 6's, the
-   launches a step, peak memory, the hook's s; frozen weights
-   bit-identical, every trainable one changed, the EMA shadow behind the
-   live weights and swapped in and out bit for bit, the image log's PNG
-   [48 + 3*512, 1024, 3] with finite rows; then --resume for 2 more steps
-   (the step count and the loader go on from step 8) and a
+10. the training CLIs at SD1.5 width from phase 9's reference-format files
+   (SD and Base ControlNet in fp16 from a seeded
+   ctrlora_finetune_config(128) model) and PNG datasets of random pixels,
+   with CTRLORA_NATIVE_DATA=1 (the C++ image prep, built with g++): (a) the
+   finetune CLI's main on 16 pairs at 512^2, 640x480 and 480x640, batch 4
+   at 512^2, 2 warm-up and 6 timed steps with --use_ema, a checkpoint and
+   the image log at the last step: load s, the loader's wait, s/step beside
+   phase 6's, the launches a step, peak memory, the hook's s; frozen
+   weights bit-identical, every trainable one changed, the EMA shadow
+   behind the live weights and swapped in and out bit for bit, the image
+   log's PNG [48 + 3*512, 1024, 3] with finite rows; then --resume for 2
+   more steps (the step count and the loader go on from step 8) and a
    --cache_latents run of 8 steps (the pre-pass's s and images/s, cached
    s/step); (b) the pretrain CLI's main with ctrlora_pretrain_config's nine
    LoRA banks from the same files, MultiGen-20M over the nine tasks (4
-   items each, non-square both ways), batch 4, 2 warm-up and 9 timed
-   steps: trainable parameters, s/step, peak memory, the task of each
-   step; losses finite, after step 1 only that step's bank of each
-   lora_up non-zero, the UNet bit-identical. The files are deleted at the
-   end;
+   items each, non-square both ways), batch 4, 2 warm-up and 9 timed steps:
+   trainable parameters, s/step, peak memory, the task of each step; losses
+   finite, after step 1 only that step's bank of each lora_up non-zero, the
+   UNet bit-identical. The datasets are deleted at the end;
 11. the ControlNet baselines at SD1.5 width, seeded random weights (zero-init
    layers too): (a) sd15_config (cldm_v15: image-hint ControlNet with its
    HintBlock) and (b) cnlite_config (ControlNet-Lite, encoder-side taps),
@@ -170,7 +171,11 @@ the script exits non-zero:
    fused-qkv entry and C must run at the control stream's widths: D =
    8/16/32, C = 64/128/256 and the GroupNorms at 64-1536 channels; D not
    at all), finite [4, 512, 512, 3] images, one XS evaluation with the
-   kernels within relative L2 5e-2 of the plain versions; (b)
+   kernels within relative L2 5e-2 of the plain versions; then under
+   gn1=1,hpack=2,qkvpack=0 one XS evaluation within relative L2 5e-2 of
+   the plain versions under the same flags and a 5-step DDIM batch, each
+   with its launches by kernel and width: B6 at D = 8/16/32 (the control
+   stream) and 40 (the base stream), B's BSHD entry at none of them; (b)
    train_cn.main --variant xs --config configs/cnxs_sd15.yaml from that SD
    file and an fp16 XS control file (TwoStreamControlNet's keys) on phase
    10's PNG pairs, --bs 4, --use_ema, 2 warm-up and 4 timed steps, a
@@ -178,8 +183,10 @@ the script exits non-zero:
    6's, peak memory, launches a step by kernel and by width (B4/B5 at D =
    8/16/32 too); loaded tensors equal to the files', the frozen base
    stream bit-identical, every trainable weight changed, one step's loss
-   and gradients with the kernels within 1e-2 / L2 5e-2 of plain. The
-   files are deleted at the end;
+   and gradients with the kernels within 1e-2 / L2 5e-2 of plain, and the
+   same under gn1=1,hpack=2,qkvpack=0 (B6 forward and B4/B5 backward at D
+   = 8/16/32, B's BSHD entry at none of them) against the plain versions
+   under those flags. The files are deleted at the end;
 13. style transfer at SD1.5 width, its config read from
    configs/inference/ctrlora_style_sd15_rank128_1lora.yaml (equal to
    style.style_config(1, 128, 4): 4 image-prompt tokens at every attn2
@@ -207,9 +214,9 @@ the script exits non-zero:
    configuration on the GPU against the CPU (rtol 2e-3 / atol 2e-4). The
    files stay for phase 15;
 14. (after phase 13) evaluation: (a) the sample CLI's main at its defaults
-   (DDIM 50, CFG 7.5, --bs 4, 512^2) on fp16 reference-format files and a
-   CustomDataset of 8 seeded items: s/batch, files written, its launches
-   per model evaluation in the sampler and per batch outside it, equal to
+   (DDIM 50, CFG 7.5, --bs 4, 512^2) on phase 9's fp16 reference-format
+   files and a CustomDataset of 8 seeded items: s/batch, files written,
+   its launches per model evaluation in the sampler and per batch outside it, equal to
    phase 9's sample CLI batch; (b) seeded files in the published layouts
    at the published widths (pt_inception with BN buffers; VGG16 features +
    lpips lin heads; an HF CLIPModel at clip-vit-large-patch14's widths)
@@ -292,9 +299,11 @@ the script exits non-zero:
 
 A "wall" line follows each part (build, kernels, slice, samplers, ...,
 multi_device) with its wall seconds and the seconds since the build began,
-and one more after the last part holds them all. The second-to-last line is
+and one more after the last part holds them all; phase 15 also logs its own
+parts' seconds ("apps_wall" lines). The second-to-last line is
 a JSON object of the kernels; the last line is {"ok": true, "device":
-{...}}.
+{...}}; B6's entry in the kernels line also lists the head dims it
+launched at in phase 12 (head_dims).
 
 Phase 3 holds each kernel against yardsticks as well: bound_ms, the least
 time the card could take for the same work (the larger of its flops at the
@@ -419,6 +428,11 @@ WARMUP_STEPS, TRAIN_STEPS = 2, 5
 # round at different points (fp32 accumulation order, the bf16-rounded
 # probabilities and gate), so a few ulps apart is agreement
 RTOL, ATOL = 2e-2, 2e-2
+# relative L2 bound of an attention forward's out and lse, kernel vs plain,
+# beside RTOL/ATOL where |out| is about ATOL (a few heads' dims over 1k-4k
+# keys of unit normals: out ~ 0.02-0.03), so that ATOL alone could not see
+# one 64-key tile of 4096 dropped (out's relative L2 then ~0.12)
+ATTN_REL_TOL = 1e-2
 # relative L2 error bound of one full UNet+ControlNet evaluation, kernels vs
 # plain versions: bf16 rounding differences through ~50 blocks
 MODEL_REL_TOL = 5e-2
@@ -529,10 +543,13 @@ XS_GEGLU_SITES = ((8 * 4096, 64), (8 * 1024, 128), (8 * 256, 256), (8 * 64, 256)
 ONEPASS_SHAPES = ((64 * 64, 320), (32 * 32, 640), (32 * 32, 960), (32 * 32, 1280),
                   (16 * 16, 2560))
 ONEPASS_FP32_SHAPES = ((32 * 32, 640), (16 * 16, 2560))
-# kernel B6's rows: (label, B, S, H, D, as views of the fused projection)
+# kernel B6's rows: (label, B, S, H, D, as views of the fused projection);
+# the last three: ControlNet-XS's control stream (XS_ATTN_SITES) at the CFG
+# batch of 8, where hpack=2 and qkvpack=0 send it
 HPACK2_CASES = (("[8, 4096, 8, 40]", 8, 4096, 8, 40, False),
                 ("views of [8, 4096, 3*8*40]", 8, 4096, 8, 40, True),
-                ("[8, 1024, 8, 64]", 8, 1024, 8, 64, False))
+                ("[8, 1024, 8, 64]", 8, 1024, 8, 64, False)) + tuple(
+    (f"[8, {s}, {h}, {d}]", 8, s, h, d, False) for s, h, d in XS_ATTN_SITES)
 
 
 # the kernels each path must launch
@@ -660,6 +677,14 @@ def host_us(fn, calls=200):
     return spent / calls * 1e6
 
 
+def within_rel_l2(pairs, tol, what) -> list:
+    """Relative L2 of each (got, want) pair; raises unless all <= tol."""
+    rels = [rel_l2(g, w) for g, w in pairs]
+    if not all(math.isfinite(r) and r <= tol for r in rels):
+        raise AssertionError(f"{what}: relative L2 {rels} > {tol}")
+    return rels
+
+
 def compare(got, want, rtol=RTOL, atol=ATOL):
     """Max abs error; raises unless |got - want| <= atol + rtol |want|."""
     g, w = got.float(), want.float()
@@ -731,20 +756,29 @@ def kernel_checks(dev, cfg):
     def keep(name, row, err_keys):
         r = results.setdefault(name, {k: 0.0 for k in err_keys})
         for key in err_keys:
-            r[key] = max(r[key], row[key])
+            r[key] = max(r.get(key, 0.0), row[key])
         for key, val in row.items():  # the first shape listed is the dominant one
             r.setdefault(key, val)
 
-    def record(name, label, got, want, fn_k, fn_p, work, library=None, extra=None, **beside):
+    def record(name, label, got, want, fn_k, fn_p, work, library=None, extra=None,
+               rel_l2_tol=None, **beside):
         """`work`: (flops, bytes) at this shape; `library`: (name, fn) or None;
-        `beside`: ms of the kernels this one stands beside, same inputs."""
-        err = compare(got, want)
-        if extra is not None:
-            err = max(err, compare(*extra))
+        `extra`: a second (got, want) pair; `rel_l2_tol`: a relative L2
+        bound of both pairs too; `beside`: ms of the kernels this one
+        stands beside, same inputs."""
+        pairs = [(got, want)] + ([extra] if extra is not None else [])
+        err = max(compare(*pair) for pair in pairs)
+        rels = (within_rel_l2(pairs, rel_l2_tol, f"{name} {label}")
+                if rel_l2_tol is not None else None)
         ms, pms = time_ms(fn_k), time_ms(fn_p)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **yardsticks(work, library, ms)}
-        log("kernels", kernel=name, shape=label, **row, **beside)
-        keep(name, {**row, **beside}, ("max_abs_err",))
+        if rels is None:
+            log("kernels", kernel=name, shape=label, **row, **beside)
+            keep(name, {**row, **beside}, ("max_abs_err",))
+            return
+        log("kernels", kernel=name, shape=label, **row, rel_l2=rels, rel_l2_bound=rel_l2_tol,
+            **beside)
+        keep(name, {**row, "rel_l2": max(rels), **beside}, ("max_abs_err", "rel_l2"))
 
     def record_grad(name, label, got, want, fn_k, fn_p, work, library=None, **beside):
         """Gradients: relative L2 per output <= GRAD_REL_TOL, and within
@@ -847,8 +881,10 @@ def kernel_checks(dev, cfg):
     del a2_args, x, sc, bi, args
 
     # B6: the head-pair forward at the 64x64 sites, contiguous and as split
-    # views of the fused projection, and at D = 64; beside B's BSHD and
-    # fused-qkv entries, each also back to back, and the same bits twice
+    # views of the fused projection, at D = 64 and at the XS control
+    # stream's D = 8/16/32; beside B's BSHD and fused-qkv entries, each also
+    # back to back (the share of the bound also against b2b: the XS sites
+    # take microseconds), and the same bits twice
     for label, b, s, h, d, fused in HPACK2_CASES:
         qkv = rn(b, s, 3 * h * d)
         views = [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1)]
@@ -866,10 +902,11 @@ def kernel_checks(dev, cfg):
                   if fused else
                   {"bshd_ms": time_ms(lambda: fa_ops.flash_attention_bshd(*ops)),
                    "bshd_b2b_ms": time_b2b(lambda: fa_ops.flash_attention_bshd(*ops))})
+        work, b2b = fa_ops.flash_forward_work(b, h, s, s, d), time_b2b(fn)
         record("flash_attention_hpack2", label, out, pout, fn,
-               lambda: fa_ops.flash_attention_hpack2_plain(*ops),
-               fa_ops.flash_forward_work(b, h, s, s, d), library=library, extra=(lse, plse),
-               b2b_ms=time_b2b(fn), library_b2b_ms=time_b2b(library[1]), bit_equal_runs=True,
+               lambda: fa_ops.flash_attention_hpack2_plain(*ops), work, library=library,
+               extra=(lse, plse), rel_l2_tol=ATTN_REL_TOL, b2b_ms=b2b, pct_of_bound_b2b=100.0 * bound_ms(*work)[0] / b2b,
+               library_b2b_ms=time_b2b(library[1]), bit_equal_runs=True,
                plan=dataclasses.asdict(fa_ops.hpack2_plan(d)), **beside)
         del out, lse, pout, plse, qkv, views, ops
 
@@ -886,7 +923,7 @@ def kernel_checks(dev, cfg):
         record("flash_attention_qkv", f"[8, {s}, 3*{h}*{d}]", out, pout, fn,
                lambda: fa_ops.flash_attention_qkv_plain(qkv, h, d),
                fa_ops.flash_forward_work(8, h, s, s, d), library=library, extra=(lse, plse),
-               **b2b)
+               rel_l2_tol=ATTN_REL_TOL if d < 40 else None, **b2b)
 
     q, k, v = (rn(4, 1, 4096, 512) for _ in range(3))
     out, lse = fa_ops.flash_attention(q, k, v)
@@ -1447,13 +1484,14 @@ def rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def sampler_family(dev, pipe, ids, uncond, hint):
+def sampler_family(dev, pipe, ids, uncond, hint, finetune_paths):
     """Phase 9: the sampler family at SD1.5 width on phase 4's pipeline
     (batch 4, 512^2, CFG 7.5, FAMILY_STEPS steps). Each run: prep (CLIP
     pair, hint encode), the sampler, decode, timed apart; the model
     evaluations, and the kernel launches per evaluation of the sampler
-    alone. Returns the launches of all runs and the sample CLI batch's
-    launch rates (``launch_rates``)."""
+    alone; then the sample CLI's batch on `finetune_paths`. Returns the
+    launches of all runs and the sample CLI batch's launch rates
+    (``launch_rates``)."""
     evals = [0]
     apply_model = pipe.apply_model
 
@@ -1549,31 +1587,39 @@ def sampler_family(dev, pipe, ids, uncond, hint):
     log("samplers", guess_mode_unet_controlnet_rel_l2_kernels_vs_plain=rel, bound=MODEL_REL_TOL)
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"guess-mode evaluation departs from the plain path: rel {rel}")
-    cli_launches, cli_rates = sample_cli_batch(dev)
+    cli_launches, cli_rates = sample_cli_batch(dev, finetune_paths)
     for k, v in cli_launches.items():
         totals[k] = totals.get(k, 0) + v
     return totals, cli_rates
 
 
-def sample_cli_batch(dev):
-    """The sample CLI's per-batch function at SD1.5 width on
-    reference-format files written as phase 8 writes them (SD and Base
-    ControlNet in fp16, one rank-128 LoRA) from a seeded unfused
-    ctrlora_finetune_config(128) pipeline, the CLI's default model: the
-    pipeline through ``load_pipeline``, 4 items through ``sample_batch``
-    with --sampler dpm_solver at 20 steps. The files are deleted at the
-    end."""
+FINETUNE_FILES = os.path.join(KEPT, "finetune")
+
+
+def write_finetune_files(dev, outdir: str = FINETUNE_FILES) -> dict:
+    """Reference-format files of a seeded unfused ctrlora_finetune_config(128)
+    pipeline, the sample CLI's and the training CLIs' default model, written
+    as phase 8 writes its own (SD and Base ControlNet in fp16, one rank-128
+    LoRA) under `outdir`: by default FINETUNE_FILES, for phases 9, 10 and
+    14, which read them (main deletes them after phase 14). Returns their
+    paths."""
     cfg = configs.ctrlora_finetune_config(lora_rank=128)
-    outdir = os.path.join(ROOT, "runs", "chip_smoke_cli_ckpts")
-    shutil.rmtree(outdir, ignore_errors=True)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    t0 = time.perf_counter()
     src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
     for m in src.modules():
         random_init_(m, gen)
     paths, _ = write_reference_files(src, src.control.state_dict(), cfg, outdir, torch.float16)
     del src
-    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return paths
+
+
+def sample_cli_batch(dev, paths):
+    """The sample CLI's per-batch function at SD1.5 width on the
+    finetune-config reference files (`paths`, ``write_finetune_files``),
+    the CLI's default model: the pipeline through ``load_pipeline``, 4
+    items through ``sample_batch`` with --sampler dpm_solver at 20 steps."""
+    cfg = configs.ctrlora_finetune_config(lora_rank=128)
     args = sample_cli.build_parser().parse_args([
         "--dataroot", "unused", "--save_dir", "unused", "--sd_ckpt", paths["sd"],
         "--cn_ckpt", paths["basecn"], "--lora_ckpt", paths["loras"][0],
@@ -1582,7 +1628,6 @@ def sample_cli_batch(dev):
     pipe = sample_cli.load_pipeline(cfg, dev, args.sd_ckpt, args.cn_ckpt, args.lora_ckpt)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    shutil.rmtree(outdir, ignore_errors=True)
     rng = np.random.default_rng(SEED)
     hint = rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8).astype(np.float32) / 255
     tok = sample_cli.default_tokenizer()
@@ -1596,7 +1641,7 @@ def sample_cli_batch(dev):
         total = time.perf_counter() - t0
     rates = launch_rates(launches, split, batches=1)
     log("sample_cli", sampler=opts.sampler, dpm_order=opts.dpm_order,
-        dpm_method=opts.dpm_method, steps=opts.steps, batch=BATCH, size=SIZE, write_s=write_s,
+        dpm_method=opts.dpm_method, steps=opts.steps, batch=BATCH, size=SIZE,
         load_pipeline_s=load_s, s_per_batch=total, launches=launches, **rates,
         shape=list(out.shape), dtype=str(out.dtype), image_mean=float(out.mean()),
         image_std=float(out.std()))
@@ -1911,7 +1956,7 @@ def sd_pairs(trees: dict, sd: dict, cfg) -> list:
 def differing(pairs) -> list:
     """The keys of `pairs` whose loaded array is not the file's tensor (fp16
     widened to fp32 exactly)."""
-    return [k for k, got, want in pairs if not np.array_equal(got, want.float().numpy())]
+    return [k for k, got, want in pairs if not torch.equal(torch.from_numpy(got), want.float())]
 
 
 def write_reference_files(src: CtrLoraPipeline, control_state: dict, cfg, outdir: str,
@@ -2357,23 +2402,15 @@ def pretrain_cli(dev, paths, mg, root):
     return launches
 
 
-def train_cli_slice(dev, phase6_s_step):
-    """Phase 10: the finetune and pretrain CLIs at SD1.5 width from
-    reference-format files (SD and Base ControlNet in fp16, written from a
-    seeded ctrlora_finetune_config(128) model) and PNG datasets, with
-    CTRLORA_NATIVE_DATA=1. The files are deleted at the end. Returns the
+def train_cli_slice(dev, phase6_s_step, paths):
+    """Phase 10: the finetune and pretrain CLIs at SD1.5 width from the
+    finetune-config reference files (`paths`, ``write_finetune_files``: SD
+    and Base ControlNet in fp16) and PNG datasets, with
+    CTRLORA_NATIVE_DATA=1. The datasets are deleted at the end. Returns the
     launches of each run."""
     root = os.path.join(ROOT, "runs", "chip_smoke_train_cli")
     shutil.rmtree(root, ignore_errors=True)
-    cfg = configs.ctrlora_finetune_config(lora_rank=128)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     t0 = time.perf_counter()
-    src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
-    for m in src.modules():
-        random_init_(m, gen)
-    paths, _ = write_reference_files(src, src.control.state_dict(), cfg,
-                                     os.path.join(root, "ckpts"), torch.float16)
-    del src
     custom, mg = write_cli_datasets(root, np.random.default_rng(SEED))
     log("train_cli", write_s=time.perf_counter() - t0, png_writer=png_writer(),
         native_library=os.path.relpath(str(native_data.library_path()), ROOT))
@@ -2561,7 +2598,8 @@ def baseline_train(dev, variant, custom, root, sd_file, cn_file=None, written=No
         initial = {k[len("control."):]: v for k, v in rec["initial"].items()
                    if k.startswith("control.")}
         got = ckpt_torch.export_control_base(initial, pipe.cfg.control)
-        bad = [k for k in written if not np.array_equal(got[k], written[k].float().numpy())]
+        bad = [k for k in written
+               if not torch.equal(torch.from_numpy(got[k]), written[k].float())]
         if bad or sorted(got) != sorted(written):
             raise AssertionError(f"{phase}: loaded tensors differ from the file: {bad[:5]}")
         loaded = len(written)
@@ -2690,6 +2728,17 @@ XS_WIDTHS = {"group_norm": {64, 128, 256, 384, 768, 1536},
              "flash_attention_qkv": {8, 16, 32}, "geglu_ffn": {64, 128, 256}}
 XS_TRAIN_WIDTHS = {**XS_WIDTHS, "flash_attention_bwd_dq": {8, 16, 32},
                    "flash_attention_bwd_dkv": {8, 16, 32}}
+# under FLAGS (hpack=2, qkvpack=0) the self-attention takes B6 wherever the
+# heads pair and 2*D <= 128: the control stream's D = 8/16/32 and the base
+# stream's 40, where B's BSHD entry must not launch (it keeps D = 80/160)
+XS_HPACK_DIMS = {8, 16, 32, 40}
+XS_FLAGGED_KERNELS = ("flash_attention_hpack2", "flash_attention_bshd", "geglu_ffn")
+XS_FLAGGED_STEPS = 5
+
+
+# {kernel: widths} of every launch_widths block of the run, for the kernels
+# line
+WIDTHS_LAUNCHED: dict = {}
 
 
 @contextlib.contextmanager
@@ -2697,15 +2746,18 @@ def launch_widths():
     """Count the kernel launches of the block by kernel and the width each
     ran at (A: channels, B and B4/B5: head dim, C: C), read off the
     wrappers' launch helpers (which run only where a kernel launches);
-    yields {kernel: {width: launches}}."""
+    yields {kernel: {width: launches}} (and adds the widths to
+    WIDTHS_LAUNCHED)."""
     seen: dict = {}
 
     def note(name, width):
         seen.setdefault(name, {}).setdefault(int(width), 0)
         seen[name][int(width)] += 1
+        WIDTHS_LAUNCHED.setdefault(name, set()).add(int(width))
 
     real_gn, real_fwd = gn_ops._launch, fa_ops._launch_forward
     real_bwd, real_up = fa_ops._check_bwd, geglu_ops.launch_up
+    real_hpack2 = fa_ops._forward_hpack2
 
     def gn_launch(entry, plan_fn, what, x, *a):
         note(what, x.shape[-1])
@@ -2723,11 +2775,28 @@ def launch_widths():
         note("geglu_ffn", x.shape[-1])
         return real_up(x, *a)
 
+    def hpack2_launch(q, *a):
+        note("flash_attention_hpack2", q.shape[-1])
+        return real_hpack2(q, *a)
+
     with mock.patch.object(gn_ops, "_launch", gn_launch), \
             mock.patch.object(fa_ops, "_launch_forward", fwd_launch), \
             mock.patch.object(fa_ops, "_check_bwd", bwd_check), \
-            mock.patch.object(geglu_ops, "launch_up", up_launch):
+            mock.patch.object(geglu_ops, "launch_up", up_launch), \
+            mock.patch.object(fa_ops, "_forward_hpack2", hpack2_launch):
         yield seen
+
+
+def hpack_route_faults(seen, required=XS_HPACK_DIMS, also=None) -> dict:
+    """Under FLAGS on the XS path: the head dims of `required` where B6
+    (``launch_widths``' `seen`) did not launch, those where B's BSHD entry
+    did, and the widths of `also` ({kernel: widths}) that `seen` lacks."""
+    faults = {"flash_attention_hpack2 missing": sorted(
+                  required - set(seen.get("flash_attention_hpack2", {}))),
+              "flash_attention_bshd at": sorted(
+                  required & set(seen.get("flash_attention_bshd", {}))),
+              **{f"{k} missing": ws for k, ws in missing_widths(seen, also or {}).items()}}
+    return {k: v for k, v in faults.items() if v}
 
 
 def missing_widths(seen, required) -> dict:
@@ -2824,9 +2893,47 @@ def xs_sampling(dev, root, phase4_s_batch):
         bound=MODEL_REL_TOL)
     if not math.isfinite(rel) or rel > MODEL_REL_TOL:
         raise AssertionError(f"XS: kernel path departs from the plain path: rel {rel}")
+    del out_k, out_p
+    flagged = xs_flagged_sampling(pipe, ids, uncond, hint, x_T, x2, tvec, full_ctx, conds)
     del pipe, states
     torch.cuda.empty_cache()
-    return launches, cfg, paths, written
+    return {"default": launches, **flagged}, cfg, paths, written
+
+
+def xs_flagged_sampling(pipe, ids, uncond, hint, x_T, x2, tvec, full_ctx, conds) -> dict:
+    """Phase 12a under FLAGS (CTRLORA_KERNELS=gn1=1,hpack=2,qkvpack=0): one XS
+    evaluation, its launches by kernel and width (B6 at the control stream's
+    D = 8/16/32 and the base stream's 40, B's BSHD entry at none of them),
+    within relative L2 5e-2 of the plain versions under the same flags; then
+    a DDIM batch of XS_FLAGGED_STEPS steps with its launches by width.
+    Returns the launches of both."""
+    runs = {}
+    with kernel_flags.override(**FLAGS):
+        with counted("XS flagged evaluation", XS_FLAGGED_KERNELS) as runs["flagged_evaluation"], \
+                launch_widths() as per_eval:
+            out_k = pipe.apply_model(x2, tvec, full_ctx, conds)
+        with plain_versions():
+            out_p = pipe.apply_model(x2, tvec, full_ctx, conds)
+        rel = rel_l2(out_k, out_p)
+        with counted("XS flagged DDIM", XS_FLAGGED_KERNELS + ("flash_attention",)) \
+                as runs["flagged_ddim"], launch_widths() as widths:
+            t0 = time.perf_counter()
+            img, phases, _ = baseline_sample(pipe, ids, uncond, hint, x_T, XS_FLAGGED_STEPS)
+            total = time.perf_counter() - t0
+    faults = {"evaluation": hpack_route_faults(per_eval), "ddim": hpack_route_faults(widths)}
+    log("xs_sampling", flags=FLAGS, launches_per_evaluation=runs["flagged_evaluation"],
+        launches_by_width_per_evaluation=per_eval, xs_rel_l2_kernels_vs_plain=rel,
+        bound=MODEL_REL_TOL, ddim_steps=XS_FLAGGED_STEPS, batch=BATCH, s_per_batch=total,
+        **phases, ddim_launches=runs["flagged_ddim"], ddim_launches_by_width=widths,
+        image_mean=img.mean().item(), image_std=img.std().item(), route_faults=faults)
+    if not math.isfinite(rel) or rel > MODEL_REL_TOL:
+        raise AssertionError(f"XS under {FLAGS}: kernel path departs from the plain path: "
+                             f"rel {rel}")
+    if any(faults.values()):
+        raise AssertionError(f"XS under {FLAGS}: B6 not where JAX's rule sends it: {faults}")
+    if tuple(img.shape) != (BATCH, SIZE, SIZE, 3) or not torch.isfinite(img).all():
+        raise AssertionError(f"XS under {FLAGS}: bad image, shape {tuple(img.shape)}")
+    return runs
 
 
 def xs_train(dev, cfg, custom, root, paths, written, phase6_s_step):
@@ -2895,9 +3002,34 @@ def xs_train(dev, cfg, custom, root, paths, written, phase6_s_step):
             and torch.isfinite(grad_k).all()):
         raise AssertionError(f"{phase}: step departs from the plain path: loss {loss_rel}, "
                              f"grad {grad_rel}")
+    del grad_k, grad_p
+
+    # the same step under FLAGS: B6 forward and B4/B5 backward at the
+    # control stream's head dims, held to the plain versions' step under the
+    # same flags to the same bounds
+    with kernel_flags.override(**FLAGS):
+        with counted(f"{phase} flagged step", ("flash_attention_hpack2", "flash_attention_bwd_dq",
+                                               "flash_attention_bwd_dkv")) as flagged, \
+                launch_widths() as widths:
+            loss_k, grad_k = step_grads(pipe, params, batch, draws)
+        with plain_versions():
+            loss_p, grad_p = step_grads(pipe, params, batch, draws)
+    loss_rel, grad_rel = abs(loss_k - loss_p) / abs(loss_p), rel_l2(grad_k, grad_p)
+    faults = hpack_route_faults(widths, {8, 16, 32}, {
+        k: {8, 16, 32} for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
+    log(phase, flags=FLAGS, loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+        loss_bound=LOSS_REL_TOL, grad_rel_l2_kernels_vs_plain=grad_rel,
+        grad_bound=MODEL_REL_TOL, launches=flagged, launches_by_width=widths,
+        route_faults=faults)
+    if not (math.isfinite(loss_rel) and loss_rel <= LOSS_REL_TOL and grad_rel <= MODEL_REL_TOL
+            and torch.isfinite(grad_k).all()):
+        raise AssertionError(f"{phase} under {FLAGS}: step departs from the plain path: loss "
+                             f"{loss_rel}, grad {grad_rel}")
+    if faults:
+        raise AssertionError(f"{phase} under {FLAGS}: kernels not at the XS head dims: {faults}")
     del run, trainer, pipe, params
     torch.cuda.empty_cache()
-    return launches
+    return {"default": launches, "flagged_step": flagged}
 
 
 def xs_slice(dev, phase4_s_batch, phase6_s_step):
@@ -2909,9 +3041,10 @@ def xs_slice(dev, phase4_s_batch, phase6_s_step):
     os.makedirs(root)
     try:
         launches, cfg, paths, written = xs_sampling(dev, root, phase4_s_batch)
-        runs = {"sample_xs": launches}
+        runs = {f"sample_xs_{k}": v for k, v in launches.items()}
         custom, _ = write_cli_datasets(root, np.random.default_rng(SEED + 20))
-        runs["train_xs"] = xs_train(dev, cfg, custom, root, paths, written, phase6_s_step)
+        runs.update({f"train_xs_{k}": v for k, v in
+                     xs_train(dev, cfg, custom, root, paths, written, phase6_s_step).items()})
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return runs
@@ -3365,20 +3498,12 @@ def write_eval_dataset(root, rng):
     return data
 
 
-def eval_sample(dev, root, phase9_rates):
+def eval_sample(dev, root, phase9_rates, paths):
     """(a) The sample CLI's main at its defaults (DDIM 50, CFG 7.5, --bs 4,
-    512^2) on fp16 reference-format files and a dataset of EVAL_ITEMS
-    seeded items. Returns the launches and the output directory."""
-    cfg = configs.ctrlora_finetune_config(lora_rank=128)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    512^2) on the finetune-config reference files (`paths`) and a dataset
+    of EVAL_ITEMS seeded items. Returns the launches and the output
+    directory."""
     t0 = time.perf_counter()
-    src = CtrLoraPipeline(cfg, dev, fuse_lora=False)
-    for m in src.modules():
-        random_init_(m, gen)
-    paths, _ = write_reference_files(src, src.control.state_dict(), cfg,
-                                     os.path.join(root, "ckpts"), torch.float16)
-    del src
-    torch.cuda.empty_cache()
     data = write_eval_dataset(root, np.random.default_rng(SEED + 14))
     write_s = time.perf_counter() - t0
     out = os.path.join(root, "out")
@@ -3400,7 +3525,6 @@ def eval_sample(dev, root, phase9_rates):
                          "--cn_ckpt", paths["basecn"], "--lora_ckpt", paths["loras"][0],
                          "--bs", str(BATCH), "--resolution", str(SIZE), "--device", dev.type])
         total = time.perf_counter() - t0
-    shutil.rmtree(os.path.join(root, "ckpts"))
     rates = launch_rates(launches, split, len(batch_s))
     written = {sub: sorted(os.listdir(os.path.join(out, sub))) for sub in ("sample", "control", "img")}
     with open(os.path.join(out, "prompt.txt")) as f:
@@ -3605,7 +3729,7 @@ def eval_sanity(dev, lp, a, out, files, fid_vs_img):
         raise AssertionError(f"evaluation sanity: {checks}")
 
 
-def evaluation_slice(dev, phase9_rates):
+def evaluation_slice(dev, phase9_rates, finetune_paths):
     """Phase 14: the sample CLI writes sample/ control/ img/ prompt.txt, the
     three evaluate CLIs score them, then the metrics' full-width
     throughput, GPU against CPU, and sanity checks. Files under
@@ -3615,14 +3739,14 @@ def evaluation_slice(dev, phase9_rates):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        return _evaluation_slice(dev, root, phase9_rates)
+        return _evaluation_slice(dev, root, phase9_rates, finetune_paths)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _evaluation_slice(dev, root, phase9_rates):
+def _evaluation_slice(dev, root, phase9_rates, finetune_paths):
     t_phase = time.perf_counter()
-    launches, out = eval_sample(dev, root, phase9_rates)
+    launches, out = eval_sample(dev, root, phase9_rates, finetune_paths)
     gc.collect()  # the sample CLI's pipeline
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED + 140)
@@ -4732,7 +4856,9 @@ def app_detectors(dev, image):
     (``write_detector_files``)."""
     with counted("apps detectors", ()) as launches:
         for name in annot_registry.CNN:
+            t_row = time.perf_counter()
             det, cpu = annot_registry.get(name, dev), annot_registry.get(name, "cpu")
+            build_s = time.perf_counter() - t_row
             kw = lambda: {"rng": np.random.default_rng(SEED)} if name in (
                 "hedsketch", "lineart_anime_with_color_prompt") else {}
             got, ms, first_ms = median_ms(lambda: det(image, **kw()), dev)
@@ -4743,7 +4869,8 @@ def app_detectors(dev, image):
             row = {"detector": name, "size": list(image.shape[:2]), "ms_per_image": ms,
                    "first_ms": first_ms, "cpu_ms": cpu_ms,
                    **gflop_row(lambda: det(image, **kw()), ms), **extra}
-            log("apps_detectors", **row, tol=DETECTOR_TOL.get(name, "1 level on 0.1% of pixels"))
+            log("apps_detectors", **row, tol=DETECTOR_TOL.get(name, "1 level on 0.1% of pixels"),
+                build_s=build_s, row_s=time.perf_counter() - t_row)
             outs = got if name == "midas" else (got,)
             # a seeded body net finds peaks but no person: its canvas stays black
             drawn = row["peaks"] > 0 if name == "openpose" else all(o.any() for o in outs)
@@ -4883,26 +5010,40 @@ def apps_slice(dev, api_paths, baseline_files, style_paths):
     os.makedirs(root)
     saved = os.environ.get(annot_download.CKPT_ENV)
     try:
-        t_phase = time.perf_counter()
+        t_phase = t_sub = time.perf_counter()
+
+        def sub(name):  # the wall seconds of each of the phase's parts
+            nonlocal t_sub
+            now = time.perf_counter()
+            log("apps_wall", part=name, s=now - t_sub)
+            t_sub = now
+
         with counted("apps kernel checks", ()):
             app_kernel_checks(dev)
+        sub("kernel_checks")
         rng = np.random.default_rng(SEED + 15)
         image, image2 = smooth_image(rng, SIZE, SIZE), smooth_image(rng, SIZE + 64, SIZE)
         launches = app_ctrlora(dev, api_paths, image, image2)
         gc.collect()
         torch.cuda.empty_cache()
+        sub("process_process2")
         launches["process_controlnet"] = app_controlnet(dev, baseline_files, image)
         gc.collect()
         torch.cuda.empty_cache()
+        sub("process_controlnet")
         launches["process_style"] = app_style(dev, style_paths, image,
                                               smooth_image(rng, *STYLE_IMAGE_HW))
         gc.collect()
         torch.cuda.empty_cache()
+        sub("process_style")
         ckpt_dir = os.path.join(root, "detector_ckpts")
         write_detector_files(ckpt_dir, SEED + 15, image=image, device=dev)
         os.environ[annot_download.CKPT_ENV] = ckpt_dir
+        sub("detector_files")
         app_detectors(dev, image)
+        sub("detectors")
         app_tools(dev, root, api_paths, rng)
+        sub("tools")
         log("apps", phase_s=time.perf_counter() - t_phase)
         return launches
     finally:
@@ -5490,24 +5631,28 @@ def main(argv) -> int:
     results = timed("kernels", kernel_checks, dev, cfg)
     profile_steps = int(argv[argv.index("--profile") + 1]) if "--profile" in argv else 0
     sampling, pipe, inputs, phase4_s_batch = timed("slice", slice_run, dev, cfg, profile_steps)
-    # phase 9, on phase 4's pipeline
-    samplers, cli_rates = timed("samplers", sampler_family, dev, pipe, *inputs)
-    del pipe, inputs
-    torch.cuda.empty_cache()
-    timed("tiny", tiny_gpu_vs_cpu, dev)
-    timed("tiny_api", tiny_api_gpu_vs_cpu, dev)
-    training, phase6_s_step, nccl_launches, option_launches = timed(
-        "train", train_slice, dev, profile=bool(profile_steps))
-    timed("tiny_train", tiny_train_gpu_vs_cpu, dev)
-    shutil.rmtree(KEPT, ignore_errors=True)
+    shutil.rmtree(KEPT, ignore_errors=True)  # files the phases below keep for later ones
     try:
+        # phases 9, 10 and 14 read one set of finetune-config files
+        finetune_paths = timed("finetune_files", write_finetune_files, dev)
+        # phase 9, on phase 4's pipeline
+        samplers, cli_rates = timed("samplers", sampler_family, dev, pipe, *inputs,
+                                    finetune_paths)
+        del pipe, inputs
+        torch.cuda.empty_cache()
+        timed("tiny", tiny_gpu_vs_cpu, dev)
+        timed("tiny_api", tiny_api_gpu_vs_cpu, dev)
+        training, phase6_s_step, nccl_launches, option_launches = timed(
+            "train", train_slice, dev, profile=bool(profile_steps))
+        timed("tiny_train", tiny_train_gpu_vs_cpu, dev)
         api_runs, api_paths = timed("api_2lora", api_slice, dev)
         torch.cuda.empty_cache()
-        cli_runs = timed("train_cli", train_cli_slice, dev, phase6_s_step)
+        cli_runs = timed("train_cli", train_cli_slice, dev, phase6_s_step, finetune_paths)
         baseline_runs, baseline_files = timed("baselines", baselines_slice, dev)
         xs_runs = timed("xs", xs_slice, dev, phase4_s_batch, phase6_s_step)
         style_launches, style_paths = timed("style", style_slice, dev, phase4_s_batch)
-        eval_launches = timed("evaluation", evaluation_slice, dev, cli_rates)
+        eval_launches = timed("evaluation", evaluation_slice, dev, cli_rates, finetune_paths)
+        shutil.rmtree(FINETUNE_FILES)
         app_runs = timed("apps", apps_slice, dev, api_paths, baseline_files, style_paths)
     finally:
         shutil.rmtree(KEPT, ignore_errors=True)
@@ -5528,6 +5673,8 @@ def main(argv) -> int:
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         **results[name]})
+        if name == "flash_attention_hpack2":  # the head dims B6 launched at (phase 12)
+            kernels[-1]["head_dims"] = sorted(WIDTHS_LAUNCHED.get(name, ()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -37,17 +37,19 @@ def port_key(path: Sequence[str]) -> str:
     return ".".join((*path[:-1], _LEAF_NAMES.get(path[-1], path[-1])))
 
 
-def _leaf(name: str, value: np.ndarray, rename: Mapping[str, str] = _LEAF_NAMES):
+# the axes of a flax `kernel` in the port's `weight`, by rank (see above)
+_KERNEL_AXES = {1: (0,), 2: (1, 0), 4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
+
+
+def _leaf(name: str, value, rename: Mapping[str, str] = _LEAF_NAMES):
+    """(the port's leaf name, the value in the port's layout) of a flax
+    leaf; `value` a numpy array or a torch tensor (permuted as a view)."""
     if name == "kernel":
-        if value.ndim == 1:
-            return "weight", value
-        if value.ndim == 2:
-            return "weight", value.T
-        if value.ndim == 4:
-            return "weight", value.transpose(3, 2, 0, 1)
-        if value.ndim == 5:
-            return "weight", value.transpose(0, 4, 3, 1, 2)
-        raise ValueError(f"kernel of rank {value.ndim}")
+        axes = _KERNEL_AXES.get(value.ndim)
+        if axes is None:
+            raise ValueError(f"kernel of rank {value.ndim}")
+        return "weight", (value.permute(axes) if isinstance(value, torch.Tensor)
+                          else value.transpose(axes))
     return rename.get(name, name), value
 
 

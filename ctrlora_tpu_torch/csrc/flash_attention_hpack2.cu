@@ -14,7 +14,10 @@
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at [8, 4096, 8,
 // 40] the two products are 171.8 GFLOP, 0.174 ms at the tensor-core peak;
 // the exp2 of every logit (1.07e9 a call, 16 a clock on each SM's MUFU
-// pipe) about 0.29 ms, a ceiling above it.
+// pipe) about 0.29 ms, a ceiling above it. At ControlNet-XS's control
+// stream (D = 8/16/32 at 64^2/32^2/16^2, [8, 4096, 8, 8] and smaller) the
+// products shrink with D (34.4 GFLOP at D = 8, 0.035 ms) while the exp2s
+// do not: MUFU and the key stream bound it there.
 //
 // The TPU kernel built block-diagonal K and V operands so that one product
 // filled 80 of the MXU's 128 lanes instead of 40. On tensor cores those
@@ -56,9 +59,16 @@
 // its wgmma.fence and after its commit, and the role branch is on a
 // warp-uniform index (a divergent one made ptxas serialise, C7520).
 //
+// Small head dims (D = 8/16/32) keep the same layout: each head's box of D
+// columns lands in 128-byte rows (16, 32 or 64 bytes of data each), the QK
+// contraction runs over DP = 16, 16 and 32 columns (k-steps 1, 1 and 2), and
+// the PV product is m64n8, m64n16 or m64n32 beside the m64n8 row sum. A box
+// of D columns under the 32B or 64B swizzle would cut the ring's shared
+// memory, not its traffic from L2 (TMA reads D columns either way).
+//
 // The launcher takes (batch, sequence, head) strides of q, k, v and out, so
 // the split views of a fused projection need no copy; Sq and Sk must be
-// multiples of 128; H even; D = 40 or 64.
+// multiples of 128; H even; D = 8, 16, 32, 40 or 64.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -89,7 +99,9 @@ struct Hp2Cfg {
   static constexpr int ONES_OFF = STAGES * STAGE;
   static constexpr int BAR_OFF = ONES_OFF + ONES;
   static constexpr int BYTES = BAR_OFF + 8 * 2 * STAGES + 1024;  // + alignment slack
-  static_assert((D == 40 || D == 64) && STAGES >= 3 && BYTES <= 232448, "tile shape");
+  static_assert((D == 8 || D == 16 || D == 32 || D == 40 || D == 64) && STAGES >= 3 &&
+                    BYTES <= 232448,
+                "tile shape");
   // setmaxnreg only moves registers the block got at launch
   static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
   static_assert(CONSUMERS * REGS + 128 * 24 <= THREADS * LAUNCH_REGS, "register file");
@@ -130,8 +142,8 @@ flash_hpack2(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUt
   // 0): a role branch on it is not divergent
   const int cw = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  // The ring starts as zeros (TMA never writes a D = 40 box's columns past
-  // D), the ones tile as bf16 1.0
+  // The ring starts as zeros (TMA never writes a box's columns past D
+  // where D < 64), the ones tile as bf16 1.0
   {
     uint4* z = reinterpret_cast<uint4*>(smem);
     for (int i = threadIdx.x; i < (C::ONES_OFF + C::ONES) / 16; i += C::THREADS)
@@ -318,8 +330,8 @@ void hpack2_config(int* out) {
 }  // namespace ctrlora
 
 // q, k, v, out: [B, H, S, D] views given by (batch, sequence, head) strides
-// (elements); lse fp32 [B, H, Sq] contiguous. H even, D = 40 or 64, Sq and
-// Sk multiples of 128.
+// (elements); lse fp32 [B, H, Sq] contiguous. H even, D = 8, 16, 32, 40 or
+// 64, Sq and Sk multiples of 128.
 extern "C" int ctrlora_flash_hpack2(const void* q, const void* k, const void* v, void* out,
                                     void* lse, int B, int H, int Sq, int Sk, int D,
                                     long long qb, long long qs, long long qh,
@@ -331,25 +343,26 @@ extern "C" int ctrlora_flash_hpack2(const void* q, const void* k, const void* v,
   const long long st[12] = {qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh};
   const float sl2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 40)
-    err = launch_hpack2<40>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
-  else if (D == 64)
-    err = launch_hpack2<64>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  switch (D) {
+    case 8: return static_cast<int>(launch_hpack2<8>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s));
+    case 16: return static_cast<int>(launch_hpack2<16>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s));
+    case 32: return static_cast<int>(launch_hpack2<32>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s));
+    case 40: return static_cast<int>(launch_hpack2<40>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s));
+    case 64: return static_cast<int>(launch_hpack2<64>(q, k, v, out, lse, B, H, Sq, Sk, st, sl2, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // the tiling at head dim D: consumer warpgroups, query rows of a
 // warpgroup, keys a tile, ring stages, dynamic shared-memory bytes
 extern "C" int ctrlora_flash_hpack2_config(int D, int* out) {
   using namespace ctrlora;
-  if (D == 40)
-    hpack2_config<40>(out);
-  else if (D == 64)
-    hpack2_config<64>(out);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
+  switch (D) {
+    case 8: hpack2_config<8>(out); return 0;
+    case 16: hpack2_config<16>(out); return 0;
+    case 32: hpack2_config<32>(out); return 0;
+    case 40: hpack2_config<40>(out); return 0;
+    case 64: hpack2_config<64>(out); return 0;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -25,7 +25,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ctrlora_tpu_torch import convert
 from ctrlora_tpu_torch.configs import CLIPTextConfig
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
 from ctrlora_tpu_torch.models.ip_adapter import (
@@ -121,8 +120,7 @@ class CLIPScorer:
             hidden_size=hid, intermediate_size=4 * hid, num_layers=layers("text_model"),
             num_heads=hid // 64, layer="projected",
             projection_dim=int(np.shape(sd["text_projection.weight"])[0]))
-        ttree, _ = bridge.convert_tree(sd, bridge.clip_entries(tcfg), prefix="text_model.")
-        tstate = convert.params_from_jax(ttree)
+        tstate = bridge.port_entries(sd, bridge.clip_entries(tcfg), prefix="text_model.")
         tstate["text_projection.weight"] = torch.from_numpy(
             np.array(sd["text_projection.weight"], np.float32))
         pw = np.shape(sd["vision_model.embeddings.patch_embedding.weight"])

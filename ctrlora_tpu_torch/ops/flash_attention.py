@@ -464,7 +464,8 @@ class _FlashHpack2(_FlashBSHD):
         return out, lse
 
 
-HPACK2_HEAD_DIMS = (40, 64)  # kernel B6's instantiations (H even, 2*D <= 128)
+# kernel B6's instantiations: every head dim of FORWARD_HEAD_DIMS with 2*D <= 128
+HPACK2_HEAD_DIMS = (8, 16, 32, 40, 64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -499,11 +500,12 @@ class Hpack2Plan:
 
 @functools.lru_cache(maxsize=None)
 def hpack2_plan(d: int) -> Hpack2Plan:
-    """Kernel B6's tiling at head dim d (40 or 64): three consumer
+    """Kernel B6's tiling at head dim d (8, 16, 32, 40 or 64): three consumer
     warpgroups of 64 query rows at 160 registers beside a producer
     warpgroup (four consumers would have ~112 registers and spill); 64-key
     tiles, each stage holding K and V of both heads, four boxes of 128-byte
-    rows; up to six stages in 200 KB beside a 16-row tile of ones."""
+    rows (a head's D columns and zeros past them); up to six stages in 200
+    KB beside a 16-row tile of ones."""
     if d not in HPACK2_HEAD_DIMS:
         raise ValueError(f"flash_attention_hpack2: head dim {d} not in {HPACK2_HEAD_DIMS}")
     consumers, keys, regs = 3, 64, 160
@@ -663,11 +665,10 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
 
 def _hpack_ok(heads: int, dim_head: int) -> bool:
     """The JAX rule for the head-pair kernel: hpack=N with N >= 2, an even
-    head count and a pair no wider than 128; and a head dim B6 is built for
-    (40, 64). JAX's rule also takes D = 8/16/32 (ControlNet-XS's control
-    stream, under hpack=2 and qkvpack=0 only): those take B's BSHD entry."""
+    head count and a pair no wider than 128. B6 is built for every head dim
+    of that rule that :func:`flash_kernel_ok` admits (HPACK2_HEAD_DIMS)."""
     return ((kernel_flags.flags().head_pack or 1) > 1 and heads % 2 == 0
-            and 2 * dim_head <= 128 and dim_head in HPACK2_HEAD_DIMS)
+            and 2 * dim_head <= 128)
 
 
 def dot_product_attention_bshd(q, k, v, scale: Optional[float] = None,

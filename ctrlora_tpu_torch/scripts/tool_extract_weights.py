@@ -66,10 +66,9 @@ def load_control_tree(args) -> Tuple[StateDict, ModelConfig]:
             if key.startswith("control."):
                 state[key[len("control."):]].copy_(value)
         return state, cfg
-    sd = bridge.load_torch_state_dict(args.ckpt)
-    tree, _ = bridge.convert_tree(sd, bridge.controlnet_entries(cfg.control),
-                                  prefix="control_model.", strict=False)
-    _merge(state, tree)
+    sd = bridge.load_torch_tensors(args.ckpt)
+    _merge(state, bridge.port_entries(sd, bridge.controlnet_entries(cfg.control),
+                                      prefix="control_model."))
     for slot, task in enumerate(cfg.tasks or [None]):
         load_lora_slot_into(cfg, States({}, state, {}, {}), sd, slot, task=task)
     return state, cfg

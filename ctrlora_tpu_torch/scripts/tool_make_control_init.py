@@ -41,11 +41,11 @@ def fresh_control_state(cfg: ControlNetConfig) -> Dict[str, torch.Tensor]:
 
 def make_control_init(sd: Dict[str, np.ndarray], cfg: ControlNetConfig
                       ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-    """(control_model.* arrays, the control keys the SD file does not have)."""
+    """(control_model.* arrays, the control keys the SD file does not have);
+    `sd` holds numpy arrays or tensors."""
     state = fresh_control_state(cfg)
-    src, _ = bridge.convert_tree(sd, bridge.unet_entries(cfg.unet, decoder=False),
-                                 prefix="model.diffusion_model.", strict=False)
-    _merge(state, src)
+    _merge(state, bridge.port_entries(sd, bridge.unet_entries(cfg.unet, decoder=False),
+                                      prefix="model.diffusion_model."))
     out = bridge.export_tree(state, bridge.controlnet_entries(cfg), prefix="control_model.")
     new = [t for t, _, _ in bridge.controlnet_entries(cfg)
            if "model.diffusion_model." + t not in sd]
@@ -64,7 +64,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
     """Writes --output_path and returns what it wrote."""
     args = build_parser().parse_args(argv)
     cfg = ControlNetConfig(hint_mode=args.hint_mode, lora=LoRAConfig(n_loras=0))
-    out, new = make_control_init(bridge.load_torch_state_dict(args.sd_ckpt), cfg)
+    out, new = make_control_init(bridge.load_torch_tensors(args.sd_ckpt), cfg)
     for k in new:
         print(f"These weights are newly added: control_model.{k}")
     os.makedirs(os.path.dirname(os.path.abspath(args.output_path)), exist_ok=True)

@@ -36,7 +36,6 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ctrlora_tpu_torch import convert
 from ctrlora_tpu_torch.api import CtrLoRA
 from ctrlora_tpu_torch.configs import CLIPTextConfig, ModelConfig, ctrlora_inference_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
@@ -162,8 +161,7 @@ class StyleCtrLoRA(CtrLoRA):
         ``text_projection.weight``."""
         cfg = self.neg_text_cfg
         sd = bridge.load_torch_state_dict(text_encoder_ckpt)
-        tree, _ = bridge.convert_tree(sd, bridge.clip_entries(cfg), prefix="text_model.")
-        state = convert.params_from_jax(tree)
+        state = bridge.port_entries(sd, bridge.clip_entries(cfg), prefix="text_model.")
         state["text_projection.weight"] = torch.from_numpy(sd["text_projection.weight"])
         with self.device:
             model = CLIPTextModel(cfg)

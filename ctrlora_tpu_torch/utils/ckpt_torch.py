@@ -10,10 +10,10 @@ and a flax path maps onto the port's state-dict key through
 with the JAX package, not a second one.
 
 Layouts: the reference and the port are both torch, so a Linear [out, in] or
-Conv [out, in, k, k] weight has the same layout in both; the loader passes
-through the flax layout (``convert_tree`` transposes as JAX does, then
-``params_from_jax`` transposes back). LoRA: reference down [rank, in] / up
-[out, rank] <-> port banks ``lora_down`` [n, in, rank] / ``lora_up``
+Conv [out, in, k, k] weight has the same layout in both; ``port_entries``
+composes the flax transpose with ``convert._leaf``'s transpose back, so a
+file's tensor reaches the port's key as a view of itself. LoRA: reference
+down [rank, in] / up [out, rank] <-> port banks ``lora_down`` [n, in, rank] / ``lora_up``
 [n, rank, out]; switchable zero convs and transformer norms are [n]-banks.
 
 ``.ckpt``/``.pth`` load through ``torch.load`` (a nested ``state_dict`` is
@@ -45,12 +45,25 @@ T_CONV_W = "conv_w"
 T_COPY = "copy"
 
 
-def _tfm(kind: str, x: np.ndarray) -> np.ndarray:
+def _tfm_axes(kind: str, ndim: int) -> Optional[Tuple[int, ...]]:
+    """The axes that take a reference weight to the flax layout (None: as
+    it is)."""
     if kind == T_LINEAR_W:
-        return np.ascontiguousarray(x.T)
+        return tuple(reversed(range(ndim)))
     if kind == T_CONV_W:
-        return np.ascontiguousarray(np.transpose(x, (2, 3, 1, 0)))
-    return x
+        return (2, 3, 1, 0)
+    return None
+
+
+def _tfm(kind: str, x: np.ndarray) -> np.ndarray:
+    axes = _tfm_axes(kind, x.ndim)
+    return x if axes is None else np.ascontiguousarray(np.transpose(x, axes))
+
+
+def _tfm_view(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """``_tfm`` on a torch tensor, as a view (no copy)."""
+    axes = _tfm_axes(kind, x.ndim)
+    return x if axes is None else x.permute(axes)
 
 
 Entry = Tuple[str, Tuple[str, ...], str]
@@ -426,18 +439,11 @@ def clip_entries(cfg: CLIPTextConfig) -> List[Entry]:
 # reference files -> port state dicts
 # ---------------------------------------------------------------------------
 
-def _set(tree: dict, path: Tuple[str, ...], value) -> None:
-    node = tree
-    for p in path[:-1]:
-        node = node.setdefault(p, {})
-    node[path[-1]] = value
-
-
-def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """A .ckpt/.pth/.safetensors file -> {name: fp32 np.ndarray}; a nested
-    'state_dict' (Lightning checkpoints) is unwrapped. The reference's
-    checkpoints are pickles with non-tensor entries, so ``torch.load`` runs
-    with ``weights_only=False``: load only files you trust."""
+def _read_file(path: str) -> dict:
+    """A .ckpt/.pth/.safetensors file's entries (a nested 'state_dict',
+    as in Lightning checkpoints, unwrapped). The reference's checkpoints
+    are pickles with non-tensor entries, so ``torch.load`` runs with
+    ``weights_only=False``: load only files you trust."""
     if path.endswith(".safetensors"):
         try:
             import safetensors.numpy
@@ -446,27 +452,37 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
                               f"package, which is not installed") from e
         return {k: np.asarray(v, np.float32) for k, v in safetensors.numpy.load_file(path).items()}
     sd = torch.load(path, map_location="cpu", weights_only=False)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
+    return sd["state_dict"] if "state_dict" in sd else sd
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference file -> {name: fp32 np.ndarray} (see ``_read_file``)."""
     return {k: v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
-            for k, v in sd.items() if hasattr(v, "shape")}
+            for k, v in _read_file(path).items() if hasattr(v, "shape")}
 
 
-def convert_tree(sd: Dict[str, np.ndarray], entries: Sequence[Entry], prefix: str = "",
-                 strict: bool = True) -> Tuple[dict, List[str]]:
-    """Reference state dict -> flax-layout {'params': ...} tree, as the JAX
-    package's ``convert_tree``. Returns (tree, missing keys)."""
-    tree: dict = {}
-    missing: List[str] = []
+def load_torch_tensors(path: str) -> Dict[str, torch.Tensor]:
+    """A reference file -> {name: CPU tensor in the file's dtype}: what
+    ``load_torch_state_dict`` reads, without widening or copying the
+    tensors (other arrays become fp32 tensors)."""
+    return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v, np.float32))
+            for k, v in _read_file(path).items() if hasattr(v, "shape")}
+
+
+def port_entries(sd: Dict[str, torch.Tensor], entries: Sequence[Entry], prefix: str = ""
+                 ) -> Dict[str, torch.Tensor]:
+    """The file's tensors (or numpy arrays) under `entries` straight in the
+    port's layout: {port key: tensor}, what ``convert.params_from_jax``
+    makes of the JAX package's ``convert_tree`` tree (keys the file lacks
+    are left out), without the flax layout in between: the two transposes
+    cancel, so each value is a view of the file's tensor (in its dtype)."""
+    out: Dict[str, torch.Tensor] = {}
     for tkey, fpath, kind in entries:
         full = prefix + tkey
-        if full not in sd:
-            missing.append(full)
-            continue
-        _set(tree, ("params", *fpath), _tfm(kind, np.asarray(sd[full], np.float32)))
-    if strict and missing:
-        raise KeyError(f"{len(missing)} missing keys, first: {missing[:5]}")
-    return tree, missing
+        if full in sd:
+            name, value = convert._leaf(fpath[-1], _tfm_view(kind, torch.as_tensor(sd[full])))
+            out[".".join((*fpath[:-1], name))] = value
+    return out
 
 
 def _write_bank(state: StateDict, fpath: Tuple[str, ...], leaf: str, flax_value: np.ndarray,

@@ -13,7 +13,10 @@ The reference's three-stage partial load:
 
 The result is in the port's state-dict layout (``convert.params_from_jax``):
 fp32 CPU tensors, the control dict unfused with its [n] banks, ready for
-``lora_fuse.fuse_control_tree`` or for an unfused pipeline.
+``lora_fuse.fuse_control_tree`` or for an unfused pipeline. The SD and
+Base-ControlNet files map onto it key by key (``ckpt_torch.port_entries``:
+the file's tensor, widened to fp32 once), and only the keys no file fills
+are copied from the modules.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ctrlora_tpu_torch import convert
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline, build_control
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
 
@@ -42,34 +44,35 @@ def check_key(k: str) -> bool:
     return "lora_layer" in k or "zero_convs" in k or "middle_block_out" in k or "norm" in k
 
 
-def _merge(dst: StateDict, tree: dict) -> None:
-    """Copy a flax-layout tree into a port state dict, through
-    ``convert.params_from_jax``; raises on a key or shape the module lacks."""
-    if not tree:
-        return
-    for key, value in convert.params_from_jax(tree).items():
+def _merge(dst: StateDict, values: Dict[str, torch.Tensor]) -> None:
+    """Copy port-layout tensors ({port key: tensor}, as
+    ``ckpt_torch.port_entries`` gives them) into a port state dict as new
+    fp32 CPU tensors; raises on a key or shape the module lacks."""
+    for key, value in values.items():
         if key not in dst:
             raise KeyError(f"checkpoint maps to {key!r}, which the module does not have")
         if dst[key].shape != value.shape:
             raise ValueError(f"shape mismatch for {key}: {tuple(dst[key].shape)} vs "
                              f"{tuple(value.shape)}")
-        dst[key] = value.float()
+        dst[key] = value.to("cpu", torch.float32, copy=True,
+                            memory_format=torch.contiguous_format)
 
 
-def load_sd_into(cfg, states: States, sd: Dict[str, np.ndarray]) -> None:
-    """The SD file's UNet, VAE and CLIP keys; each key the file lacks keeps
-    the state's value (an SD file has no image-prompt keys: those come from
-    the IP-Adapter file)."""
+def load_sd_into(cfg, states: States, sd: Dict[str, torch.Tensor]) -> None:
+    """The SD file's UNet, VAE and CLIP keys (tensors, as
+    ``ckpt_torch.load_torch_tensors`` reads them); each key the file lacks
+    keeps the state's value (an SD file has no image-prompt keys: those
+    come from the IP-Adapter file)."""
     ip = cfg.unet.ip_tokens > 0
     for dst, entries, prefix in (
             (states.unet, bridge.unet_entries(cfg.unet, ip=ip), "model.diffusion_model."),
             (states.vae, bridge.vae_entries(cfg.vae), "first_stage_model."),
             (states.clip, bridge.clip_entries(cfg.clip), "cond_stage_model.transformer.text_model.")):
-        tree, _ = bridge.convert_tree(sd, entries, prefix=prefix, strict=False)
-        _merge(dst, tree)
+        _merge(dst, bridge.port_entries(sd, entries, prefix=prefix))
 
 
-def load_basecn_into(cfg, states: States, sd: Dict[str, np.ndarray], skip: str = "slots") -> None:
+def load_basecn_into(cfg, states: States, sd: Dict[str, torch.Tensor],
+                     skip: str = "slots") -> None:
     """skip='slots': the inference rule, without LoRA, zero convs and norms
     (they come from the LoRA files); skip='lora': the finetune-init rule,
     everything but the LoRA keys."""
@@ -82,13 +85,11 @@ def load_basecn_into(cfg, states: States, sd: Dict[str, np.ndarray], skip: str =
         raise ValueError(f"skip must be 'slots' or 'lora', got {skip!r}")
     if cfg.control.variant == "xs":  # the control keys of the XS tree, into the XS UNet
         sd = {k: v for k, v in sd.items() if keep(k)}
-        tree, _ = bridge.convert_tree(sd, bridge.xs_control_entries(cfg), strict=False)
-        _merge(states.unet, tree)
+        _merge(states.unet, bridge.port_entries(sd, bridge.xs_control_entries(cfg)))
         return
     sd = {k: v for k, v in sd.items() if k.startswith(pfx) and keep(k[len(pfx):])}
-    tree, _ = bridge.convert_tree(sd, bridge.control_entries(cfg.control), prefix=pfx,
-                                  strict=False)
-    _merge(states.control, tree)
+    _merge(states.control, bridge.port_entries(sd, bridge.control_entries(cfg.control),
+                                               prefix=pfx))
 
 
 def load_lora_slot_into(cfg, states: States, sd: Dict[str, np.ndarray], slot: int,
@@ -102,9 +103,12 @@ def load_lora_slot_into(cfg, states: States, sd: Dict[str, np.ndarray], slot: in
     return len(used)
 
 
-def _cpu_state(module: torch.nn.Module) -> StateDict:
-    return {k: v.detach().to("cpu", torch.float32, copy=True)
-            for k, v in module.state_dict().items()}
+def _materialize(state: StateDict, own: StateDict) -> None:
+    """Every value of `state` still one of the module's own tensors (`own`,
+    its state dict) becomes an fp32 CPU copy of it."""
+    for key, value in state.items():
+        if value is own.get(key):
+            state[key] = value.to("cpu", torch.float32, copy=True)
 
 
 def load_ctrlora(pipe: CtrLoraPipeline, sd_file: Optional[str] = None,
@@ -120,13 +124,18 @@ def load_ctrlora(pipe: CtrLoraPipeline, sd_file: Optional[str] = None,
     if pipe.fuse_lora and cfg.control.lora.n_loras > 0:
         with pipe.device:  # initialised where the pipeline lives (fast on a card)
             control = build_control(cfg.control, fuse_lora=False)
-    states = States(_cpu_state(pipe.unet), {} if control is None else _cpu_state(control),
-                    _cpu_state(pipe.vae), _cpu_state(pipe.clip))
+    # the modules' own tensors, not copied: only those no file replaces are
+    # copied (``_materialize``)
+    own = States(pipe.unet.state_dict(), {} if control is None else control.state_dict(),
+                 pipe.vae.state_dict(), pipe.clip.state_dict())
+    states = States(*(dict(s) for s in own))
     if sd_file:
-        load_sd_into(cfg, states, bridge.load_torch_state_dict(sd_file))
+        load_sd_into(cfg, states, bridge.load_torch_tensors(sd_file))
     if basecn_file:
-        load_basecn_into(cfg, states, bridge.load_torch_state_dict(basecn_file),
+        load_basecn_into(cfg, states, bridge.load_torch_tensors(basecn_file),
                          skip=basecn_skip)
+    for state, mine in zip(states, own):  # the LoRA files write into the banks in place
+        _materialize(state, mine)
     for i, lf in enumerate(lora_files):
         n = load_lora_slot_into(cfg, states, bridge.load_torch_state_dict(lf), i,
                                 task=tasks[i] if tasks else None)

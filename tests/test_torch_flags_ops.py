@@ -151,13 +151,15 @@ def test_group_norm_dispatches_to_onepass(monkeypatch):
 # kernel B6: the head-pair flash forward
 # ---------------------------------------------------------------------------
 
-def test_hpack2_plain_matches_jax_kernel(monkeypatch):
+@pytest.mark.parametrize("d", [8, 16, 32, 40])
+def test_hpack2_plain_matches_jax_kernel(d, monkeypatch):
+    """At the XS control stream's head dims (8/16/32) and the UNet's (40)."""
     taken = []
     real = jfa._fwd_kernel_hpack2
     monkeypatch.setattr(jfa, "_fwd_kernel_hpack2",
                         lambda *a, **k: taken.append(1) or real(*a, **k))
     rng = np.random.default_rng(5)
-    b, s, h, d = 1, 256, 4, 40
+    b, s, h = 1, 256, 4
     q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32) for _ in range(3))
     scale = d ** -0.5
     with jflags.override(head_pack=2):
@@ -200,6 +202,11 @@ def _attention(heads, dim_head, seq):
     ({"attn_qkv_packed": False, "head_pack": 2}, 2, 40, "hpack2"),
     ({"attn_qkv_packed": False, "head_pack": 2}, 3, 40, "bshd"),
     ({"attn_qkv_packed": False, "head_pack": 2}, 2, 80, "bshd"),
+    # ControlNet-XS's control stream: 8 heads of D = 8/16/32
+    ({"attn_qkv_packed": False, "head_pack": 2}, 8, 8, "hpack2"),
+    ({"attn_qkv_packed": False, "head_pack": 2}, 8, 16, "hpack2"),
+    ({"attn_qkv_packed": False, "head_pack": 2}, 8, 32, "hpack2"),
+    ({"attn_qkv_packed": False}, 8, 8, "bshd"),
     ({"fuse_qkv": False, "head_pack": 2}, 2, 40, "hpack2"),
     ({"head_pack": 2}, 2, 40, "qkv")])
 def test_cross_attention_dispatch(spec, heads, dim_head, want, monkeypatch):
@@ -230,6 +237,39 @@ def test_cross_attention_dispatch(spec, heads, dim_head, want, monkeypatch):
     assert (want == "hpack2") == (jhpack and spec.get("attn_qkv_packed", spec.get("fuse_qkv"))
                                   is False)
     _close(out.detach().numpy(), base.detach().numpy())
+
+
+class _Routed(Exception):
+    """Raised by a spy in place of tracing a JAX kernel: which one was taken."""
+
+
+@pytest.mark.parametrize("d", fa_ops.FORWARD_HEAD_DIMS)
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 8])
+def test_hpack_admission_as_jax(heads, d, monkeypatch):
+    """``_hpack_ok`` under hpack=2 equals the JAX BSHD forward's choice of
+    ``_fwd_kernel_hpack2`` over ``_fwd_kernel_packed`` (the spies raise as
+    the kernel is traced, so nothing runs), for every head count and head
+    dim that ``flash_kernel_ok`` admits; where JAX's packed sweep does not
+    fit, JAX takes neither, and no head dim there pairs (2*D > 128)."""
+    s = 256
+    assert fa_ops.flash_kernel_ok((torch.bfloat16,) * 3, s, s, d)
+    for name in ("_fwd_kernel_hpack2", "_fwd_kernel_packed"):
+        monkeypatch.setattr(jfa, name, lambda *a, _n=name, **k: (_ for _ in ()).throw(_Routed(_n)))
+    with jflags.override(head_pack=2):
+        if jfa._packed_ok(s, s, heads, d, jnp.bfloat16):
+            x = jnp.zeros((1, s, heads, d), jnp.bfloat16)
+            with pytest.raises(_Routed) as routed:
+                jfa._flash_forward(x, x, x, d ** -0.5, bshd=True)
+            jax_hpack = routed.value.args[0] == "_fwd_kernel_hpack2"
+        else:
+            jax_hpack = False
+            assert 2 * d > 128
+    with kernel_flags.override(head_pack=2):
+        assert fa_ops._hpack_ok(heads, d) == jax_hpack
+        if jax_hpack:
+            assert d in fa_ops.HPACK2_HEAD_DIMS
+    with kernel_flags.override(head_pack=None):
+        assert not fa_ops._hpack_ok(heads, d)
 
 
 def test_fuse_qkv_off_keeps_projection_weights():

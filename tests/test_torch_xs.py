@@ -130,6 +130,47 @@ def test_xs_unet_matches_jax(mode):
     assert (got - plain).abs().max() > 1e-3  # the control stream changes the output
 
 
+def test_xs_head_pair_route_matches_default_flags(monkeypatch):
+    """The XS UNet (``BASE`` with its flash sites on, control ratio 0.5) at a
+    32x32 latent, so its attention runs at S = 256 where the kernel rule
+    admits it, under hpack=2 and qkvpack=0 against the default flags. With
+    fp32 admitted the wrappers run their plain versions on these CPU
+    tensors: the flagged run takes B6's entry at the control stream's and
+    the base stream's head dims, the default run the fused-qkv entry, and
+    the two agree within rtol 2e-3 / atol 2e-4. A slip in the views the
+    B6 route passes (head split, strides) would show here."""
+    from ctrlora_tpu_torch.ops import flash_attention as fa_ops
+    from ctrlora_tpu_torch.ops import kernel_flags
+
+    cfg = configs.UNetConfig(**{**BASE, "use_flash_attention": True})
+    torch.manual_seed(3)
+    model = XSUNet(cfg, hint_channels=3, control_model_ratio=RATIO).eval()
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not p.any():  # the zero convs and zero-initialised layers carry signal
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    i = _inputs(12, lat=32)
+    dims = {"flash_attention_hpack2": [], "flash_attention_qkv": [], "flash_attention_bshd": []}
+    for name in dims:
+        real = getattr(fa_ops, name)
+        monkeypatch.setattr(fa_ops, name, lambda *a, _n=name, _r=real, **k: dims[_n].append(
+            a[0].shape[-1] if a[0].ndim == 4 else a[2]) or _r(*a, **k))
+    monkeypatch.setattr(fa_ops, "KERNEL_DTYPES", (torch.float32,))
+    run = lambda: model(_t(i["x"]), _t(i["t"]), _t(i["ctx"]), hint=_t(i["hint"]))
+    with torch.no_grad():
+        base = run()
+        assert dims["flash_attention_qkv"] and not dims["flash_attention_hpack2"]
+        dims["flash_attention_qkv"].clear()
+        with kernel_flags.override(head_pack=2, attn_qkv_packed=False):
+            flagged = run()
+    assert not dims["flash_attention_qkv"] and not dims["flash_attention_bshd"]
+    # the control stream's heads are half the base stream's width
+    assert set(dims["flash_attention_hpack2"]) == {16, 32}
+    _close(flagged.numpy(), base.numpy())
+    assert (flagged - base).abs().max() > 0  # two routes, two sums
+
+
 def test_xs_no_control_is_the_plain_unet():
     jmodel, params, model, i = _xs_pair(MODES[0], 20)
     args = (jnp.asarray(i["x"]), jnp.asarray(i["t"]), jnp.asarray(i["ctx"]))
