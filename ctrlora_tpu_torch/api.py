@@ -27,7 +27,6 @@ only.
 from __future__ import annotations
 
 import os
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -38,9 +37,13 @@ from ctrlora_tpu_torch.configs import ModelConfig, ctrlora_inference_config
 from ctrlora_tpu_torch.models.unet import encoder_plan
 from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_sample
+from ctrlora_tpu_torch.utils import trace
 from ctrlora_tpu_torch.utils.image import HWC3, center_crop_to_common
 from ctrlora_tpu_torch.utils.loading import load_ctrlora
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
+
+# each key a sampling call's `timings` dict takes, and the span it is read from
+TIMINGS = {"prep_s": "sample.prep", "ddim_s": "sample.sampler", "decode_s": "sample.decode"}
 
 
 class CtrLoRA:
@@ -153,36 +156,41 @@ class CtrLoRA:
         the guidance batch without control (pair it with decayed
         control_scales, as the gradio app does). With a `timings` dict, the
         device is synchronised at the phase boundaries and prep_s / ddim_s /
-        decode_s are written into it."""
+        decode_s, the host seconds of the call's spans (``TIMINGS``), are
+        written into it."""
         pipe = self.pipe
-        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
-            else (lambda: None)
-        t0 = time.perf_counter()
-        h, w = images[0].shape[:2]
-        f = 2 ** (len(self.cfg.vae.ch_mult) - 1)
-        ctx, unc = pipe.encode_text_cond_uncond(self.token_ids(prompt, num_samples),
-                                                self.token_ids(n_prompt, num_samples))
-        conds = self.conditions(images, num_samples, lora_weights)
-        if control_scales is not None and len(control_scales) != self.n_taps:
-            raise ValueError(f"control_scales needs {self.n_taps} values")
-        shape = (num_samples, h // f, w // f, 4)
-        gen = torch.Generator().manual_seed(seed)
-        x_T = torch.randn(shape, generator=gen)
-        if timings is not None:
-            sync()
-            t1 = time.perf_counter()
-        z = ddim_sample(pipe, ctx, unc, conds, shape,
-                        DDIMConfig(steps=ddim_steps, guidance_scale=scale, eta=eta,
-                                   guess_mode=guess_mode), x_T=x_T, generator=gen,
-                        control_scales=control_scales)
-        if timings is not None:
-            sync()
-            t2 = time.perf_counter()
-        img = pipe.decode_first_stage(z)
-        if timings is not None:
-            sync()
-            timings.update(prep_s=t1 - t0, ddim_s=t2 - t1, decode_s=time.perf_counter() - t2)
+        sync = self._timing_sync(timings)
+        with trace.timings_into(timings, **TIMINGS), trace.span("sample.request"):
+            with trace.span("sample.prep"):
+                h, w = images[0].shape[:2]
+                f = 2 ** (len(self.cfg.vae.ch_mult) - 1)
+                ctx, unc = pipe.encode_text_cond_uncond(self.token_ids(prompt, num_samples),
+                                                        self.token_ids(n_prompt, num_samples))
+                conds = self.conditions(images, num_samples, lora_weights)
+                if control_scales is not None and len(control_scales) != self.n_taps:
+                    raise ValueError(f"control_scales needs {self.n_taps} values")
+                shape = (num_samples, h // f, w // f, 4)
+                gen = torch.Generator().manual_seed(seed)
+                x_T = torch.randn(shape, generator=gen)
+                sync()
+            with trace.span("sample.sampler"):
+                z = ddim_sample(pipe, ctx, unc, conds, shape,
+                                DDIMConfig(steps=ddim_steps, guidance_scale=scale, eta=eta,
+                                           guess_mode=guess_mode), x_T=x_T, generator=gen,
+                                control_scales=control_scales)
+                sync()
+            with trace.span("sample.decode"):
+                img = pipe.decode_first_stage(z)
+                sync()
         return img
+
+    def _timing_sync(self, timings: Optional[dict]):
+        """What ends each phase of a sampling call: with `timings` asked for
+        on the card, a synchronise, so each phase's span holds its device
+        time; else nothing."""
+        if timings is not None and self.device.type == "cuda":
+            return lambda: torch.cuda.synchronize(self.device)
+        return lambda: None
 
     def _sample_images(self, images, prompt, n_prompt, num_samples, ddim_steps, scale,
                        lora_weights, seed, eta: float = 0.0, guess_mode: bool = False,

@@ -122,6 +122,9 @@ def _compile(so: Path) -> None:
         obj.unlink()
     so.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, so)
+    from ctrlora_tpu_torch.utils import trace
+
+    trace.count("kernels.built")
 
 
 def ptxas_report() -> str:

@@ -39,6 +39,7 @@ from ctrlora_tpu_torch.models.unet import ControlNet, UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
 from ctrlora_tpu_torch.models.xs import XSUNet
 from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
+from ctrlora_tpu_torch.utils import trace
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
 
 
@@ -331,32 +332,36 @@ class CtrLoraPipeline:
         mask, a condition's weight and any further condition there; the
         port raises on a mask, on scales other than ones, on a weight other
         than 1 and on more than one condition."""
-        if self.is_xs:
-            if ip_context is not None or kv_rows is not None:
-                raise ValueError("ControlNet-XS takes no ip_context and no kv_rows (JAX "
-                                 "ignores them)")
-            return self._apply_xs(x_noisy, t, context, conds, control_scales,
-                                  control_batch_mask)
-        n_ip = self.cfg.unet.ip_tokens
-        if (ip_context is None) != (n_ip == 0) or (n_ip and ip_context.shape[1] != n_ip):
-            got = None if ip_context is None else tuple(ip_context.shape)
-            raise ValueError(f"the UNet takes {n_ip} image-prompt tokens; ip_context is {got}")
-        control = None
-        if conds:
-            control = self.apply_control(
-                x_noisy, t, context, conds, control_scales,
-                emb_rows=emb_rows["control"] if emb_rows is not None else None,
-                kv_rows=kv_rows["control"] if kv_rows is not None else None)
-            if control_batch_mask is not None:
-                m = control_batch_mask.reshape(-1, 1, 1, 1)
-                control = tuple(c * m.to(c.dtype) for c in control)
-        if ip_context is not None:
-            context = torch.cat([context, ip_context.to(context.dtype)], dim=1)
-        return self.unet(x_noisy, t, context, control=control,
-                         emb_rows=emb_rows["unet"] if emb_rows is not None else None,
-                         only_mid_control=self.cfg.diffusion.only_mid_control,
-                         control_mode=self.control_mode,
-                         kv_rows=kv_rows["unet"] if kv_rows is not None else None)
+        with trace.span("model.call"):
+            if self.is_xs:
+                if ip_context is not None or kv_rows is not None:
+                    raise ValueError("ControlNet-XS takes no ip_context and no kv_rows (JAX "
+                                     "ignores them)")
+                return self._apply_xs(x_noisy, t, context, conds, control_scales,
+                                      control_batch_mask)
+            n_ip = self.cfg.unet.ip_tokens
+            if (ip_context is None) != (n_ip == 0) or (n_ip and ip_context.shape[1] != n_ip):
+                got = None if ip_context is None else tuple(ip_context.shape)
+                raise ValueError(f"the UNet takes {n_ip} image-prompt tokens; ip_context is "
+                                 f"{got}")
+            control = None
+            if conds:
+                with trace.span("model.control"):
+                    control = self.apply_control(
+                        x_noisy, t, context, conds, control_scales,
+                        emb_rows=emb_rows["control"] if emb_rows is not None else None,
+                        kv_rows=kv_rows["control"] if kv_rows is not None else None)
+                    if control_batch_mask is not None:
+                        m = control_batch_mask.reshape(-1, 1, 1, 1)
+                        control = tuple(c * m.to(c.dtype) for c in control)
+            if ip_context is not None:
+                context = torch.cat([context, ip_context.to(context.dtype)], dim=1)
+            with trace.span("model.unet"):
+                return self.unet(x_noisy, t, context, control=control,
+                                 emb_rows=emb_rows["unet"] if emb_rows is not None else None,
+                                 only_mid_control=self.cfg.diffusion.only_mid_control,
+                                 control_mode=self.control_mode,
+                                 kv_rows=kv_rows["unet"] if kv_rows is not None else None)
 
     def _apply_xs(self, x_noisy, t, context, conds, control_scales, control_batch_mask):
         if control_batch_mask is not None:
@@ -369,4 +374,5 @@ class CtrLoraPipeline:
             raise ValueError("ControlNet-XS takes one condition at weight 1 (JAX uses the "
                              "first condition's hint only)")
         hint = conds[0].hint if conds else None
-        return self.unet(x_noisy, t, context, hint=hint, no_control=not conds)
+        with trace.span("model.unet"):
+            return self.unet(x_noisy, t, context, hint=hint, no_control=not conds)

@@ -26,6 +26,7 @@ from ctrlora_tpu_torch.sampling.common import (
     draw_normal, initial_latents, make_emb_row_tables, make_guided_eps_fn,
 )
 from ctrlora_tpu_torch.schedules import DDIMSchedule, make_ddim_schedule
+from ctrlora_tpu_torch.utils import trace
 
 f32 = np.float32
 
@@ -115,25 +116,26 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     sched = pipe.schedule
     v_param = v_model(pipe)
     for i, k in enumerate(order):
-        t = int(ts_seq[i])
-        a_t, a_prev = f32(dd.alphas[k]), f32(dd.alphas_prev[k])
-        s1m, sigma = f32(dd.sqrt_one_minus_alphas[k]), f32(dd.sigmas[k])
-        if mask is not None:
-            img_orig = (float(sched.sqrt_alphas_cumprod[t]) * x0
-                        + float(sched.sqrt_one_minus_alphas_cumprod[t]) * mask_noise[i])
-            img = img_orig * mask + keep_img * img
-        out = eps_fn(img, t, rows_of(packed[i]), scales[i])
-        if v_param:  # schedules.predict_*_from_z_and_v with the step's scalars
-            sa = float(sched.sqrt_alphas_cumprod[t])
-            sb = float(sched.sqrt_one_minus_alphas_cumprod[t])
-            e_t, pred_x0 = sa * out + sb * img, sa * img - sb * out
-        else:
-            e_t = out
-            pred_x0 = (img - float(s1m) * e_t) / float(np.sqrt(a_t))
-        dir_coef = np.sqrt(np.maximum(f32(1.0) - a_prev - sigma * sigma, f32(0.0)))
-        img = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
-        if stochastic:
-            img = img + float(sigma * f32(cfg.temperature)) * noise[i]
+        with trace.span("ddim.step", i):
+            t = int(ts_seq[i])
+            a_t, a_prev = f32(dd.alphas[k]), f32(dd.alphas_prev[k])
+            s1m, sigma = f32(dd.sqrt_one_minus_alphas[k]), f32(dd.sigmas[k])
+            if mask is not None:
+                img_orig = (float(sched.sqrt_alphas_cumprod[t]) * x0
+                            + float(sched.sqrt_one_minus_alphas_cumprod[t]) * mask_noise[i])
+                img = img_orig * mask + keep_img * img
+            out = eps_fn(img, t, rows_of(packed[i]), scales[i])
+            if v_param:  # schedules.predict_*_from_z_and_v with the step's scalars
+                sa = float(sched.sqrt_alphas_cumprod[t])
+                sb = float(sched.sqrt_one_minus_alphas_cumprod[t])
+                e_t, pred_x0 = sa * out + sb * img, sa * img - sb * out
+            else:
+                e_t = out
+                pred_x0 = (img - float(s1m) * e_t) / float(np.sqrt(a_t))
+            dir_coef = np.sqrt(np.maximum(f32(1.0) - a_prev - sigma * sigma, f32(0.0)))
+            img = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
+            if stochastic:
+                img = img + float(sigma * f32(cfg.temperature)) * noise[i]
     return img
 
 

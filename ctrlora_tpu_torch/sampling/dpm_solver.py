@@ -29,6 +29,7 @@ from ctrlora_tpu_torch.sampling.common import (
     initial_latents, make_emb_row_tables, make_guided_eps_fn,
 )
 from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, v_model
+from ctrlora_tpu_torch.utils import trace
 
 f32 = np.float32
 ALGORITHMS = ("dpmsolver++", "dpmsolver")
@@ -126,36 +127,37 @@ def dpm_solver_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     m1 = m2 = None  # the previous two model quantities
     h1 = h2 = f32(1.0)  # and their step sizes
     for i in range(n_steps):
-        a_t, s_t, a_n, s_n, h = alpha[i], sigma[i], alpha[i + 1], sigma[i + 1], hs[i]
-        m0 = m_fn(x, int(nodes[i]), a_t, s_t, rows_of(packed[i]))
-        o = int(ords[i])
-        if data_pred:  # x_t = (s_n/s_t) x - a_n phi_1 m0 [+ a_n phi_2 D1 - a_n phi_3 D2]
-            phi_1 = np.expm1(-h)
-            x_next = float(s_n / s_t) * x - float(a_n * phi_1) * m0
-        else:  # x_t = (a_n/a_t) x - s_n phi_1 m0 [- s_n phi_2 D1 - s_n phi_3 D2]
-            phi_1 = np.expm1(h)
-            x_next = float(a_n / a_t) * x - float(s_n * phi_1) * m0
-        c = a_n if data_pred else s_n
-        if o >= 2:
-            r0 = h1 / h
-            d1_0 = (m0 - m1) / float(r0)
-        if o == 2:
-            x_next = x_next - float(f32(0.5) * c * phi_1) * d1_0
-        elif o == 3:
-            r1 = h2 / h
-            d1_1 = (m1 - m2) / float(r1)
-            d1 = d1_0 + float(r0 / (r0 + r1)) * (d1_0 - d1_1)
-            d2 = (d1_0 - d1_1) / float(r0 + r1)
-            if data_pred:
-                phi_2 = phi_1 / h + f32(1.0)
-                phi_3 = phi_2 / h - f32(0.5)
-                x_next = x_next + float(c * phi_2) * d1 - float(c * phi_3) * d2
-            else:
-                phi_2 = phi_1 / h - f32(1.0)
-                phi_3 = phi_2 / h - f32(0.5)
-                x_next = x_next - float(c * phi_2) * d1 - float(c * phi_3) * d2
-        x = x_next
-        m1, m2, h1, h2 = m0, m1, h, h1
+        with trace.span("dpm.step", i):
+            a_t, s_t, a_n, s_n, h = alpha[i], sigma[i], alpha[i + 1], sigma[i + 1], hs[i]
+            m0 = m_fn(x, int(nodes[i]), a_t, s_t, rows_of(packed[i]))
+            o = int(ords[i])
+            if data_pred:  # x_t = (s_n/s_t) x - a_n phi_1 m0 [+ a_n phi_2 D1 - a_n phi_3 D2]
+                phi_1 = np.expm1(-h)
+                x_next = float(s_n / s_t) * x - float(a_n * phi_1) * m0
+            else:  # x_t = (a_n/a_t) x - s_n phi_1 m0 [- s_n phi_2 D1 - s_n phi_3 D2]
+                phi_1 = np.expm1(h)
+                x_next = float(a_n / a_t) * x - float(s_n * phi_1) * m0
+            c = a_n if data_pred else s_n
+            if o >= 2:
+                r0 = h1 / h
+                d1_0 = (m0 - m1) / float(r0)
+            if o == 2:
+                x_next = x_next - float(f32(0.5) * c * phi_1) * d1_0
+            elif o == 3:
+                r1 = h2 / h
+                d1_1 = (m1 - m2) / float(r1)
+                d1 = d1_0 + float(r0 / (r0 + r1)) * (d1_0 - d1_1)
+                d2 = (d1_0 - d1_1) / float(r0 + r1)
+                if data_pred:
+                    phi_2 = phi_1 / h + f32(1.0)
+                    phi_3 = phi_2 / h - f32(0.5)
+                    x_next = x_next + float(c * phi_2) * d1 - float(c * phi_3) * d2
+                else:
+                    phi_2 = phi_1 / h - f32(1.0)
+                    phi_3 = phi_2 / h - f32(0.5)
+                    x_next = x_next - float(c * phi_2) * d1 - float(c * phi_3) * d2
+            x = x_next
+            m1, m2, h1, h2 = m0, m1, h, h1
     return x
 
 
@@ -290,14 +292,15 @@ def dpm_solver_singlestep_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     orders = singlestep_orders(len(fine) - 1, order)
     outer = fine[np.cumsum([0] + orders)]
     for i, o in enumerate(orders):
-        coeffs = _singlestep_block_coeffs(lam, alpha, sigma, int(outer[i]), int(outer[i + 1]),
-                                          o, data_pred)
-        ts = coeffs[0]
-        av, sv, A, B, C = (np.asarray(c, dtype=f32) for c in coeffs[1:])
-        m0 = m_fn(x, int(ts[0]), av[0], sv[0], None)
-        m_last, x_s = m0, x
-        for j in range(o):
-            x = float(A[j]) * x_s + float(B[j]) * m0 + float(C[j]) * (m_last - m0)
-            if j < o - 1:
-                m_last = m_fn(x, int(ts[j + 1]), av[j + 1], sv[j + 1], None)
+        with trace.span("dpm.step", i):
+            coeffs = _singlestep_block_coeffs(lam, alpha, sigma, int(outer[i]), int(outer[i + 1]),
+                                              o, data_pred)
+            ts = coeffs[0]
+            av, sv, A, B, C = (np.asarray(c, dtype=f32) for c in coeffs[1:])
+            m0 = m_fn(x, int(ts[0]), av[0], sv[0], None)
+            m_last, x_s = m0, x
+            for j in range(o):
+                x = float(A[j]) * x_s + float(B[j]) * m0 + float(C[j]) * (m_last - m0)
+                if j < o - 1:
+                    m_last = m_fn(x, int(ts[j + 1]), av[j + 1], sv[j + 1], None)
     return x

@@ -22,6 +22,7 @@ from ctrlora_tpu_torch.sampling.common import (
 )
 from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, v_model
 from ctrlora_tpu_torch.schedules import make_ddim_schedule
+from ctrlora_tpu_torch.utils import trace
 
 f32 = np.float32
 
@@ -61,16 +62,17 @@ def plms_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
 
     e1 = e2 = e3 = None  # the last three eps, newest first
     for i, k in enumerate(order):
-        e_t = eps_fn(img, int(ts[i]), rows_of(packed[i]))
-        if i == 0:
-            e_next = eps_fn(x_prev(img, e_t, k), int(ts_next[i]), rows_of(packed[i + 1]))
-            e_prime = (e_t + e_next) / 2.0
-        elif i == 1:
-            e_prime = (3.0 * e_t - e1) / 2.0
-        elif i == 2:
-            e_prime = (23.0 * e_t - 16.0 * e1 + 5.0 * e2) / 12.0
-        else:
-            e_prime = (55.0 * e_t - 59.0 * e1 + 37.0 * e2 - 9.0 * e3) / 24.0
-        img = x_prev(img, e_prime, k)
-        e1, e2, e3 = e_t, e1, e2
+        with trace.span("plms.step", i):
+            e_t = eps_fn(img, int(ts[i]), rows_of(packed[i]))
+            if i == 0:
+                e_next = eps_fn(x_prev(img, e_t, k), int(ts_next[i]), rows_of(packed[i + 1]))
+                e_prime = (e_t + e_next) / 2.0
+            elif i == 1:
+                e_prime = (3.0 * e_t - e1) / 2.0
+            elif i == 2:
+                e_prime = (23.0 * e_t - 16.0 * e1 + 5.0 * e2) / 12.0
+            else:
+                e_prime = (55.0 * e_t - 59.0 * e1 + 37.0 * e2 - 9.0 * e3) / 24.0
+            img = x_prev(img, e_prime, k)
+            e1, e2, e3 = e_t, e1, e2
     return img

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 from typing import Optional, Sequence
 
@@ -51,6 +52,7 @@ from ctrlora_tpu_torch.sampling.dpm_solver import (
 )
 from ctrlora_tpu_torch.sampling.plms import plms_sample
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
+from ctrlora_tpu_torch.utils import trace
 from ctrlora_tpu_torch.utils.image import write_png
 from ctrlora_tpu_torch.utils.loading import States, load_ctrlora, load_lora_slot_into
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
@@ -185,34 +187,43 @@ def sample_batch(pipe: CtrLoraPipeline, hint: np.ndarray, ids: np.ndarray, nids:
     return run(hint, ids, nids, *sample_draws(pipe, hint.shape, opts, seed))
 
 
+_REQUESTS = itertools.count()  # the index of each request's span
+
+
 def sample_rows(pipe: CtrLoraPipeline, hint: np.ndarray, ids: np.ndarray, nids: np.ndarray,
                 opts: SampleOptions, x_T: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> np.ndarray:
     """``sample_batch`` on given draws (:func:`sample_draws`, or a rank's
     rows of them)."""
-    dev = pipe.device
-    ctx, unc = pipe.encode_text_cond_uncond(torch.from_numpy(np.asarray(ids)).to(dev),
-                                            torch.from_numpy(np.asarray(nids)).to(dev))
-    hz = pipe.encode_first_stage(torch.from_numpy(np.asarray(hint)).to(dev))
-    n_taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
-    args = (pipe, ctx, unc, [Conditioning(hz)], tuple(x_T.shape),
-            DDIMConfig(steps=opts.steps, guidance_scale=opts.scale, eta=opts.eta))
-    kw = dict(x_T=x_T, control_scales=[opts.strength] * n_taps)
-    if noise is not None:
-        kw["noise"] = noise.transpose(0, 1)
-    if opts.sampler == "ddim":
-        z = ddim_sample(*args, **kw)
-    elif opts.sampler == "plms":
-        z = plms_sample(*args, **kw)
-    elif opts.sampler == "dpm_solver":
-        fn = (dpm_solver_singlestep_sample if opts.dpm_method == "singlestep" else
-              dpm_solver_sample)
-        z = fn(*args, **kw, order=opts.dpm_order, algorithm=opts.dpm_algorithm,
-               thresholding=opts.dpm_thresholding)
-    else:
-        raise ValueError(f"unknown sampler {opts.sampler!r}")
-    img = pipe.decode_first_stage(z)
-    return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8).cpu().numpy()
+    with trace.span("sample.request", next(_REQUESTS)):
+        dev = pipe.device
+        with trace.span("sample.text"):
+            ctx, unc = pipe.encode_text_cond_uncond(torch.from_numpy(np.asarray(ids)).to(dev),
+                                                    torch.from_numpy(np.asarray(nids)).to(dev))
+        with trace.span("sample.hint"):
+            hz = pipe.encode_first_stage(torch.from_numpy(np.asarray(hint)).to(dev))
+        n_taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
+        args = (pipe, ctx, unc, [Conditioning(hz)], tuple(x_T.shape),
+                DDIMConfig(steps=opts.steps, guidance_scale=opts.scale, eta=opts.eta))
+        kw = dict(x_T=x_T, control_scales=[opts.strength] * n_taps)
+        if noise is not None:
+            kw["noise"] = noise.transpose(0, 1)
+        with trace.span("sample.sampler"):
+            if opts.sampler == "ddim":
+                z = ddim_sample(*args, **kw)
+            elif opts.sampler == "plms":
+                z = plms_sample(*args, **kw)
+            elif opts.sampler == "dpm_solver":
+                fn = (dpm_solver_singlestep_sample if opts.dpm_method == "singlestep" else
+                      dpm_solver_sample)
+                z = fn(*args, **kw, order=opts.dpm_order, algorithm=opts.dpm_algorithm,
+                       thresholding=opts.dpm_thresholding)
+            else:
+                raise ValueError(f"unknown sampler {opts.sampler!r}")
+        with trace.span("sample.decode"):
+            img = pipe.decode_first_stage(z)
+        with trace.span("sample.to_host"):
+            return torch.clamp(img.float() * 127.5 + 127.5, 0, 255).to(torch.uint8).cpu().numpy()
 
 
 def parallel_sampler(args: argparse.Namespace):

@@ -30,13 +30,12 @@ default), and the image is preprocessed to the vision tower's own size.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ctrlora_tpu_torch.api import CtrLoRA
+from ctrlora_tpu_torch.api import TIMINGS, CtrLoRA
 from ctrlora_tpu_torch.configs import CLIPTextConfig, ModelConfig, ctrlora_inference_config
 from ctrlora_tpu_torch.models.clip import CLIPTextModel
 from ctrlora_tpu_torch.models.ip_adapter import (
@@ -47,6 +46,7 @@ from ctrlora_tpu_torch.sampling.ddim import (
     DDIMConfig, ddim_decode_from, ddim_sample, ddim_stochastic_encode,
 )
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
+from ctrlora_tpu_torch.utils import trace
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
 
 # the ViT-H CLIP text tower with its projection: the negative-content encoder
@@ -181,45 +181,43 @@ class StyleCtrLoRA(CtrLoRA):
         content image's latent noised to step ``int(ddim_steps *
         img2img_strength)`` and decoded from there. With a `timings` dict,
         the device is synchronised at the phase boundaries and prep_s /
-        ddim_s / decode_s are written into it."""
+        ddim_s / decode_s, read off the call's spans as in
+        ``CtrLoRA._sample_float``, are written into it."""
         pipe, n = self.pipe, num_samples
-        sync = (lambda: torch.cuda.synchronize(self.device)) if self.device.type == "cuda" \
-            else (lambda: None)
-        t0 = time.perf_counter()
-        images = self.prepare_images(cond_images)
-        h, w = images[0].shape[:2]
-        f = 2 ** (len(self.cfg.vae.ch_mult) - 1)
-        ctx, unc = pipe.encode_text_cond_uncond(self.token_ids(prompt, n),
-                                                self.token_ids(n_prompt, n))
-        conds = self.conditions(images, n, lora_weights)
-        ip = style_tokens.to(self.device).repeat_interleave(n, dim=0)
-        unc_ip = self.embed_style_tokens_zero(n) if self.image_proj is not None else None
-        ddim = DDIMConfig(steps=ddim_steps, guidance_scale=scale)
-        gen = torch.Generator().manual_seed(seed)
-        if img2img_image is not None:
-            x = torch.from_numpy(img2img_image.astype(np.float32) / 127.5 - 1.0)
-            z0 = pipe.encode_first_stage(x.to(self.device)[None].expand(n, -1, -1, -1)
-                                         .contiguous())
-            t_start = max(1, min(int(ddim_steps * img2img_strength), ddim_steps))
-            z_T = ddim_stochastic_encode(pipe, z0, t_start - 1, ddim_steps, generator=gen)
-        else:
-            x_T = torch.randn((n, h // f, w // f, 4), generator=gen)
-        if timings is not None:
-            sync()
-            t1 = time.perf_counter()
-        if img2img_image is not None:
-            z = ddim_decode_from(pipe, z_T, t_start, ctx, unc, conds, ddim, generator=gen,
-                                 ip_context=ip, uncond_ip_context=unc_ip)
-        else:
-            z = ddim_sample(pipe, ctx, unc, conds, x_T.shape, ddim, x_T=x_T, generator=gen,
-                            ip_context=ip, uncond_ip_context=unc_ip)
-        if timings is not None:
-            sync()
-            t2 = time.perf_counter()
-        img = pipe.decode_first_stage(z)
-        if timings is not None:
-            sync()
-            timings.update(prep_s=t1 - t0, ddim_s=t2 - t1, decode_s=time.perf_counter() - t2)
+        sync = self._timing_sync(timings)
+        with trace.timings_into(timings, **TIMINGS), trace.span("sample.request"):
+            with trace.span("sample.prep"):
+                images = self.prepare_images(cond_images)
+                h, w = images[0].shape[:2]
+                f = 2 ** (len(self.cfg.vae.ch_mult) - 1)
+                ctx, unc = pipe.encode_text_cond_uncond(self.token_ids(prompt, n),
+                                                        self.token_ids(n_prompt, n))
+                conds = self.conditions(images, n, lora_weights)
+                ip = style_tokens.to(self.device).repeat_interleave(n, dim=0)
+                unc_ip = self.embed_style_tokens_zero(n) if self.image_proj is not None else None
+                ddim = DDIMConfig(steps=ddim_steps, guidance_scale=scale)
+                gen = torch.Generator().manual_seed(seed)
+                if img2img_image is not None:
+                    x = torch.from_numpy(img2img_image.astype(np.float32) / 127.5 - 1.0)
+                    z0 = pipe.encode_first_stage(x.to(self.device)[None].expand(n, -1, -1, -1)
+                                                 .contiguous())
+                    t_start = max(1, min(int(ddim_steps * img2img_strength), ddim_steps))
+                    z_T = ddim_stochastic_encode(pipe, z0, t_start - 1, ddim_steps,
+                                                 generator=gen)
+                else:
+                    x_T = torch.randn((n, h // f, w // f, 4), generator=gen)
+                sync()
+            with trace.span("sample.sampler"):
+                if img2img_image is not None:
+                    z = ddim_decode_from(pipe, z_T, t_start, ctx, unc, conds, ddim,
+                                         generator=gen, ip_context=ip, uncond_ip_context=unc_ip)
+                else:
+                    z = ddim_sample(pipe, ctx, unc, conds, x_T.shape, ddim, x_T=x_T,
+                                    generator=gen, ip_context=ip, uncond_ip_context=unc_ip)
+                sync()
+            with trace.span("sample.decode"):
+                img = pipe.decode_first_stage(z)
+                sync()
         return img
 
     def sample_with_style(self, cond_images, style_tokens: torch.Tensor, prompt: str,

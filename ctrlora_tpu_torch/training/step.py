@@ -31,6 +31,7 @@ from ctrlora_tpu_torch.pipeline import Conditioning, CtrLoraPipeline
 from ctrlora_tpu_torch.training.ema import ema_update
 from ctrlora_tpu_torch.training.losses import p_losses
 from ctrlora_tpu_torch.training.train_state import TrainState
+from ctrlora_tpu_torch.utils import trace
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -134,40 +135,44 @@ def make_train_step(pipe: CtrLoraPipeline, optimizer, cfg: TrainConfig,
 
     def step(state: TrainState, batch: Batch, generator: Optional[torch.Generator] = None,
              draws: Optional[Mapping[str, torch.Tensor]] = None):
-        optimizer.zero_grad(set_to_none=True)
-        micro = ([{k: v[i] for k, v in batch.items()} for i in range(cfg.grad_accum)]
-                 if cfg.grad_accum > 1 else [batch])
-        if draws is None or cfg.grad_accum == 1:
-            draws = [draws] * len(micro)
-        elif len(draws) != len(micro):
-            raise ValueError(f"{len(draws)} draws for {len(micro)} micro-batches")
-        if distributed and generator is None and any(d is None for d in draws):
-            raise ValueError("a step over a mesh needs a generator or draws: every rank "
-                             "draws the global batch's")
-        sums: Dict[str, torch.Tensor] = {}
-        for mb, mb_draws in zip(micro, draws):
+        with trace.span("train.step", state.step):
+            optimizer.zero_grad(set_to_none=True)
+            micro = ([{k: v[i] for k, v in batch.items()} for i in range(cfg.grad_accum)]
+                     if cfg.grad_accum > 1 else [batch])
+            if draws is None or cfg.grad_accum == 1:
+                draws = [draws] * len(micro)
+            elif len(draws) != len(micro):
+                raise ValueError(f"{len(draws)} draws for {len(micro)} micro-batches")
+            if distributed and generator is None and any(d is None for d in draws):
+                raise ValueError("a step over a mesh needs a generator or draws: every rank "
+                                 "draws the global batch's")
+            sums: Dict[str, torch.Tensor] = {}
+            for mb, mb_draws in zip(micro, draws):
+                if distributed:
+                    mb_draws = pmesh.shard_batch(mesh, dict(
+                        mb_draws if mb_draws is not None else
+                        global_draws(pipe, mb, generator, mesh.dp)))
+                with trace.span("train.forward"):
+                    loss, metrics = loss_for_batch(pipe, mb, generator, mb_draws)
+                with trace.span("train.backward"):
+                    (loss / len(micro)).backward()
+                for k, v in metrics.items():
+                    sums[k] = sums.get(k, 0.0) + v / len(micro)
             if distributed:
-                mb_draws = pmesh.shard_batch(mesh, dict(
-                    mb_draws if mb_draws is not None else
-                    global_draws(pipe, mb, generator, mesh.dp)))
-            loss, metrics = loss_for_batch(pipe, mb, generator, mb_draws)
-            (loss / len(micro)).backward()
-            for k, v in metrics.items():
-                sums[k] = sums.get(k, 0.0) + v / len(micro)
-        if distributed:
-            params = optimizer.param_groups[0]["params"]
-            tp.reduce_split_grads(params)
-            pmesh.all_reduce_tensors_([p.grad for p in params if p.grad is not None],
-                                      mesh.data_group, divide=mesh.dp)
-            names = list(sums)
-            means = torch.stack([sums[k].float() for k in names])
-            pmesh.all_reduce_tensors_([means], mesh.data_group, divide=mesh.dp)
-            sums = dict(zip(names, means.unbind()))
-        sums["grad_norm"] = trainable_grad_norm(optimizer)
-        optimizer.step()
-        if cfg.use_ema:
-            ema_update(state.ema, state.trainable, cfg.ema_decay)
-        state.step += 1
-        return state, sums
+                params = optimizer.param_groups[0]["params"]
+                tp.reduce_split_grads(params)
+                pmesh.all_reduce_tensors_([p.grad for p in params if p.grad is not None],
+                                          mesh.data_group, divide=mesh.dp)
+                names = list(sums)
+                means = torch.stack([sums[k].float() for k in names])
+                pmesh.all_reduce_tensors_([means], mesh.data_group, divide=mesh.dp)
+                sums = dict(zip(names, means.unbind()))
+            with trace.span("train.update"):
+                sums["grad_norm"] = trainable_grad_norm(optimizer)
+                optimizer.step()
+                if cfg.use_ema:
+                    ema_update(state.ema, state.trainable, cfg.ema_decay)
+            state.step += 1
+            return state, sums
 
     return step

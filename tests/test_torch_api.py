@@ -420,6 +420,21 @@ def test_api_sample_images(api):
     assert not np.array_equal(out, swapped)
 
 
+def test_api_timings_are_filled(api):
+    """`timings=` reads the call's phases off its spans, and leaves the
+    spans off after the call."""
+    from ctrlora_tpu_torch.utils import trace
+
+    images = [np.full((16, 16, 3), 128, np.uint8)] * 2
+    timings = {}
+    out = api._sample_images(images, "a house", "", 1, 2, 7.5, (1.0, 1.0), seed=0,
+                             timings=timings)
+    assert out.shape == (1, 16, 16, 3)
+    assert set(timings) == {"prep_s", "ddim_s", "decode_s"}
+    assert all(v > 0.0 for v in timings.values()), timings
+    assert trace.span("sample.request") is trace.OFF
+
+
 def test_api_sample_crops_and_returns_pil(api):
     from PIL import Image
 

@@ -64,7 +64,7 @@ def test_port_modules_cover_the_slice():
                 "annotators.densepose", "annotators.zoe", "annotators.normalbae",
                 "annotators.oneformer", "annotators.oneformer.swin",
                 "annotators.oneformer.pixel_decoder", "annotators.oneformer.decoder",
-                "parallel", "parallel.mesh", "parallel.tp", "utils.flops"):
+                "parallel", "parallel.mesh", "parallel.tp", "utils.flops", "utils.trace"):
         assert f"ctrlora_tpu_torch.{mod}" in names
     found = {info.name for info in
              pkgutil.walk_packages(ctrlora_tpu_torch.__path__, "ctrlora_tpu_torch.")}

@@ -576,6 +576,19 @@ def test_sample_with_style_gives_images(style_model, mode):
         torch.clamp(again * 127.5 + 127.5, 0, 255).to(torch.uint8).numpy(), np.stack(arrs))
 
 
+@pytest.mark.parametrize("mode", ["txt2img", "img2img"])
+def test_style_timings_are_filled(style_model, mode):
+    rng = np.random.default_rng(12)
+    hint = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)
+    content = rng.integers(0, 256, (16, 16, 3), dtype=np.uint8) if mode == "img2img" else None
+    tokens = style_model.embed_style(rng.integers(0, 256, (30, 30, 3), dtype=np.uint8))
+    timings = {}
+    style_model._sample_style_float((hint,), tokens, "a house", "", 1, 2, 7.5, (1.0,), 3,
+                                    content, 0.7, timings=timings)
+    assert set(timings) == {"prep_s", "ddim_s", "decode_s"}
+    assert all(v > 0.0 for v in timings.values()), timings
+
+
 # ---------------------------------------------------------------------------
 # refusals
 # ---------------------------------------------------------------------------
