@@ -89,14 +89,20 @@ the script exits non-zero:
 6. the training slice at SD1.5 width: ctrlora_finetune_config(128) with
    seeded random weights (bf16 compute over fp32 parameters, rematerialised
    blocks), Trainer(trainable='lora') on seeded synthetic 512x512 batches of
-   4: 2 warm-up and 5 timed AdamW steps, the launch counts of the timed
-   steps, frozen weights bit-identical, trainable ones changed; then one
+   4: 2 warm-up AdamW steps (one eager, one capturing the step's CUDA graph:
+   their launch counts) and 5 timed ones (each a replay of the graph),
+   frozen weights bit-identical, trainable ones changed; then one
    step's loss and trainable gradients with the kernels against the plain
    versions, with the same t, noise and posterior draws; the FLOPs of one
    step's forward and backward (utils.flops on a meta copy: AdamW's
    elementwise update is not counted) and their share of the bf16 peak at
-   the timed s/step; after phase 16 (a), the same batch and draws with the
-   pipeline switched to each other diffusion option set: V (the v target,
+   the timed s/step; then at the finetune.b16 cell's batch of 16, 4 steps
+   through Trainer.fit (the graph from the second on) against 4 eager steps
+   from the same weights and draws, bit for bit (every step's metrics, the
+   first step's exp_avg, every trainable after the last; the logged means;
+   1 capture, 3 replays, 1 eager step), and a batch of half the rows (another
+   signature) eager, then captured, the trainables set back after; after
+   phase 16 (a), the same batch and draws with the pipeline switched to each other diffusion option set: V (the v target,
    cosine schedule) and X (the x0 target, sqrt_linear schedule,
    v_posterior 0.1, the variational-bound term at weight 1): one step's
    loss and trainable gradients with the kernels against the plain
@@ -104,7 +110,9 @@ the script exits non-zero:
    relative from the eps target's kernel loss under the same schedule at
    the same parameters, every training kernel launched;
 7. one tiny training step (fp32) on the GPU against the CPU, with the eps
-   target and under V and X;
+   target and under V and X; then phase 6's graph check on the tiny
+   pipeline, and on two LoRA banks with a tensor task_idx that changes
+   between steps, both under cuDNN's deterministic algorithms;
 8. the two-LoRA API path at SD1.5 width: seeded random weights written as
    reference-format .ckpt files (SD1.5 and Base ControlNet in fp16, two
    rank-128 LoRAs) through the port's exporters;
@@ -405,13 +413,14 @@ from ctrlora_tpu_torch.scripts import train_cn as train_cn_mod
 from ctrlora_tpu_torch.scripts import train_common
 from ctrlora_tpu_torch.scripts import train_ctrlora_finetune as finetune_cli_mod
 from ctrlora_tpu_torch.scripts import train_ctrlora_pretrain as pretrain_cli_mod
+from ctrlora_tpu_torch.training import step as step_mod
 from ctrlora_tpu_torch.training import train_state
 from ctrlora_tpu_torch.training import trainer as trainer_mod
 from ctrlora_tpu_torch.parallel import mesh as pmesh
 from ctrlora_tpu_torch.parallel import tp as tp_mod
 from ctrlora_tpu_torch.training.step import loss_for_batch, make_train_step
 from ctrlora_tpu_torch.training.trainer import Trainer
-from ctrlora_tpu_torch.utils import ckpt_torch
+from ctrlora_tpu_torch.utils import ckpt_torch, trace
 from ctrlora_tpu_torch.utils.image import HWC3, png_writer, write_png
 from ctrlora_tpu_torch.utils.loading import check_key, load_ctrlora
 from ctrlora_tpu_torch.utils.flops import fn_flops, linear_in_steps
@@ -1757,17 +1766,24 @@ def train_slice(dev, profile=False):
     log("train", setup_s=time.perf_counter() - t0, trainable_params_m=n_train / 1e6,
         params=sum(p.numel() for p in named.values()))
 
-    t0 = time.perf_counter()
-    trainer.fit(batches[:WARMUP_STEPS], max_steps=WARMUP_STEPS)  # warm-up
-    torch.cuda.synchronize()
-    log("train", warmup_s=time.perf_counter() - t0, steps=WARMUP_STEPS)
-
-    torch.cuda.reset_peak_memory_stats(dev)
+    # the warm-up is an eager step and the graph's capture, which issue the
+    # kernels from Python; the timed steps replay the graph, which calls no wrapper
     with counted("training", TRAINING_KERNELS) as launches:
         t0 = time.perf_counter()
-        trainer.fit(batches[WARMUP_STEPS:], max_steps=WARMUP_STEPS + TRAIN_STEPS)
+        trainer.fit(batches[:WARMUP_STEPS], max_steps=WARMUP_STEPS)  # warm-up
         torch.cuda.synchronize()
-        total = time.perf_counter() - t0
+    log("train", warmup_s=time.perf_counter() - t0, steps=WARMUP_STEPS,
+        launches_per_step={k: v / WARMUP_STEPS for k, v in launches.items()})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    graphs = graph_counts()
+    t0 = time.perf_counter()
+    trainer.fit(batches[WARMUP_STEPS:], max_steps=WARMUP_STEPS + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    graphs = {k: v - graphs[k] for k, v in graph_counts().items()}
+    if graphs != {"captures": 0, "replays": TRAIN_STEPS, "eager": 0}:
+        raise AssertionError(f"the timed steps did not all replay the step's graph: {graphs}")
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         lines = [json.loads(ln) for ln in f if '"train"' in ln][-TRAIN_STEPS:]
     s_step = total / TRAIN_STEPS
@@ -1775,7 +1791,7 @@ def train_slice(dev, profile=False):
         steps_per_s=1 / s_step, images_per_s=BATCH / s_step,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         trainable_params_m=n_train / 1e6, loss=[ln["loss"] for ln in lines],
-        grad_norm=[ln["grad_norm"] for ln in lines], launches=launches)
+        grad_norm=[ln["grad_norm"] for ln in lines], graph_steps=graphs)
     if not all(math.isfinite(ln["loss"]) and ln["grad_norm"] > 0 for ln in lines):
         raise AssertionError(f"bad training metrics: {lines}")
     changed_frozen = [k for k, p in named.items() if k not in trainable
@@ -1816,6 +1832,12 @@ def train_slice(dev, profile=False):
                 "blocks and backward; kernels as their plain versions; AdamW not counted")
     if not flops > 0:
         raise AssertionError(f"FLOP count {flops}")
+    # the step's CUDA graph against the eager step at the benchmark cell's shapes
+    cell = [synthetic_batch(gen, dev, GRAPH_BATCH, SIZE, cfg.clip.max_length,
+                            cfg.clip.vocab_size) for _ in range(GRAPH_STEPS)]
+    graph_vs_eager("train_graph", pipe, cell, fixed_draws(
+        gen, dev, GRAPH_BATCH // 2, SIZE // 2 ** (len(cfg.vae.ch_mult) - 1)))
+    del cell
     # phase 16 (a): the same step through the process group at world size 1
     nccl_launches = nccl_world_one(dev, pipe, batch, draws, (loss_k, grad_k))
     option_launches = train_options(pipe, params, batch, draws)
@@ -1897,6 +1919,149 @@ def tiny_train_gpu_vs_cpu(dev):
                   compare(out[1][1], out[0][1], rtol=2e-3, atol=2e-4))
         log("tiny_train", options=name, **options, gpu_vs_cpu_max_abs_err=err,
             loss_gpu=out[1][0].item(), loss_cpu=out[0][0].item(), tol="rtol=2e-3 atol=2e-4")
+    # the step's CUDA graph against the eager step: the tiny pipeline, then
+    # two LoRA banks with a tensor task_idx that changes between steps (the
+    # pretrain CLI's batches: one graph over the tasks). At these fp32 sizes
+    # cuDNN's default backward algorithms add in no fixed order (two eager
+    # runs differ by ~1e-7 in the loss), so both sides take its deterministic
+    # ones; the SD1.5 step of phase 6 is bit for bit under the defaults.
+    tiny = [{k: v.to(dev) for k, v in synthetic_batch(
+        gen, "cpu", 2, 16, cfg.clip.max_length, cfg.clip.vocab_size).items()}
+        for _ in range(GRAPH_STEPS)]
+    half = {k: v.to(dev) for k, v in fixed_draws(gen, "cpu", 1, 8).items()}
+    banks = CtrLoraPipeline(configs.tiny_test_config(n_loras=2), dev, fuse_lora=False)
+    dev_gen = torch.Generator(device=dev).manual_seed(SEED)
+    for m in banks.modules():
+        random_init_(m, dev_gen)
+    tasks = [{**b, "task_idx": torch.full((2,), i % 2, device=dev)} for i, b in enumerate(tiny)]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        graph_vs_eager("tiny_train_graph", gpu, tiny, half)
+        graph_vs_eager("tiny_train_graph_tasks", banks, tasks, half)
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the training step's CUDA graph against the eager step
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS, GRAPH_BATCH = 4, 16  # the finetune.b16 cell's batch, at phase 6's 512^2
+
+
+def graph_counts() -> dict:
+    """The program's counts of training steps by how they ran."""
+    c = trace.summary()["counters"]
+    return {k: c.get(f"train.graph.{k}", 0) for k in ("captures", "replays", "eager")}
+
+
+def exp_avgs(trainer) -> dict:
+    opt = trainer.state.optimizer
+    return {k: opt.state[p]["exp_avg"].clone() for k, p in trainer.state.trainable.items()
+            if p in opt.state}
+
+
+def eager_fit(pipe, tcfg, workdir, batches) -> dict:
+    """Trainer.fit's steps on `batches`, each through the eager forward and
+    backward (training.step.forward_backward) with the generator seed
+    Trainer.fit gives the step, then the grad norm and AdamW: each step's
+    metrics, each trainable's exp_avg after the first step, each trainable
+    after the last."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = Trainer(pipe, tcfg, workdir)
+    opt, gen = trainer.state.optimizer, torch.Generator(device=pipe.device)
+    out = {"metrics": []}
+    for s, batch in enumerate(batches):
+        gen.manual_seed(trainer_mod.step_seed(tcfg.seed + 1, s))
+        sums = step_mod.forward_backward(pipe, opt, tcfg, None, batch, gen)
+        sums["grad_norm"] = step_mod.trainable_grad_norm(opt)
+        opt.step()
+        out["metrics"].append({k: v.clone() for k, v in sums.items()})
+        if s == 0:
+            out["exp_avg"] = exp_avgs(trainer)
+    out["params"] = {k: p.detach().clone() for k, p in trainer.state.trainable.items()}
+    return out
+
+
+def max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in b)
+
+
+def graph_vs_eager(phase, pipe, batches, draws):
+    """Trainer.fit through len(batches) steps, the second on replaying the
+    step's CUDA graph, against the same steps eager from the same weights and
+    draws: every step's metrics, the first step's exp_avg and every trainable
+    after the last step bit for bit, Trainer.fit's logged metrics the eager
+    steps' rounded as it rounds them, and the counts of captures (1), replays
+    (all but the first step) and eager steps (1). Then a batch of another
+    signature (half the rows, with `draws`) runs eager, and its second step
+    captures its own graph. The pipeline's trainables are set back to what
+    they were."""
+    tcfg = configs.TrainConfig(trainable="lora", log_every=1)
+    workdir = os.path.join(ROOT, "runs", f"chip_smoke_{phase}")
+    live = train_state.trainable_parameters(pipe, train_state.trainable_mask(pipe, tcfg))
+    start = {k: p.detach().clone() for k, p in live.items()}
+
+    def restart():
+        with torch.no_grad():
+            for k, p in start.items():
+                live[k].copy_(p)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    restart()
+    t0 = time.perf_counter()
+    eager = eager_fit(pipe, tcfg, workdir, batches)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    restart()
+    again = eager_fit(pipe, tcfg, workdir, batches)
+    restart()
+    trainer = Trainer(pipe, tcfg, workdir)
+    seen, real = [], trainer.step_fn
+
+    def spy(*a, **kw):
+        state, m = real(*a, **kw)
+        seen.append({k: v.clone() for k, v in m.items()})
+        return state, m
+
+    trainer.step_fn = spy
+    before = graph_counts()
+    t0 = time.perf_counter()
+    trainer.fit(batches[:1], max_steps=1)
+    first = exp_avgs(trainer)
+    trainer.fit(batches[1:], max_steps=len(batches))
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in graph_counts().items()}
+    params = {k: p.detach() for k, p in trainer.state.trainable.items()}
+    logged = cli_metrics(workdir, "train")
+    want_logged = [{k: round(float(v.float().cpu()), 5) for k, v in m.items()}
+                   for m in eager["metrics"]]
+    gap = lambda metrics, exp_avg, params_: {
+        "metrics": max(max_abs(g, e) for g, e in zip(metrics, eager["metrics"])),
+        "exp_avg": max_abs(exp_avg, eager["exp_avg"]), "params": max_abs(params_, eager["params"])}
+    gaps = gap(seen, first, params)
+    eager_gaps = gap(again["metrics"], again["exp_avg"], again["params"])
+    logged_equal = [{k: ln[k] for k in w} for ln, w in zip(logged, want_logged)] == want_logged
+    # another signature: eager first, then its own capture
+    half = {k: v[:len(v) // 2] for k, v in batches[0].items()}
+    before = graph_counts()
+    for _ in range(2):
+        trainer.state, m = trainer.step_fn(trainer.state, half, None, draws)
+    new_sig = {k: v - before[k] for k, v in graph_counts().items()}
+    finite = math.isfinite(float(m["loss"]))
+    restart()  # the pipeline's trainables as they came
+    want_counts = {"captures": 1, "replays": len(batches) - 1, "eager": 1}
+    log(phase, steps=len(batches), batch=len(batches[0]["token_ids"]), graph_s=graph_s,
+        eager_s=eager_s, max_abs_gap=gaps, eager_twice_max_abs_gap=eager_gaps,
+        logged_equal=logged_equal, counts=counts,
+        new_signature_counts=new_sig, new_signature_loss_finite=finite,
+        losses=[ln["loss"] for ln in logged])
+    if any(gaps.values()) or not logged_equal:
+        raise AssertionError(f"{phase}: the graphed steps depart from the eager steps: {gaps}, "
+                             f"logged {logged} against {want_logged}")
+    if counts != want_counts or new_sig != {"captures": 1, "replays": 1, "eager": 1} \
+            or not finite:
+        raise AssertionError(f"{phase}: steps ran {counts} (want {want_counts}), a new "
+                             f"signature {new_sig}, its loss finite {finite}")
 
 
 # ---------------------------------------------------------------------------
@@ -2165,10 +2330,12 @@ def cli_spies(initial_branches):
         fn = real_make(*args, **kw)
 
         def step(state, batch, *a, **k):
-            before = counts_now()
+            before, graphs = counts_now(), graph_counts()
             out = fn(state, batch, *a, **k)
+            ran = {k: v - graphs[k] for k, v in graph_counts().items()}
             rec["steps"].append({"task": int(batch["task_idx"].reshape(-1)[0]),
-                                 "launches": counts_since(before)})
+                                 "launches": counts_since(before),
+                                 "issued": bool(ran["eager"] or ran["captures"])})
             if len(rec["steps"]) == 1 and rec["after_first"] is not None:
                 rec["after_first"](state)
             return out
@@ -2214,7 +2381,12 @@ def timed_steps(workdir, skip):
 
 
 def per_step_launches(steps, names=TRAINING_KERNELS):
-    return {n: sum(s["launches"][n] for s in steps) / len(steps) for n in names}
+    """Each kernel's launches a step, over the steps that issued their
+    kernels from Python (eager, or capturing the step's CUDA graph): a step
+    that replays the graph launches the same kernels without calling a
+    wrapper."""
+    issued = [s for s in steps if s["issued"]]
+    return {n: sum(s["launches"][n] for s in issued) / len(issued) for n in names}
 
 
 def write_cli_datasets(root, rng):
@@ -2283,7 +2455,7 @@ def finetune_cli(dev, paths, custom, root, phase6_s_step):
         size=SIZE, pairs=CLI_PAIRS, steps=steps, total_s=total, load_s=run.seconds["load"],
         loader_wait_s=run.loader.wait_s, loader_wait_s_per_step=run.loader.wait_s / steps,
         s_per_step=s_step, phase6_synthetic_s_per_step=phase6_s_step,
-        launches_per_step=per_step_launches(rec["steps"][CLI_WARMUP:]),
+        launches_per_step=per_step_launches(rec["steps"]),
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
         grad_norm=[ln["grad_norm"] for ln in lines], launches=launches["finetune"])
@@ -2387,7 +2559,7 @@ def pretrain_cli(dev, paths, mg, root):
         total_s=total, load_s=run.seconds["load"], loader_wait_s=run.loader.wait_s,
         trainable_params_m=n_train / 1e6, s_per_step=s_step,
         task_of_step=[s["task"] for s in rec["steps"]],
-        launches_per_step=per_step_launches(rec["steps"][CLI_WARMUP:]),
+        launches_per_step=per_step_launches(rec["steps"]),
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
         loss=[ln["loss"] for ln in lines], lora_up_checked=len(banks),
         only_first_bank_nonzero_after_step_1=not wrong, unet_bit_identical=not changed,
@@ -2586,7 +2758,7 @@ def baseline_train(dev, variant, custom, root, sd_file, cn_file=None, written=No
         total_s=total, load_s=run.seconds["load"], loader_wait_s=run.loader.wait_s,
         trainable_params_m=sum(p.numel() for p in trainer.state.trainable.values()) / 1e6,
         s_per_step=s_step, peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-        launches_per_step=per_step_launches(rec["steps"][CN_WARMUP:], wrappers()),
+        launches_per_step=per_step_launches(rec["steps"], wrappers()),
         hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
         grad_norm=[ln["grad_norm"] for ln in lines], launches=launches)
     train = cli_metrics(run.workdir, "train")
@@ -2965,7 +3137,7 @@ def xs_train(dev, cfg, custom, root, paths, written, phase6_s_step):
         trainable_params_m=sum(p.numel() for p in trainer.state.trainable.values()) / 1e6,
         s_per_step=s_step, phase6_s_per_step=phase6_s_step, ratio_to_phase6=s_step / phase6_s_step,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-        launches_per_step=per_step_launches(rec["steps"][CN_WARMUP:], wrappers()),
+        launches_per_step=per_step_launches(rec["steps"], wrappers()),
         flash_bwd_launches_per_step_by_head_dim=bwd, launches_by_width=widths,
         hook_s=hook[0]["seconds"] if hook else None, loss=[ln["loss"] for ln in lines],
         grad_norm=[ln["grad_norm"] for ln in lines], launches=launches)

@@ -40,11 +40,13 @@ def to_channels_last(module: nn.Module) -> nn.Module:
 
 def _take(bank: torch.Tensor, idx: LoraIdx) -> torch.Tensor:
     """One slice of a [n, ...] bank; an out-of-range index selects the
-    nearest end (the JAX ``_take``'s mode='clip')."""
+    nearest end (the JAX ``_take``'s mode='clip'). A tensor index is
+    gathered on its device (indexing with a 0-d tensor reads its value on
+    the host: a wait for the device, which a CUDA graph cannot capture)."""
     if idx is None:
         return bank[0]
     if isinstance(idx, torch.Tensor):
-        return bank[idx.reshape(()).clamp(0, bank.shape[0] - 1)]
+        return bank.index_select(0, idx.reshape(1).clamp(0, bank.shape[0] - 1)).squeeze(0)
     return bank[min(max(int(idx), 0), bank.shape[0] - 1)]
 
 

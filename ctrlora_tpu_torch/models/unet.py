@@ -127,9 +127,12 @@ def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int, ip_tokens: int =
 
 def _block(cfg: UNetConfig, block: nn.Module, *args):
     """Run a ResBlock or SpatialTransformer, rematerialised in the backward
-    when cfg.use_checkpoint is set and grad is enabled."""
+    when cfg.use_checkpoint is set and grad is enabled. No RNG state is
+    saved for the recomputation: the port has no dropout, so no block draws
+    random numbers, and the training step's CUDA graph holds no read of
+    the generators' state."""
     if cfg.use_checkpoint and torch.is_grad_enabled():
-        return checkpoint(block, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
     return block(*args)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -153,10 +155,31 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+# id(table) -> (a weak reference to the table, {device: the table's copy there})
+_on_device: Dict[int, Tuple[weakref.ref, Dict[torch.device, torch.Tensor]]] = {}
+
+
+def device_table(table: np.ndarray, device) -> torch.Tensor:
+    """`table` as a tensor of its dtype on `device`, copied there once per
+    table and device and kept while the table lives. A copy from the host's
+    pageable memory waits for the device's queue, and a CUDA graph cannot
+    capture one, so the training step reads its tables from here."""
+    key = id(table)
+    entry = _on_device.get(key)
+    if entry is None or entry[0]() is not table:
+        entry = _on_device[key] = (
+            weakref.ref(table, lambda _, k=key: _on_device.pop(k, None)), {})
+    device = torch.device(device)
+    out = entry[1].get(device)
+    if out is None:
+        out = entry[1][device] = torch.as_tensor(table, device=device)
+    return out
+
+
 def extract(table: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """table[t] as a [B, 1, ...] float32 tensor on t's device that
     broadcasts over an ndim tensor."""
-    out = torch.as_tensor(table, device=t.device)[t.long()]
+    out = device_table(table, t.device)[t.long()]
     return out.reshape(out.shape[0], *([1] * (ndim - 1)))
 
 

@@ -33,10 +33,16 @@ Spans (child of):
   ddim.step, plms.step, dpm.step (index: the step): one a sampler step.
   model.call with model.control and model.unet: ``pipeline.apply_model``.
   train.step (index: the state's step) with train.forward, train.backward
-      and train.update (grad norm, AdamW, EMA): ``training/step.py``.
+      and train.update (grad norm, AdamW, EMA): ``training/step.py``; a
+      step that replays its CUDA graph has train.graph.replay in place of
+      train.forward and train.backward, and no span inside it (no Python
+      runs there).
 
 Counters (:func:`summary`'s ``counters``):
   kernels.built: builds of the kernel library in this process.
+  train.graph.captures, train.graph.replays, train.graph.eager: training
+      steps that captured their CUDA graph, replayed one (a capture's own
+      step included) and ran eager (``training/step.py``).
   launches: each hand-kernel wrapper's ``.launches`` (``ops.wrappers()``),
       as it stands.
   allocator: {span: {stat: delta}} of ``torch.cuda.memory_stats()``'s

@@ -277,3 +277,136 @@ def test_latent_cached_batch_matches_pixel_batch(tmp_path):
         want = pstep.loss_for_batch(pipe, pixels, draws=draws)[0]
         got = pstep.loss_for_batch(pipe, cached, draws=draws)[0]
     torch.testing.assert_close(got, want)
+
+
+def _draw_case(case):
+    """A tiny pipeline (latent- or image-hint) and a batch (pixels or, for
+    'cached', posterior moments) for the draw-order tests."""
+    gen = torch.Generator().manual_seed(11)
+    hint_mode = "image" if case == "image_hint" else "latent"
+    pipe = CtrLoraPipeline(configs.tiny_test_config(n_loras=1, hint_mode=hint_mode), "cpu",
+                           fuse_lora=False)
+    with torch.no_grad():
+        for name, p in pipe.control.named_parameters():
+            if "lora_up" in name or name.startswith("zero_"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    for i, module in enumerate((pipe.unet, pipe.control)):
+        seed_zeroed_layers_(module, 7 + i)
+    size = 16 if hint_mode == "latent" else 64  # an image hint is at 8x the latent's size
+    batch = {"jpg": torch.rand(2, 16, 16, 3, generator=gen) * 2 - 1,
+             "hint": torch.rand(2, size, size, 3, generator=gen),
+             "token_ids": torch.randint(1, 128, (2, 16), generator=gen)}
+    if case == "cached":
+        with torch.no_grad():
+            batch = {**{f"{k}_moments": torch.cat(pipe.vae.encode(batch[k]), dim=-1)
+                        for k in ("jpg", "hint")}, "token_ids": batch["token_ids"]}
+    return pipe, batch
+
+
+@pytest.mark.parametrize("case", ["latent_hint", "image_hint", "cached"])
+def test_global_draws_are_the_generator_draws_of_loss_for_batch(case):
+    """The graphed step draws up front with ``global_draws``: the same
+    numbers, in the same order, that ``loss_for_batch`` draws from the
+    generator, so the loss is the same bit for bit."""
+    pipe, batch = _draw_case(case)
+    with torch.no_grad():
+        want, want_m = pstep.loss_for_batch(pipe, batch, torch.Generator().manual_seed(21))
+        draws = pstep.global_draws(pipe, batch, torch.Generator().manual_seed(21), 1)
+        got, got_m = pstep.loss_for_batch(pipe, batch, draws=draws)
+    assert set(draws) == ({"z_eps", "t", "noise"} | ({"hint_eps"} if case != "image_hint"
+                                                       else set()))
+    assert torch.equal(got, want)
+    assert all(torch.equal(got_m[k], want_m[k]) for k in want_m)
+
+
+def _numpy_extract(table, t, ndim):
+    out = torch.as_tensor(table)[t.long()]
+    return out.reshape(out.shape[0], *([1] * (ndim - 1)))
+
+
+@pytest.mark.parametrize("fn", ["extract", "q_sample", "get_v", "predict_eps_from_z_and_v",
+                                "predict_start_from_z_and_v"])
+def test_device_tables_give_the_numpy_tables_values(fn):
+    """The tables the schedule helpers read are copied to the device once
+    and kept; each helper gives what indexing the numpy table gives, in
+    dtype and value, and a second call reads the same copy."""
+    from ctrlora_tpu_torch import schedules as sch
+
+    sched = sch.make_schedule("linear", 1000, parameterization="v")
+    gen = torch.Generator().manual_seed(2)
+    x, e = torch.randn(3, 4, 4, 2, generator=gen), torch.randn(3, 4, 4, 2, generator=gen)
+    t = torch.tensor([0, 517, 999])
+    a = lambda: _numpy_extract(sched.sqrt_alphas_cumprod, t, 4)
+    b = lambda: _numpy_extract(sched.sqrt_one_minus_alphas_cumprod, t, 4)
+    if fn == "extract":
+        got, want = sch.extract(sched.lvlb_weights, t, 4), _numpy_extract(sched.lvlb_weights, t, 4)
+    elif fn == "q_sample":
+        got, want = sch.q_sample(sched, x, t, e), a() * x + b() * e
+    elif fn == "get_v":
+        got, want = sch.get_v(sched, x, e, t), a() * e - b() * x
+    elif fn == "predict_eps_from_z_and_v":
+        got, want = sch.predict_eps_from_z_and_v(sched, x, t, e), a() * e + b() * x
+    else:
+        got, want = sch.predict_start_from_z_and_v(sched, x, t, e), a() * x - b() * e
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    table = sch.device_table(sched.sqrt_alphas_cumprod, "cpu")
+    assert table is sch.device_table(sched.sqrt_alphas_cumprod, t.device)
+    assert table.dtype == torch.float32 and np.array_equal(table.numpy(),
+                                                           sched.sqrt_alphas_cumprod)
+
+
+def _signature(device="cuda", mesh=None, batch=None, **train):
+    batch = batch if batch is not None else {
+        "jpg": torch.zeros(2, 16, 16, 3), "hint": torch.zeros(2, 16, 16, 3),
+        "token_ids": torch.zeros(2, 16, dtype=torch.long)}
+    return pstep.graph_signature(configs.TrainConfig(trainable="lora", **train),
+                                 torch.device(device), mesh, batch)
+
+
+@pytest.mark.parametrize("case", ["cpu", "distributed_mesh", "grad_accum", "string_value"])
+def test_steps_that_stay_eager_have_no_graph_signature(case):
+    from types import SimpleNamespace
+
+    assert _signature() is not None
+    assert _signature(mesh=SimpleNamespace(distributed=False)) is not None
+    kw = {"cpu": dict(device="cpu"),
+          "distributed_mesh": dict(mesh=SimpleNamespace(distributed=True)),
+          "grad_accum": dict(grad_accum=2),
+          "string_value": dict(batch={"jpg": torch.zeros(2, 16, 16, 3), "txt": "a prompt"}),
+          }[case]
+    assert _signature(**kw) is None
+
+
+@pytest.mark.parametrize("change", ["key_set", "shape", "dtype", "task_idx"])
+def test_graph_signatures_tell_batches_apart(change):
+    base = {"jpg": torch.zeros(2, 16, 16, 3), "hint": torch.zeros(2, 16, 16, 3),
+            "token_ids": torch.zeros(2, 16, dtype=torch.long), "task_idx": 1}
+    other = dict(base)
+    if change == "key_set":
+        other["jpg_moments"] = other.pop("jpg")
+    elif change == "shape":
+        other["jpg"] = torch.zeros(4, 16, 16, 3)
+    elif change == "dtype":
+        other["token_ids"] = other["token_ids"].int()
+    else:
+        other["task_idx"] = 2
+    assert _signature(batch=base) == _signature(batch={k: v for k, v in base.items()})
+    assert _signature(batch=other) is not None
+    assert _signature(batch=other) != _signature(batch=base)
+    # a tensor task_idx is copied in like the other tensors: its value is not in the key
+    one, two = dict(base, task_idx=torch.tensor([1, 1])), dict(base, task_idx=torch.tensor([2, 2]))
+    assert _signature(batch=one) == _signature(batch=two) is not None
+
+
+def test_a_cpu_step_runs_eager_and_counts_it(tmp_path):
+    from ctrlora_tpu_torch.utils import trace
+
+    trainer, pipe, batch = _tiny_trainer(tmp_path)
+    before = trace.summary()["counters"]
+    trainer.fit([batch(), batch()], max_steps=2)
+    after = trace.summary()["counters"]
+    n = lambda c, k: c.get(f"train.graph.{k}", 0)
+    assert n(after, "eager") - n(before, "eager") == 2
+    assert n(after, "captures") == n(before, "captures") and \
+        n(after, "replays") == n(before, "replays")
