@@ -6,8 +6,10 @@ defaults, without JAX. A dtype is stored as a string, as there, and
 ``ctrlora_inference_config``, ``ctrlora_finetune_config``,
 ``ctrlora_pretrain_config``, the baselines ``sd15_config`` (vanilla
 image-hint ControlNet), ``cnlite_config`` (ControlNet-Lite) and
-``cnxs_config`` (ControlNet-XS), and ``tiny_test_config``, plus
-``TrainConfig`` for the training step.
+``cnxs_config`` (ControlNet-XS), ``sdxl_controlnet_config`` (SDXL base
+1.0 with its pixel-hint ControlNet, on fields the JAX package does not
+have), and ``tiny_test_config``, plus ``TrainConfig``
+for the training step.
 
 ``load_model_config`` takes a preset's name or a YAML file (the files under
 ``configs/``: a ``model:`` tree, or ``preset:`` plus overrides), read by the
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -48,17 +50,36 @@ class UNetConfig:
     attention_resolutions: Tuple[int, ...] = (4, 2, 1)
     channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_heads: int = 8
-    transformer_depth: int = 1
+    # one depth for every level, or one a level (SDXL); the middle block
+    # takes the last level's
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
     context_dim: Optional[int] = 768
     dropout: float = 0.0  # the port has no dropout: only 0 is taken
     use_checkpoint: bool = True  # rematerialise ResBlocks and transformers in training
     dtype: str = "bfloat16"
     use_flash_attention: bool = True
     ip_tokens: int = 0  # IP-Adapter image tokens at the end of every attn2 context
+    # the port's own (SDXL): heads of this width (-1: ``num_heads`` heads a
+    # site), Linear proj_in / proj_out in the transformers, and the width of
+    # the vector y whose ``label_emb`` adds onto the time embedding (None: no y)
+    num_head_channels: int = -1
+    use_linear_in_transformer: bool = False
+    adm_in_channels: Optional[int] = None
 
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
+
+    def depth_at(self, level: int) -> int:
+        """Transformer blocks a site of `level` holds (-1: the middle)."""
+        if isinstance(self.transformer_depth, int):
+            return self.transformer_depth
+        return self.transformer_depth[level]
+
+    def heads_at(self, channels: int) -> int:
+        """Attention heads of a site `channels` wide."""
+        return self.num_heads if self.num_head_channels <= 0 else \
+            channels // self.num_head_channels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +143,23 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ConditionerConfig:
+    """SDXL's conditioner (the port's own): the ``clip`` tower and the
+    second tower ``clip2`` each give a context (their ``layer``), which
+    concatenate on the channel axis in ``context_order``; the tower named by
+    ``pooled`` also gives its projected pooled vector from the same forward.
+    The vector y is that pooled vector, then the six micro-conditioning
+    numbers (original height and width, crop top and left, target height
+    and width), each a ``size_embed_dim``-wide sinusoidal embedding. For
+    the empty negative prompt the context and pooled vector are zeros."""
+
+    clip2: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    context_order: Tuple[str, ...] = ("clip", "clip2")
+    pooled: str = "clip2"
+    size_embed_dim: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
     timesteps: int = 1000
     beta_schedule: str = "linear"  # 'linear' | 'cosine' | 'sqrt_linear' | 'sqrt'
@@ -149,6 +187,7 @@ class ModelConfig:
     clip: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
     # task names of pretrain-style stacked LoRAs; index order == lora index
     tasks: Tuple[str, ...] = ()
+    conditioner: Optional[ConditionerConfig] = None  # the port's own (SDXL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +304,36 @@ def ctrlora_inference_config(lora_num: int = 1, lora_rank: int = 128) -> ModelCo
     )
 
 
+def sdxl_controlnet_config() -> ModelConfig:
+    """SDXL base 1.0 (arXiv 2307.01952; generative-models
+    configs/inference/sd_xl_base.yaml) with its ControlNet
+    (diffusers/controlnet-canny-sdxl-1.0): the UNet at 320 x (1, 2, 4),
+    attention at levels 1 and 2 with (1, 2, 10) transformer blocks (the
+    middle 10), 64-wide heads, Linear projections, a 2048-wide context (CLIP
+    ViT-L/14's and OpenCLIP ViT-bigG/14's, each the state entering its last
+    layer) and y of 2816 (bigG's projected pooled vector and six 256-wide
+    size embeddings); the ControlNet a copy of its encoder and middle with
+    the pixel hint through ``HintBlock``; the KL autoencoder with scale
+    0.13025. bf16 UNet, ControlNet and VAE, fp32 text towers; no
+    rematerialisation (sampling)."""
+    unet = UNetConfig(attention_resolutions=(4, 2), channel_mult=(1, 2, 4),
+                      transformer_depth=(1, 2, 10), context_dim=2048, use_checkpoint=False,
+                      num_head_channels=64, use_linear_in_transformer=True,
+                      adm_in_channels=2816)
+    from ctrlora_tpu_torch.models.openclip import openclip_bigg_text_config
+
+    clip_l = CLIPTextConfig(layer="hidden", layer_idx=-1)
+    return ModelConfig(
+        name="sdxl_controlnet",
+        diffusion=DiffusionConfig(scale_factor=0.13025),
+        unet=unet,
+        control=ControlNetConfig(unet=unet, hint_mode="image"),
+        vae=VAEConfig(),
+        clip=clip_l,
+        conditioner=ConditionerConfig(clip2=openclip_bigg_text_config()),
+    )
+
+
 def tiny_test_config(
     n_loras: int = 0, switchable_banks: bool = False, hint_mode: str = "latent"
 ) -> ModelConfig:
@@ -297,6 +366,32 @@ def tiny_test_config(
     )
 
 
+def tiny_sdxl_test_config() -> ModelConfig:
+    """Miniature SDXL + ControlNet for unit tests: the same topology (three
+    levels, depths (1, 2, 3), Linear projections, 8-wide heads, two text
+    towers, y), tiny widths, fp32; a /8 VAE, so that the pixel hint and the
+    image share a size."""
+    unet = UNetConfig(model_channels=32, channel_mult=(1, 2, 2), num_res_blocks=1,
+                      attention_resolutions=(4, 2), transformer_depth=(1, 2, 3),
+                      context_dim=64 + 48, use_checkpoint=False, dtype="float32",
+                      use_flash_attention=False, num_head_channels=8,
+                      use_linear_in_transformer=True, adm_in_channels=40 + 6 * 8)
+    tower = dict(vocab_size=49408, intermediate_size=128, num_layers=3, num_heads=2,
+                 max_length=16, layer="hidden", layer_idx=-1)
+    return ModelConfig(
+        name="tiny_sdxl",
+        diffusion=DiffusionConfig(scale_factor=0.13025),
+        unet=unet,
+        control=ControlNetConfig(unet=unet, hint_mode="image"),
+        vae=VAEConfig(ch=16, ch_mult=(1, 2, 2, 2), num_res_blocks=1, dtype="float32"),
+        clip=CLIPTextConfig(hidden_size=64, **tower),
+        conditioner=ConditionerConfig(
+            clip2=CLIPTextConfig(hidden_size=48, hidden_act="gelu", projection_dim=40,
+                                 **dict(tower, intermediate_size=96)),
+            size_embed_dim=8),
+    )
+
+
 _PRESETS = {
     "cldm_v15": sd15_config,
     "cnlite_sd15": cnlite_config,
@@ -304,7 +399,9 @@ _PRESETS = {
     "ctrlora_finetune": ctrlora_finetune_config,
     "ctrlora_inference": ctrlora_inference_config,
     "ctrlora_pretrain": ctrlora_pretrain_config,
+    "sdxl_controlnet": sdxl_controlnet_config,
     "tiny": tiny_test_config,
+    "tiny_sdxl": tiny_sdxl_test_config,
 }
 # ---------------------------------------------------------------------------
 # YAML files
@@ -445,7 +542,8 @@ def parse_yaml(text: str) -> Any:
 
 
 _SUBTREES = {"unet": UNetConfig, "control": ControlNetConfig, "vae": VAEConfig,
-             "clip": CLIPTextConfig, "diffusion": DiffusionConfig, "lora": LoRAConfig}
+             "clip": CLIPTextConfig, "diffusion": DiffusionConfig, "lora": LoRAConfig,
+             "conditioner": ConditionerConfig, "clip2": CLIPTextConfig}
 
 
 def _dataclass_from_dict(cls, d):
@@ -478,7 +576,10 @@ def _deep_update(dst: dict, src: dict) -> dict:
 
 def check_ported(cfg: ModelConfig) -> ModelConfig:
     """`cfg`, or NotImplementedError where it needs a part the port does not
-    have: image-prompt tokens in the control branch or dropout."""
+    have: image-prompt tokens in the control branch, dropout, a per-level
+    depth or vector y outside the ControlNet variant, or a conditioner whose
+    widths do not meet the UNet's; ValueError where a per-level depth does
+    not give one depth a level."""
     if cfg.control is not None and cfg.control.unet.ip_tokens:
         raise NotImplementedError(
             f"{cfg.name}: control.unet.ip_tokens={cfg.control.unet.ip_tokens}: the control "
@@ -492,7 +593,44 @@ def check_ported(cfg: ModelConfig) -> ModelConfig:
         if unet.dropout:
             raise NotImplementedError(f"{cfg.name}: {where}.dropout={unet.dropout}: the port "
                                       "has no dropout")
+        depth = unet.transformer_depth
+        if not isinstance(depth, int) and len(depth) != len(unet.channel_mult):
+            raise ValueError(f"{cfg.name}: {where}.transformer_depth={depth}: one depth a "
+                             f"level of channel_mult={unet.channel_mult}")
+        sdxl = (not isinstance(depth, int) or unet.num_head_channels > 0
+                or unet.use_linear_in_transformer or unet.adm_in_channels is not None)
+        if sdxl and cfg.control is not None and cfg.control.variant != "controlnet":
+            raise NotImplementedError(f"{cfg.name}: {where}: per-level depth, head width, "
+                                      "linear projections and y are built for the ControlNet "
+                                      f"variant, not {cfg.control.variant!r}")
+    _check_conditioner(cfg)
     return cfg
+
+
+def _check_conditioner(cfg: ModelConfig) -> None:
+    """The conditioner's widths against the UNet's: the towers' contexts
+    add up to ``context_dim`` and the pooled vector with its size
+    embeddings to ``adm_in_channels``; no y without a conditioner."""
+    unets = [cfg.unet] + ([cfg.control.unet] if cfg.control is not None else [])
+    con = cfg.conditioner
+    if con is None:
+        if any(u.adm_in_channels is not None for u in unets):
+            raise NotImplementedError(f"{cfg.name}: adm_in_channels needs a conditioner "
+                                      "that makes y")
+        return
+    towers = {"clip": cfg.clip, "clip2": con.clip2}
+    if sorted(con.context_order) != sorted(towers) or con.pooled not in towers:
+        raise ValueError(f"{cfg.name}: conditioner.context_order={con.context_order} must "
+                         f"name each of {sorted(towers)} once and pooled={con.pooled!r} one")
+    if not towers[con.pooled].projection_dim:
+        raise ValueError(f"{cfg.name}: the pooled tower {con.pooled!r} needs projection_dim")
+    ctx = sum(t.hidden_size for t in towers.values())
+    adm = towers[con.pooled].projection_dim + 6 * con.size_embed_dim
+    for u in unets:
+        if (u.context_dim, u.adm_in_channels) != (ctx, adm):
+            raise NotImplementedError(
+                f"{cfg.name}: the conditioner gives a context of {ctx} and y of {adm}; the "
+                f"UNet takes context_dim={u.context_dim}, adm_in_channels={u.adm_in_channels}")
 
 
 def load_model_config(path_or_preset: str, **overrides) -> ModelConfig:

@@ -291,32 +291,42 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 proj_in -> transformer blocks -> 1x1 proj_out, plus
-    the input (use_linear=False). proj_out starts at zero, as in JAX."""
+    the input; with ``use_linear`` (SDXL) proj_in and proj_out are Linear
+    layers on the [B, HW, C] rows instead. proj_out starts at zero, as in
+    JAX."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, use_flash: bool = True,
-                 lora: Optional[LoRAConfig] = None, ip_tokens: int = 0):
+                 lora: Optional[LoRAConfig] = None, ip_tokens: int = 0,
+                 use_linear: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
+        self.use_linear = use_linear
         self.norm = GroupNorm32(channels, eps=1e-6, n_banks=n_banks(lora))
-        self.proj_in = Conv(channels, inner, kernel_size=1)
+        proj = (lambda i, o: Dense(i, o)) if use_linear else (lambda i, o: Conv(i, o, 1))
+        self.proj_in = proj(channels, inner)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 inner, heads, dim_head, context_dim, use_flash=use_flash, lora=lora,
                 ip_tokens=ip_tokens))
-        self.proj_out = zero_(Conv(inner, channels, kernel_size=1))
+        self.proj_out = zero_(proj(inner, channels))
 
     def forward(self, x, context, lora_idx: LoraIdx = None, kv_rows=None):
         """`kv_rows`: one hoisted cross-attention k|v per block (depth), as
         ``CtrLoraPipeline.xattn_kv_tables`` gives them, or None."""
         b, c, hh, ww = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x, bank_idx=lora_idx)).contiguous(memory_format=CL)
-        inner = x.shape[1]
-        x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
+        x = self.norm(x, bank_idx=lora_idx)
+        if self.use_linear:  # the channels-last rows are a free [B, HW, C] view
+            x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+        else:
+            x = self.proj_in(x).contiguous(memory_format=CL)
+            x = x.permute(0, 2, 3, 1).reshape(b, hh * ww, x.shape[1])
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x, context, lora_idx,
                                             None if kv_rows is None else kv_rows[i])
-        x = x.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)
+        if self.use_linear:
+            return self.proj_out(x).reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x_in
+        x = x.reshape(b, hh, ww, x.shape[-1]).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

@@ -6,8 +6,10 @@ kernel runs here.
 last hidden state), 'penultimate' (the same one layer early), 'hidden' (the
 raw state entering layer ``layer_idx``, clip-skip), 'pooled' (the 'last'
 row at the EOT token, the largest id of the row) or 'projected' (pooled @
-``text_projection``). ``encode_windowed`` is the reference's 3x77-token
-"clip hack" (cldm/hack.py:32-68).
+``text_projection``). ``context_and_pooled`` gives a tower's output and
+its projected pooled vector from one forward (SDXL's OpenCLIP bigG tower:
+``CLIPTextModel(cfg, pooled=True)``). ``encode_windowed`` is the
+reference's 3x77-token "clip hack" (cldm/hack.py:32-68).
 """
 
 from __future__ import annotations
@@ -60,38 +62,57 @@ LAYERS = ("last", "penultimate", "hidden", "pooled", "projected")
 
 
 class CLIPTextModel(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    """`pooled`: the tower also gives its projected pooled vector
+    (``context_and_pooled``), so it holds ``text_projection`` whatever its
+    ``layer``."""
+
+    def __init__(self, cfg: CLIPTextConfig, pooled: bool = False):
         super().__init__()
         if cfg.layer not in LAYERS:
             raise ValueError(f"unknown layer {cfg.layer!r}; one of {LAYERS}")
         if cfg.layer == "hidden" and cfg.layer_idx is None:
             raise ValueError("layer='hidden' requires layer_idx")
-        if cfg.layer == "projected" and not cfg.projection_dim:
-            raise ValueError("layer='projected' needs projection_dim")
+        if (cfg.layer == "projected" or pooled) and not cfg.projection_dim:
+            raise ValueError("a projected pooled vector needs projection_dim")
         self.cfg = cfg
         self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.hidden_size))
         self.position_embedding = nn.Parameter(torch.zeros(cfg.max_length, cfg.hidden_size))
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", CLIPLayer(cfg))
         self.final_layer_norm = LayerNorm32(cfg.hidden_size)
-        if cfg.layer == "projected":
+        if cfg.layer == "projected" or pooled:
             self.text_projection = Dense(cfg.hidden_size, cfg.projection_dim, bias=False)
+
+    def _embed(self, input_ids: torch.Tensor):
+        """(the token and position embeddings, the causal mask)."""
+        cfg = self.cfg
+        s = input_ids.shape[1]
+        ids = input_ids.long().clamp(0, cfg.vocab_size - 1)  # out-of-vocab ids clamp
+        x = (self.token_embedding[ids] + self.position_embedding[None, :s]).to(cfg.compute_dtype)
+        return x, torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
+
+    def _hidden_stop(self) -> int:
+        """The layer whose input 'hidden' returns."""
+        cfg = self.cfg
+        stop = cfg.num_layers + cfg.layer_idx if cfg.layer_idx < 0 else cfg.layer_idx
+        if not 0 <= stop < cfg.num_layers:
+            raise ValueError(f"layer_idx {cfg.layer_idx} is outside the "
+                             f"{cfg.num_layers} layers")
+        return stop
+
+    def _pooled(self, final: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+        """The rows of `final` [B, S, hidden] at each row's EOT token."""
+        return final[torch.arange(final.shape[0], device=final.device),
+                     input_ids.long().argmax(dim=-1)]
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids [B, S] -> [B, S, hidden] fp32 ('last', 'penultimate',
         'hidden'), [B, hidden] ('pooled') or [B, projection_dim]
         ('projected')."""
         cfg = self.cfg
-        s = input_ids.shape[1]
-        ids = input_ids.long().clamp(0, cfg.vocab_size - 1)  # out-of-vocab ids clamp
-        x = (self.token_embedding[ids] + self.position_embedding[None, :s]).to(cfg.compute_dtype)
-        mask = torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
+        x, mask = self._embed(input_ids)
         if cfg.layer == "hidden":
-            stop = cfg.num_layers + cfg.layer_idx if cfg.layer_idx < 0 else cfg.layer_idx
-            if not 0 <= stop < cfg.num_layers:
-                raise ValueError(f"layer_idx {cfg.layer_idx} is outside the "
-                                 f"{cfg.num_layers} layers")
-            for i in range(stop):
+            for i in range(self._hidden_stop()):
                 x = getattr(self, f"layer_{i}")(x, mask)
             return x.float()
         for i in range(cfg.num_layers - (cfg.layer == "penultimate")):
@@ -99,9 +120,26 @@ class CLIPTextModel(nn.Module):
         final = self.final_layer_norm(x).float()
         if cfg.layer in ("last", "penultimate"):
             return final
-        pooled = final[torch.arange(final.shape[0], device=final.device),
-                       input_ids.long().argmax(dim=-1)]
+        pooled = self._pooled(final, input_ids)
         return pooled if cfg.layer == "pooled" else self.text_projection(pooled)
+
+    def context_and_pooled(self, input_ids: torch.Tensor):
+        """(the 'hidden' context [B, S, hidden] fp32, the projected pooled
+        vector [B, projection_dim] fp32) of one forward: the layers up to
+        ``layer_idx`` give the context, the rest of them, final_layer_norm
+        at each row's EOT token and ``text_projection`` the pooled vector."""
+        cfg = self.cfg
+        if cfg.layer != "hidden" or not hasattr(self, "text_projection"):
+            raise ValueError("context_and_pooled needs layer='hidden' and a tower built "
+                             "with pooled=True")
+        x, mask = self._embed(input_ids)
+        stop = self._hidden_stop()
+        for i in range(cfg.num_layers):
+            if i == stop:
+                context = x.float()
+            x = getattr(self, f"layer_{i}")(x, mask)
+        pooled = self._pooled(self.final_layer_norm(x).float(), input_ids)
+        return context, self.text_projection(pooled)
 
 
 def encode_windowed(model: CLIPTextModel, input_ids: torch.Tensor,

@@ -201,6 +201,19 @@ class TimestepEmbed(nn.Module):
         return self.dense1(F.silu(self.dense0(emb, lora_idx)), lora_idx)
 
 
+class LabelEmbed(nn.Module):
+    """The vector y [B, in] -> Dense -> SiLU -> Dense [B, dim] (SDXL's
+    ``label_emb``), added onto the time embedding."""
+
+    def __init__(self, in_channels: int, dim: int):
+        super().__init__()
+        self.dense0 = Dense(in_channels, dim)
+        self.dense1 = Dense(dim, dim)
+
+    def forward(self, y, dtype):
+        return self.dense1(F.silu(self.dense0(y.to(dtype))))
+
+
 class ResBlock(nn.Module):
     """UNet residual block. The emb_proj row ([B, C] from ``emb``, or the
     precomputed [1, C] ``emb_row`` of the samplers) folds into out_norm's

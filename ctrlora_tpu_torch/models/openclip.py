@@ -3,11 +3,13 @@
 ldm/modules/encoders/modules.py:134-186, FrozenOpenCLIPEmbedder on laion
 ViT-H-14, layer='penultimate').
 
-No config instantiates this encoder; it is kept, as in JAX, for parity with
-the reference's codebase. The tower is the port's ``CLIPTextModel`` with
-gelu and the 'penultimate' layer (23 of 24 blocks, then ln_final); only the
-checkpoint's names differ: open_clip packs q/k/v into
-``attn.in_proj_weight`` and names its blocks ``transformer.resblocks.N``.
+The ViT-H tower is kept, as in JAX, for parity with the reference's
+codebase; no config instantiates it. The tower is the port's
+``CLIPTextModel`` with gelu and the 'penultimate' layer (23 of 24 blocks,
+then ln_final); only the checkpoint's names differ: open_clip packs q/k/v
+into ``attn.in_proj_weight`` and names its blocks
+``transformer.resblocks.N``. The ViT-bigG tower is SDXL's second text
+tower (``configs.sdxl_controlnet_config``'s ``conditioner.clip2``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,15 @@ def openclip_vith_text_config(layer: str = "penultimate") -> CLIPTextConfig:
     return CLIPTextConfig(vocab_size=49408, hidden_size=1024, intermediate_size=4096,
                           num_layers=24, num_heads=16, max_length=77, layer=layer,
                           hidden_act="gelu")
+
+
+def openclip_bigg_text_config() -> CLIPTextConfig:
+    """The laion/ViT-bigG-14 text tower as SDXL reads it: the state
+    entering its last layer (no ln_final) as the context, and its
+    ``text_projection`` [1280, 1280] for the pooled vector."""
+    return CLIPTextConfig(vocab_size=49408, hidden_size=1280, intermediate_size=5120,
+                          num_layers=32, num_heads=20, max_length=77, layer="hidden",
+                          layer_idx=-1, hidden_act="gelu", projection_dim=1280)
 
 
 def convert_openclip_text(sd: Mapping[str, np.ndarray], cfg: CLIPTextConfig

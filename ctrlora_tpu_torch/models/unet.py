@@ -3,6 +3,12 @@
 vanilla ControlNet) and the hint encoder (counterpart of
 ``ctrlora_tpu/models/unet.py``).
 
+The same modules build SDXL's UNet and ControlNet (the port's own; the
+JAX package has none): a transformer depth a level (``UNetConfig.depth_at``),
+heads of a fixed width (``heads_at``), Linear projections in the
+transformers, and ``label_emb`` of the vector y (``adm_in_channels``),
+added onto the time embedding.
+
 Public tensors keep the JAX layout: latents, hints and control taps are
 NHWC, contexts [B, S, D]. Inside, activations are NCHW channels-last, so
 the layout changes at the boundary are free views.
@@ -25,8 +31,8 @@ from torch.utils.checkpoint import checkpoint
 from ctrlora_tpu_torch.configs import ControlNetConfig, LoRAConfig, UNetConfig
 from ctrlora_tpu_torch.models.attention import SpatialTransformer
 from ctrlora_tpu_torch.models.layers import (
-    CL, Conv, Downsample, GroupNorm32, LoraIdx, ResBlock, TimestepEmbed, Upsample, ZeroConv,
-    n_banks, zero_,
+    CL, Conv, Downsample, GroupNorm32, LabelEmbed, LoraIdx, ResBlock, TimestepEmbed, Upsample,
+    ZeroConv, n_banks, zero_,
 )
 
 
@@ -81,12 +87,30 @@ def decoder_plan(cfg: UNetConfig) -> List[DecoderStep]:
     return steps
 
 
+def _level(ds: int) -> int:
+    """The level of a block at downsampling factor `ds`."""
+    return ds.bit_length() - 1
+
+
 def _attn(cfg: UNetConfig, ch: int, lora: Optional[LoRAConfig] = None,
-          ip_tokens: int = 0) -> SpatialTransformer:
-    return SpatialTransformer(ch, cfg.num_heads, ch // cfg.num_heads,
-                              depth=cfg.transformer_depth, context_dim=cfg.context_dim,
+          ip_tokens: int = 0, level: int = -1) -> SpatialTransformer:
+    """The transformer of a site `ch` wide at `level` (-1: the middle)."""
+    heads = cfg.heads_at(ch)
+    return SpatialTransformer(ch, heads, ch // heads, depth=cfg.depth_at(level),
+                              context_dim=cfg.context_dim,
                               use_flash=cfg.use_flash_attention, lora=lora,
-                              ip_tokens=ip_tokens)
+                              ip_tokens=ip_tokens, use_linear=cfg.use_linear_in_transformer)
+
+
+def _embed(module: nn.Module, cfg: UNetConfig, timesteps, dtype, y=None,
+           lora_idx: LoraIdx = None) -> torch.Tensor:
+    """The time embedding, plus ``label_emb(y)`` where the model takes y."""
+    emb = module.time_embed(timesteps, dtype, lora_idx)
+    if cfg.adm_in_channels is None:
+        return emb
+    if y is None:
+        raise ValueError(f"the model takes y [B, {cfg.adm_in_channels}]; none was given")
+    return emb + module.label_emb(y, dtype)
 
 
 def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
@@ -101,7 +125,8 @@ def _build_encoder(module: nn.Module, cfg: UNetConfig, in_channels: int,
             module.add_module(f"in_{i}_res", ResBlock(ch, step.out_ch, emb_dim, lora))
             ch = step.out_ch
             if step.attn:
-                module.add_module(f"in_{i}_attn", _attn(cfg, ch, lora, ip_tokens))
+                module.add_module(f"in_{i}_attn",
+                                  _attn(cfg, ch, lora, ip_tokens, _level(step.ds)))
         else:
             module.add_module(f"in_{i}_down", Downsample(ch, step.out_ch))
     module.mid_res0 = ResBlock(ch, ch, emb_dim, lora)
@@ -118,7 +143,8 @@ def _build_decoder(module: nn.Module, cfg: UNetConfig, ch: int, ip_tokens: int =
         module.add_module(f"out_{i}_res", ResBlock(ch + step.skip_ch, step.out_ch, emb_dim))
         ch = step.out_ch
         if step.attn:
-            module.add_module(f"out_{i}_attn", _attn(cfg, ch, ip_tokens=ip_tokens))
+            module.add_module(f"out_{i}_attn",
+                              _attn(cfg, ch, ip_tokens=ip_tokens, level=_level(step.ds)))
         if step.upsample:
             module.add_module(f"out_{i}_up", Upsample(ch, ch))
     module.norm_out = GroupNorm32(ch, silu=True)
@@ -155,19 +181,25 @@ class UNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.time_embed = TimestepEmbed(cfg.model_channels)
+        if cfg.adm_in_channels is not None:
+            self.label_emb = LabelEmbed(cfg.adm_in_channels, 4 * cfg.model_channels)
         _build_decoder(self, cfg, _build_encoder(self, cfg, cfg.in_channels,
                                                  ip_tokens=cfg.ip_tokens), cfg.ip_tokens)
 
     def forward(self, x, timesteps, context, control: Optional[Sequence[torch.Tensor]] = None,
                 emb_rows: Optional[dict] = None, only_mid_control: bool = False,
-                control_mode: str = "decoder", kv_rows: Optional[dict] = None):
+                control_mode: str = "decoder", kv_rows: Optional[dict] = None,
+                y: Optional[torch.Tensor] = None):
         """x [B, H, W, C] noisy latent -> [B, H, W, C] fp32 model output.
-        emb_rows: {res_block_name: [1, C]} precomputed emb_proj rows.
-        kv_rows: {attn_site_name: per-depth k|v} hoisted cross-attention
-        projections of this `context` (``CtrLoraPipeline.xattn_kv_tables``)."""
+        emb_rows: {res_block_name: [1, C] or [B, C]} precomputed emb_proj
+        rows. kv_rows: {attn_site_name: per-depth k|v} hoisted
+        cross-attention projections of this `context`
+        (``CtrLoraPipeline.xattn_kv_tables``). y [B, adm_in_channels]: the
+        vector conditioning of a model that takes it (unread with
+        emb_rows, which hold it)."""
         cfg = self.cfg
         dt = cfg.compute_dtype
-        emb = self.time_embed(timesteps, dt) if emb_rows is None else None
+        emb = _embed(self, cfg, timesteps, dt, y) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
         kvr = lambda name: None if kv_rows is None else kv_rows.get(name)
         context = context.to(dt)
@@ -252,6 +284,8 @@ class ControlNet(nn.Module):
         ucfg = cfg.unet
         self.cfg = cfg
         self.time_embed = TimestepEmbed(ucfg.model_channels, cfg.lora)
+        if ucfg.adm_in_channels is not None:
+            self.label_emb = LabelEmbed(ucfg.adm_in_channels, 4 * ucfg.model_channels)
         if cfg.hint_mode == "image":
             self.hint_block = HintBlock(ucfg.model_channels, cfg.hint_channels)
         ch = _build_encoder(self, ucfg, ucfg.in_channels, cfg.lora)
@@ -262,14 +296,16 @@ class ControlNet(nn.Module):
 
     def forward(self, x, timesteps, context, emb_rows: Optional[dict] = None,
                 lora_idx: LoraIdx = None, hint: Optional[torch.Tensor] = None,
-                kv_rows: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
+                kv_rows: Optional[dict] = None,
+                y: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         """x [B, h, w, 4]: the latent hint ('latent') or the noisy latent
         ('image', with the pixel hint [B, 8h, 8w, c] as `hint`) -> 13 NHWC
-        taps in the compute dtype. kv_rows: as the UNet's, for the fused
-        tree (a LoRA site raises on one)."""
+        taps (10 at SDXL's three levels) in the compute dtype. kv_rows: as
+        the UNet's, for the fused tree (a LoRA site raises on one). y: as
+        the UNet's."""
         ucfg = self.cfg.unet
         dt = ucfg.compute_dtype
-        emb = self.time_embed(timesteps, dt, lora_idx) if emb_rows is None else None
+        emb = _embed(self, ucfg, timesteps, dt, y, lora_idx) if emb_rows is None else None
         row = lambda name: None if emb_rows is None else emb_rows[name]
         kvr = lambda name: None if kv_rows is None else kv_rows.get(name)
         context = context.to(dt)

@@ -18,6 +18,13 @@ LoRAs are served side by side. Text comes in as token ids
 Images and latents are NHWC. The frozen towers run without autograd;
 ``apply_control``/``apply_model`` record it when grad is enabled (the
 training step), and the samplers call them under ``torch.no_grad``.
+
+A model with a conditioner (SDXL, ``cfg.conditioner``) holds a second
+text tower ``clip2``; its context is both towers' side by side, and
+``encode_prompts`` also gives each row's vector conditioning (``vector``:
+the pooled text vector and the six micro-conditioning numbers), which
+travels with the context through CFG to ``apply_model``, where
+``embed_vector`` makes it the model's y.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from ctrlora_tpu_torch.models.lite import ControlNetLite
 from ctrlora_tpu_torch.models.unet import ControlNet, UNet
 from ctrlora_tpu_torch.models.vae import AutoencoderKL, sample_posterior
 from ctrlora_tpu_torch.models.xs import XSUNet
-from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule
+from ctrlora_tpu_torch.schedules import DiffusionSchedule, make_schedule, timestep_embedding
 from ctrlora_tpu_torch.utils import trace
 from ctrlora_tpu_torch.utils.tokenizer import default_tokenizer
 
@@ -107,7 +114,10 @@ class CtrLoraPipeline:
                 self.unet = UNet(cfg.unet)
                 self.control = build_control(cfg.control, fuse_lora)
             self.vae = AutoencoderKL(cfg.vae)
-            self.clip = CLIPTextModel(cfg.clip)
+            con = cfg.conditioner
+            self.clip = CLIPTextModel(cfg.clip, pooled=con is not None and con.pooled == "clip")
+            self.clip2 = None if con is None else CLIPTextModel(con.clip2,
+                                                                pooled=con.pooled == "clip2")
         for m in self.modules():
             to_channels_last(m.eval().requires_grad_(False))
         self.schedule: DiffusionSchedule = schedule_of(cfg.diffusion)
@@ -124,8 +134,9 @@ class CtrLoraPipeline:
 
     def modules(self) -> List[nn.Module]:
         """The UNet (or XS UNet), the control module where there is one, the
-        VAE and CLIP."""
-        return [m for m in (self.unet, self.control, self.vae, self.clip) if m is not None]
+        VAE, CLIP and the second text tower where there is one."""
+        return [m for m in (self.unet, self.control, self.vae, self.clip, self.clip2)
+                if m is not None]
 
     def load_state_dicts(self, unet, control, vae, clip) -> None:
         """Load the four state dicts (``convert.params_from_jax`` layout; the
@@ -180,11 +191,31 @@ class CtrLoraPipeline:
     def encode_text_tokens(self, token_ids: torch.Tensor) -> torch.Tensor:
         """token_ids [B, 77] -> context [B, 77, 768] fp32; [B, n*77] ids are
         encoded a 77-token window at a time and concatenated (the clip
-        hack)."""
+        hack). With a conditioner: both towers' contexts side by side
+        ([B, 77, 2048] for SDXL)."""
+        if self.clip2 is not None:
+            return self.encode_text_pooled(token_ids)[0]
         window = self.cfg.clip.max_length
         if token_ids.shape[1] == window:
             return self.clip(token_ids)
         return encode_windowed(self.clip, token_ids, window)
+
+    @torch.no_grad()
+    def encode_text_pooled(self, token_ids: torch.Tensor):
+        """(context [B, S, sum of the towers' widths], pooled [B, P]) fp32 of
+        a model with a conditioner: each tower once (spans ``text.clip_l``
+        and ``text.bigg``), the pooled tower giving its projected pooled
+        vector from the same forward; the contexts in ``context_order``."""
+        con = self.cfg.conditioner
+        out, pooled = {}, None
+        for name, tower, span in (("clip", self.clip, "text.clip_l"),
+                                  ("clip2", self.clip2, "text.bigg")):
+            with trace.span(span):
+                if name == con.pooled:
+                    out[name], pooled = tower.context_and_pooled(token_ids)
+                else:
+                    out[name] = tower(token_ids)
+        return torch.cat([out[n] for n in con.context_order], dim=-1), pooled
 
     def encode_text(self, prompts: Sequence[str], windows: int = 1) -> torch.Tensor:
         """Tokenize `prompts` (``windows`` 77-token windows each) on the host
@@ -201,6 +232,38 @@ class CtrLoraPipeline:
         b = token_ids.shape[0]
         return both[:b], both[b:]
 
+    @torch.no_grad()
+    def encode_prompts(self, token_ids, uncond_ids, size_hw=None):
+        """(context, uncond context, vector, uncond vector) of the CFG pair;
+        the vectors None for a model without a conditioner, whose pair is
+        ``encode_text_cond_uncond``'s. With one: both towers once on the
+        stacked ids; an empty negative prompt (EOT right after SOT) gives a
+        zero context and pooled vector (SDXL's zero negative
+        conditioning); each vector is the pooled vector, then the original
+        size (h, w), the crop (0, 0) and the target size (h, w) of an
+        image `size_hw` = (h, w) pixels."""
+        if self.clip2 is None:
+            return (*self.encode_text_cond_uncond(token_ids, uncond_ids), None, None)
+        b = token_ids.shape[0]
+        ctx, pooled = self.encode_text_pooled(torch.cat([token_ids, uncond_ids]))
+        keep = torch.cat([torch.ones(b, dtype=torch.bool, device=ctx.device),
+                          uncond_ids.long().argmax(dim=-1) != 1])
+        ctx = torch.where(keep[:, None, None], ctx, 0.0)
+        pooled = torch.where(keep[:, None], pooled, 0.0)
+        h, w = (int(v) for v in size_hw)
+        sizes = torch.tensor([h, w, 0, 0, h, w], dtype=pooled.dtype, device=pooled.device)
+        vector = torch.cat([pooled, sizes.expand(2 * b, 6)], dim=1)
+        return ctx[:b], ctx[b:], vector[:b], vector[b:]
+
+    def embed_vector(self, vector: torch.Tensor) -> torch.Tensor:
+        """The vector conditioning [N, P + 6] -> the model's y [N, P + 6 *
+        size_embed_dim] fp32: the pooled vector, then each micro-conditioning
+        number's sinusoidal embedding ([cos | sin], as the time step's)."""
+        d = self.cfg.conditioner.size_embed_dim
+        n, p = vector.shape[0], vector.shape[1] - 6
+        sizes = timestep_embedding(vector[:, p:].reshape(-1), d).reshape(n, 6 * d)
+        return torch.cat([vector[:, :p].float(), sizes], dim=1)
+
     # ------------------------------------------------------------------
     # the denoiser
     # ------------------------------------------------------------------
@@ -209,8 +272,8 @@ class CtrLoraPipeline:
         return self.control if cond.control is None else cond.control
 
     @torch.no_grad()
-    def emb_proj_tables(self, timesteps: torch.Tensor,
-                        conds: Sequence[Conditioning] = ()) -> Optional[dict]:
+    def emb_proj_tables(self, timesteps: torch.Tensor, conds: Sequence[Conditioning] = (),
+                        vector: Optional[torch.Tensor] = None) -> Optional[dict]:
         """Every t-dependent projection for the S sampling steps at once:
         {'unet': {res_block: [S, C]}, 'control': (one dict per cond, ...)}.
         The timestep MLP and the per-ResBlock emb_proj Linears depend only on
@@ -218,18 +281,36 @@ class CtrLoraPipeline:
         condition's rows come from its own control module and its
         ``lora_idx`` (both are LoRA sites), as in JAX. None for
         ControlNet-Lite and ControlNet-XS, as in JAX: the UNet then embeds t
-        in each call."""
+        in each call.
+
+        A model that takes y adds ``label_emb(y)`` of each row's `vector`
+        [N, ...] (the model calls' stacked vectors) to the time embedding
+        before the SiLU, so the rows differ by row: the tables are then
+        [S, N, C]. The vector's embedding and each branch's ``label_emb``
+        run once here (span ``model.vector``; counter
+        ``model.vector.rows``: the N rows)."""
         if self.is_xs or self.control_mode == "encoder":
             return None
+        udt, cdt = self.cfg.unet.compute_dtype, self.cfg.control.unet.compute_dtype
+        branches = [(self.unet, udt, None)] + [(self.control_of(c), cdt, c.lora_idx)
+                                               for c in conds]
+        labels = [None] * len(branches)
+        if self.cfg.unet.adm_in_channels is not None:
+            if vector is None:
+                raise ValueError("the model takes y: its tables need the calls' vectors")
+            with trace.span("model.vector"):
+                y = self.embed_vector(vector)
+                labels = [module.label_emb(y, dtype)[None] for module, dtype, _ in branches]
+                trace.count("model.vector.rows", vector.shape[0])
 
-        def branch(module, dtype, lora_idx=None):
-            x = F.silu(module.time_embed(timesteps, dtype, lora_idx))
+        def branch(module, dtype, lora_idx, label):
+            e = module.time_embed(timesteps, dtype, lora_idx)
+            x = F.silu(e if label is None else e[:, None] + label)
             return {name: block.emb_proj(x, lora_idx) for name, block in module.named_children()
                     if isinstance(block, ResBlock)}
 
-        cdt = self.cfg.control.unet.compute_dtype
-        return {"unet": branch(self.unet, self.cfg.unet.compute_dtype),
-                "control": tuple(branch(self.control_of(c), cdt, c.lora_idx) for c in conds)}
+        tables = [branch(*b, label) for b, label in zip(branches, labels)]
+        return {"unet": tables[0], "control": tuple(tables[1:])}
 
     @torch.no_grad()
     def xattn_kv_tables(self, context: torch.Tensor,
@@ -275,7 +356,8 @@ class CtrLoraPipeline:
     def apply_control(self, x_noisy, t, context, conds: Sequence[Conditioning],
                       control_scales: Optional[Sequence[float]] = None,
                       emb_rows: Optional[Sequence[dict]] = None,
-                      kv_rows: Optional[Sequence[Optional[dict]]] = None):
+                      kv_rows: Optional[Sequence[Optional[dict]]] = None,
+                      y: Optional[torch.Tensor] = None):
         """The control branch for each condition; each tap i scaled by
         ``control_scales[i]`` and the condition's weight (then averaged over
         H and W under ``global_average_pooling``), and the conditions
@@ -283,7 +365,9 @@ class CtrLoraPipeline:
         scales keeps the compute dtype). A latent-hint ControlNet takes the
         condition's latent as its input stream; an image-hint one (and
         ControlNet-Lite) takes x_noisy, with the pixel hint beside it.
-        kv_rows: each condition's entry of ``xattn_kv_tables``' 'control'."""
+        kv_rows: each condition's entry of ``xattn_kv_tables``' 'control'.
+        y: the model's y (``embed_vector``) where it takes one and no
+        emb_rows are given."""
         ccfg = self.cfg.control
         total = None
         for j, cond in enumerate(conds):
@@ -294,10 +378,10 @@ class CtrLoraPipeline:
                 taps = control(x_noisy, t, context, hint=cond.hint)
             elif ccfg.hint_mode == "image":
                 taps = control(x_noisy, t, context, emb_rows=rows, lora_idx=cond.lora_idx,
-                               hint=cond.hint, kv_rows=kvr)
+                               hint=cond.hint, kv_rows=kvr, y=y)
             else:
                 taps = control(cond.hint, t, context, emb_rows=rows, lora_idx=cond.lora_idx,
-                               kv_rows=kvr)
+                               kv_rows=kvr, y=y)
             if control_scales is not None:
                 taps = [c.float() * float(s) * cond.weight for c, s in zip(taps, control_scales)]
             elif len(conds) > 1 or cond.weight != 1.0:
@@ -312,7 +396,8 @@ class CtrLoraPipeline:
                     control_scales: Optional[Sequence[float]] = None,
                     control_batch_mask: Optional[torch.Tensor] = None,
                     ip_context: Optional[torch.Tensor] = None,
-                    kv_rows: Optional[Dict] = None) -> torch.Tensor:
+                    kv_rows: Optional[Dict] = None,
+                    vector: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Predicted model output (eps, or v for a v-parameterized model)
         [B, h, w, 4] fp32 for noisy latents. emb_rows: one step's rows of
         ``emb_proj_tables`` (t batch-uniform); control_scales: one factor
@@ -324,7 +409,9 @@ class CtrLoraPipeline:
         image tokens needs them and one without takes none: the port
         raises on either, and on a token count other than the UNet's, where
         JAX would take the last text tokens for image tokens. kv_rows:
-        ``xattn_kv_tables`` of this exact `context` and `conds`.
+        ``xattn_kv_tables`` of this exact `context` and `conds`. vector
+        [B, P + 6]: each row's vector conditioning (``encode_prompts``) for
+        a model that takes y, made y here where no emb_rows hold it.
 
         ControlNet-XS: one fused two-stream forward on the first
         condition's pixel hint, or the plain SD forward where there is no
@@ -344,13 +431,18 @@ class CtrLoraPipeline:
                 got = None if ip_context is None else tuple(ip_context.shape)
                 raise ValueError(f"the UNet takes {n_ip} image-prompt tokens; ip_context is "
                                  f"{got}")
+            y = None
+            if emb_rows is None and self.cfg.unet.adm_in_channels is not None:
+                if vector is None:
+                    raise ValueError("the model takes y: apply_model needs the rows' vectors")
+                y = self.embed_vector(vector)
             control = None
             if conds:
                 with trace.span("model.control"):
                     control = self.apply_control(
                         x_noisy, t, context, conds, control_scales,
                         emb_rows=emb_rows["control"] if emb_rows is not None else None,
-                        kv_rows=kv_rows["control"] if kv_rows is not None else None)
+                        kv_rows=kv_rows["control"] if kv_rows is not None else None, y=y)
                     if control_batch_mask is not None:
                         m = control_batch_mask.reshape(-1, 1, 1, 1)
                         control = tuple(c * m.to(c.dtype) for c in control)
@@ -361,7 +453,8 @@ class CtrLoraPipeline:
                                  emb_rows=emb_rows["unet"] if emb_rows is not None else None,
                                  only_mid_control=self.cfg.diffusion.only_mid_control,
                                  control_mode=self.control_mode,
-                                 kv_rows=kv_rows["unet"] if kv_rows is not None else None)
+                                 kv_rows=kv_rows["unet"] if kv_rows is not None else None,
+                                 y=y)
 
     def _apply_xs(self, x_noisy, t, context, conds, control_scales, control_batch_mask):
         if control_batch_mask is not None:

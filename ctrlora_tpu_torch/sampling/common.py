@@ -51,20 +51,25 @@ class _GuidedEps:
     (``kv_tables``: ``pipe.xattn_kv_tables`` of it and ``conds``, None where
     the pipeline has none) and every call takes them: the same products
     the sites would make each step, so no result changes (the time
-    embedding's rows are hoisted the same way)."""
+    embedding's rows are hoisted the same way). A model that takes y gets
+    each row's ``vector`` (``CtrLoraPipeline.encode_prompts``), stacked as
+    [cond; uncond] as the context is (``uncond_vector`` the uncond half's)."""
 
     def __init__(self, pipe: CtrLoraPipeline, context: torch.Tensor,
                  uncond_context: Optional[torch.Tensor],
                  conds: Optional[Sequence[Conditioning]], guidance_scale: float,
                  control_scales: Optional[Sequence[float]] = None, guess_mode: bool = False,
                  ip_context: Optional[torch.Tensor] = None,
-                 uncond_ip_context: Optional[torch.Tensor] = None):
+                 uncond_ip_context: Optional[torch.Tensor] = None,
+                 vector: Optional[torch.Tensor] = None,
+                 uncond_vector: Optional[torch.Tensor] = None):
         self.pipe = pipe
         self.guidance_scale = guidance_scale
         self.control_scales = control_scales
         self.use_cfg = uncond_context is not None and guidance_scale != 1.0
         self.cmask = None
         self.ip_context = ip_context
+        self.vector = vector
         if self.use_cfg:
             # replace() keeps every other field, the condition's own control
             # module among them
@@ -77,6 +82,8 @@ class _GuidedEps:
             if ip_context is not None:
                 self.ip_context = torch.cat(
                     [ip_context, ip_context if uncond_ip_context is None else uncond_ip_context])
+            if vector is not None:
+                self.vector = torch.cat([vector, uncond_vector])
         else:
             self.context, self.conds = context, list(conds or [])
         self.kv_tables = pipe.xattn_kv_tables(self.context, self.conds)
@@ -90,7 +97,7 @@ class _GuidedEps:
         out = self.pipe.apply_model(x_in, tvec, self.context, self.conds, emb_rows=emb_rows,
                                     control_scales=self.control_scales,
                                     control_batch_mask=self.cmask, ip_context=self.ip_context,
-                                    kv_rows=self.kv_tables)
+                                    kv_rows=self.kv_tables, vector=self.vector)
         if not self.use_cfg:
             return out
         s = self.guidance_scale if scale is None else scale
@@ -102,26 +109,39 @@ def make_guided_eps_fn(pipe: CtrLoraPipeline, context: torch.Tensor,
                        conds: Optional[Sequence[Conditioning]], guidance_scale: float,
                        control_scales: Optional[Sequence[float]] = None,
                        guess_mode: bool = False, ip_context: Optional[torch.Tensor] = None,
-                       uncond_ip_context: Optional[torch.Tensor] = None) -> "_GuidedEps":
+                       uncond_ip_context: Optional[torch.Tensor] = None,
+                       vector: Optional[torch.Tensor] = None,
+                       uncond_vector: Optional[torch.Tensor] = None) -> "_GuidedEps":
     """The guided model call every sampler makes (see ``_GuidedEps``)."""
     return _GuidedEps(pipe, context, uncond_context, conds, guidance_scale, control_scales,
-                      guess_mode, ip_context, uncond_ip_context)
+                      guess_mode, ip_context, uncond_ip_context, vector, uncond_vector)
 
 
 def make_emb_row_tables(pipe: CtrLoraPipeline, conds: Optional[Sequence[Conditioning]],
-                        timesteps: torch.Tensor
+                        timesteps: torch.Tensor, vector: Optional[torch.Tensor] = None
                         ) -> Tuple[Sequence, Callable[[Optional[torch.Tensor]], Optional[dict]]]:
     """Packs every branch's emb_proj table (the UNet's, then each
     condition's own) into one [S, n, Cmax] tensor and returns (packed,
     rows_of): rows_of(packed[i]) rebuilds step i's per-branch rows dict for
     ``pipe.apply_model`` with ONE kernel-D launch. Where the pipeline has
     no tables (ControlNet-Lite) packed is S Nones and rows_of(None) is
-    None: the samplers thread it the same way, and no D launch happens."""
+    None: the samplers thread it the same way, and no D launch happens.
+    A model that takes y has a row per model-call row (`vector`, as the
+    calls stack it): its [S, N, C] tables are not packed, packed is the
+    steps' indices and rows_of(i) gives views of step i's [N, C] rows, with
+    no launch."""
     conds = list(conds or [])
     n_conds = len(conds)
-    tables = pipe.emb_proj_tables(timesteps, conds)
+    tables = pipe.emb_proj_tables(timesteps, conds, vector)
     if tables is None:
         return [None] * len(timesteps), lambda block: None
+    if vector is not None:
+        def step_rows(i: int) -> dict:
+            return {"unet": {k: v[i] for k, v in tables["unet"].items()},
+                    "control": tuple({k: v[i] for k, v in d.items()}
+                                     for d in tables["control"])}
+
+        return range(len(timesteps)), step_rows
     flat = {f"u.{k}": v for k, v in tables["unet"].items()}
     for j, d in enumerate(tables["control"]):
         flat.update({f"c{j}.{k}": v for k, v in d.items()})

@@ -66,7 +66,9 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                 noise: Optional[torch.Tensor] = None,
                 mask_noise: Optional[torch.Tensor] = None,
                 ip_context: Optional[torch.Tensor] = None,
-                uncond_ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                uncond_ip_context: Optional[torch.Tensor] = None,
+                vector: Optional[torch.Tensor] = None,
+                uncond_vector: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns the final latents [B, h, w, 4] fp32.
 
     `x_T` is the starting noise; without it the noise comes from
@@ -79,6 +81,8 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     eta 0 without a mask the loop draws and launches nothing for noise.
     `ip_context` [B, ip_tokens, D] are a style UNet's image-prompt tokens,
     `uncond_ip_context` the uncond CFG half's (default: the same tokens).
+    `vector` / `uncond_vector` [B, P + 6]: each row's vector conditioning
+    (``CtrLoraPipeline.encode_prompts``) for a model that takes y.
     """
     device = pipe.device
     dd = ddim_schedule or make_ddim_schedule(pipe.schedule, cfg.steps, eta=cfg.eta)
@@ -100,7 +104,8 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
         keep_img = 1.0 - mask
 
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode, ip_context, uncond_ip_context)
+                                control_scales, cfg.guess_mode, ip_context, uncond_ip_context,
+                                vector, uncond_vector)
     if cfg.ucg_schedule is not None:
         if len(cfg.ucg_schedule) != n_steps:
             raise ValueError(f"ucg_schedule has {len(cfg.ucg_schedule)} scales for "
@@ -112,7 +117,8 @@ def ddim_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     order = np.arange(n_steps - 1, -1, -1)  # t descending
     ts_seq = dd.timesteps[order]
     packed, rows_of = make_emb_row_tables(
-        pipe, eps_fn.conds, torch.as_tensor(ts_seq, dtype=torch.int32, device=device))
+        pipe, eps_fn.conds, torch.as_tensor(ts_seq, dtype=torch.int32, device=device),
+        eps_fn.vector)
     sched = pipe.schedule
     v_param = v_model(pipe)
     for i, k in enumerate(order):

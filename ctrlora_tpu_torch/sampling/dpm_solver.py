@@ -101,15 +101,19 @@ def dpm_solver_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                       dynamic_thresholding_ratio: float = 0.995,
                       thresholding_max_val: float = 1.0,
                       lower_order_final: bool = True,
-                      ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      ip_context: Optional[torch.Tensor] = None,
+                      vector: Optional[torch.Tensor] = None,
+                      uncond_vector: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The multistep solver, cfg.steps model evaluations. Returns the final
     latents [B, h, w, 4] fp32. `ip_context`: a style UNet's image-prompt
-    tokens, as in ``ddim_sample``."""
+    tokens, `vector` / `uncond_vector` the rows' vector conditioning, as in
+    ``ddim_sample``."""
     data_pred = _check(order, algorithm)
     device = pipe.device
     x = initial_latents(x_T, latent_shape, generator, device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode, ip_context)
+                                control_scales, cfg.guess_mode, ip_context,
+                                vector=vector, uncond_vector=uncond_vector)
     m_fn = _model_fn(pipe, eps_fn, data_pred, thresholding, dynamic_thresholding_ratio,
                      thresholding_max_val)
 
@@ -122,7 +126,8 @@ def dpm_solver_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     hs = (lam[1:] - lam[:-1]).astype(f32)  # > 0
     ords = order_schedule(n_steps, order, lower_order_final)
     packed, rows_of = make_emb_row_tables(
-        pipe, eps_fn.conds, torch.as_tensor(nodes[:-1], dtype=torch.int32, device=device))
+        pipe, eps_fn.conds, torch.as_tensor(nodes[:-1], dtype=torch.int32, device=device),
+        eps_fn.vector)
 
     m1 = m2 = None  # the previous two model quantities
     h1 = h2 = f32(1.0)  # and their step sizes
@@ -272,14 +277,18 @@ def dpm_solver_singlestep_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                                  thresholding: bool = False,
                                  dynamic_thresholding_ratio: float = 0.995,
                                  thresholding_max_val: float = 1.0,
-                                 ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                 ip_context: Optional[torch.Tensor] = None,
+                                 vector: Optional[torch.Tensor] = None,
+                                 uncond_vector: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The singlestep solver, cfg.steps model evaluations in blocks of
     `order` (reference dpm_solver.py:827-853, method 'singlestep'). Returns
-    the final latents [B, h, w, 4] fp32."""
+    the final latents [B, h, w, 4] fp32. `vector` / `uncond_vector`: as
+    ``ddim_sample``'s."""
     data_pred = _check(order, algorithm)
     x = initial_latents(x_T, latent_shape, generator, pipe.device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode, ip_context)
+                                control_scales, cfg.guess_mode, ip_context,
+                                vector=vector, uncond_vector=uncond_vector)
     m_fn = _model_fn(pipe, eps_fn, data_pred, thresholding, dynamic_thresholding_ratio,
                      thresholding_max_val)
 

@@ -34,10 +34,13 @@ def plms_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
                 cfg: DDIMConfig = DDIMConfig(), x_T: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 control_scales: Optional[Sequence[float]] = None,
-                ip_context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ip_context: Optional[torch.Tensor] = None,
+                vector: Optional[torch.Tensor] = None,
+                uncond_vector: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns the final latents [B, h, w, 4] fp32; cfg.steps ladder rungs,
     cfg.steps + 1 model evaluations. `ip_context`: a style UNet's
-    image-prompt tokens, as in ``ddim_sample``."""
+    image-prompt tokens, `vector` / `uncond_vector` the rows' vector
+    conditioning, as in ``ddim_sample``."""
     if cfg.eta != 0.0:
         raise ValueError("PLMS requires eta=0")
     if v_model(pipe):
@@ -46,13 +49,15 @@ def plms_sample(pipe: CtrLoraPipeline, context: torch.Tensor,
     dd = make_ddim_schedule(pipe.schedule, cfg.steps)
     img = initial_latents(x_T, latent_shape, generator, device)
     eps_fn = make_guided_eps_fn(pipe, context, uncond_context, conds, cfg.guidance_scale,
-                                control_scales, cfg.guess_mode, ip_context)
+                                control_scales, cfg.guess_mode, ip_context,
+                                vector=vector, uncond_vector=uncond_vector)
     order = np.arange(dd.num_steps - 1, -1, -1)
     ts = dd.timesteps[order]
     ts_next = np.concatenate([ts[1:], [0]])  # one rung down, 0 past the end
     packed, rows_of = make_emb_row_tables(
         pipe, eps_fn.conds,
-        torch.as_tensor(np.concatenate([ts, [0]]), dtype=torch.int32, device=device))
+        torch.as_tensor(np.concatenate([ts, [0]]), dtype=torch.int32, device=device),
+        eps_fn.vector)
 
     def x_prev(x, e, k):
         a_t, a_prev = f32(dd.alphas[k]), f32(dd.alphas_prev[k])

@@ -194,18 +194,25 @@ def sample_rows(pipe: CtrLoraPipeline, hint: np.ndarray, ids: np.ndarray, nids: 
                 opts: SampleOptions, x_T: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> np.ndarray:
     """``sample_batch`` on given draws (:func:`sample_draws`, or a rank's
-    rows of them)."""
+    rows of them). A latent-hint ControlNet takes the hints' latents, an
+    image-hint one (SDXL's) the hint pixels; a model that takes y gets each
+    row's vector conditioning at the hints' size (``encode_prompts``)."""
     with trace.span("sample.request", next(_REQUESTS)):
         dev = pipe.device
         with trace.span("sample.text"):
-            ctx, unc = pipe.encode_text_cond_uncond(torch.from_numpy(np.asarray(ids)).to(dev),
-                                                    torch.from_numpy(np.asarray(nids)).to(dev))
+            ctx, unc, vec, uvec = pipe.encode_prompts(
+                torch.from_numpy(np.asarray(ids)).to(dev),
+                torch.from_numpy(np.asarray(nids)).to(dev), hint.shape[1:3])
         with trace.span("sample.hint"):
-            hz = pipe.encode_first_stage(torch.from_numpy(np.asarray(hint)).to(dev))
+            hz = torch.from_numpy(np.asarray(hint)).to(dev)
+            if pipe.cfg.control.hint_mode == "latent":
+                hz = pipe.encode_first_stage(hz)
         n_taps = len(encoder_plan(pipe.cfg.control.unet)[0]) + 1
         args = (pipe, ctx, unc, [Conditioning(hz)], tuple(x_T.shape),
                 DDIMConfig(steps=opts.steps, guidance_scale=opts.scale, eta=opts.eta))
         kw = dict(x_T=x_T, control_scales=[opts.strength] * n_taps)
+        if vec is not None:
+            kw.update(vector=vec, uncond_vector=uvec)
         if noise is not None:
             kw["noise"] = noise.transpose(0, 1)
         with trace.span("sample.sampler"):

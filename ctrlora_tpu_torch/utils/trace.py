@@ -27,7 +27,11 @@ Spans (child of):
   sample.request (index: the request's number) with sample.text,
       sample.hint, sample.sampler, sample.decode and sample.to_host (the
       clamp, uint8 and copy to the host: the host's wait for the card):
-      ``scripts/sample.sample_rows``; sample.request with sample.prep,
+      ``scripts/sample.sample_rows``; a model with a conditioner (SDXL) has
+      text.clip_l and text.bigg (its two towers, ``pipeline.
+      encode_text_pooled``) inside sample.text, and model.vector (the
+      vectors' size embedding and each branch's label_emb, once a request
+      where the time embedding is hoisted: ``pipeline.emb_proj_tables``); sample.request with sample.prep,
       sample.sampler and sample.decode: the API's and the style API's
       sampling calls, whose ``timings=`` read them.
   ddim.step, plms.step, dpm.step (index: the step): one a sampler step.
@@ -40,6 +44,8 @@ Spans (child of):
 
 Counters (:func:`summary`'s ``counters``):
   kernels.built: builds of the kernel library in this process.
+  model.vector.rows: the model-call rows (CFG rows) whose vector
+      conditioning went through label_emb in model.vector.
   train.graph.captures, train.graph.replays, train.graph.eager: training
       steps that captured their CUDA graph, replayed one (a capture's own
       step included) and ran eager (``training/step.py``).

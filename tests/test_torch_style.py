@@ -56,6 +56,7 @@ from ctrlora_tpu_torch.sampling.ddim import DDIMConfig, ddim_decode_from, ddim_s
 from ctrlora_tpu_torch.style import StyleCtrLoRA, style_config
 from ctrlora_tpu_torch.utils import ckpt_torch as bridge
 from tests.test_torch_plms_dpm import _port_pipe, _random_params
+from tests.torch_configs import jax_tree
 
 RTOL, ATOL = 2e-3, 2e-4
 IP = 2  # image-prompt tokens of the tiny configuration
@@ -617,7 +618,7 @@ def test_style_config_is_jax_style_config():
     from ctrlora_tpu.style import style_config as jax_style_config
 
     got, want = style_config(1, 128, 4), jax_style_config(1, 128, 4)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert jax_tree(got) == dataclasses.asdict(want)
     assert got.unet.ip_tokens == 4 and got.control.unet.ip_tokens == 0
     with pytest.raises(ValueError, match="ip_tokens"):
         StyleCtrLoRA(cfg=configs.tiny_test_config(n_loras=1), device="cpu")

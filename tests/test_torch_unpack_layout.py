@@ -76,7 +76,7 @@ class _TablePipe:
                        "control": [{k: t(c) for k, c in widths.items() if "output" not in k}
                                    for _ in range(n_conds)]}
 
-    def emb_proj_tables(self, timesteps, conds):
+    def emb_proj_tables(self, timesteps, conds, vector=None):
         return self.tables
 
 

@@ -2,7 +2,8 @@
 ``load_model_config`` (PyYAML) on the CPU:
 
 * every file under ``configs/`` reads to the same ModelConfig tree as JAX
-  reads it (field for field), the style config's image tokens too;
+  reads it (field for field; the port's own SDXL fields at their
+  defaults), the style config's image tokens too;
 * a ``preset:`` + overrides file, nested under ``model:`` and at the top;
 * a round trip of JAX ``save_model_config`` output;
 * a file with the cosine schedule, v_posterior and the v target, whose
@@ -24,13 +25,16 @@ from ctrlora_tpu.pipeline import CtrLoraPipeline as JaxPipeline
 
 from ctrlora_tpu_torch import configs
 from ctrlora_tpu_torch.pipeline import CtrLoraPipeline
+from tests.torch_configs import jax_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 
 
 def _tree(cfg):
-    return dataclasses.asdict(cfg)
+    """A port tree without the port's own fields (at their defaults), or a
+    JAX tree."""
+    return jax_tree(cfg) if isinstance(cfg, configs.ModelConfig) else dataclasses.asdict(cfg)
 
 
 def test_every_config_file_is_listed():
